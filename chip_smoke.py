@@ -1,4 +1,5 @@
-"""Drives the PyTorch port's eval main path on one NVIDIA card and checks it.
+"""Drives the PyTorch port's eval and training paths on one NVIDIA card and
+checks them.
 
     python3 chip_smoke.py
 
@@ -20,6 +21,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    backbone -> detection -> kNN graph -> 10-step MPN -> decode. Launch
    counts are zeroed just before and read just after; K1 must launch 10
    times per forward. Prints img/s, peak memory and graph sizes.
+6. K2 and K2b through their wrapper ``fused_typed_message_aggregate``
+   (forward, and ``torch.autograd.grad`` through it) against their plain
+   PyTorch version and autograd through it on the card, TF32 off: on
+   seeded random f32 inputs at the model_58_4 shapes and on the inputs the
+   model_58_4 training path feeds at MPN steps 0 and 9; out, d_ef, da, dwe
+   and dwa each within 1e-4 of its own largest value. Prints errors,
+   kernel and plain ms (CUDA events, median of 25; the backward alone on a
+   kept graph) and the bounds.
+7. small training step, CPU against card: ``small_train()`` with the same
+   seeded weights and synthetic batch; labels exact, loss parts, every
+   parameter's gradient and the MPN's running statistics.
+8. training at full width: model_58_4 (HigherHRNet-w32 at 512, batch 8,
+   f32, synthetic batches, seeded random weights), one warm-up step, then
+   3 timed steps with the counts zeroed just before; K2 and K2b must launch
+   10 times each per step, the loss must be finite and no step skipped.
+   Prints steps/s, img/s, peak memory and the graph and label counts.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -112,6 +129,171 @@ def check_k1(label, args, dims, tol, fused_step):
         f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return err, ms, plain_ms, bound, bound_by
+
+
+def k2_bound_ms(args, backward: bool):
+    """Least time for K2's (or K2b's) work on these inputs: inputs read once
+    and outputs written once at the memory rate, against the arithmetic
+    the valid slots need at the f32 rate (K2: the typed projection and the
+    logit; K2b: the projection again, d_ef and dwe, and the logit terms);
+    the larger. Only the valid slots' ef rows are needed (no output
+    depends on the others); every row of d_ef is an output (the invalid
+    ones are zeros) and is written."""
+    ef, a, valid, we, w_attn = args[0], args[1], args[3], args[4], args[5]
+    e, de = ef.shape
+    d = a.shape[-1]
+    n_valid = int(valid.sum())
+    ins = n_valid * de * ef.element_size() + sum(
+        t.numel() * t.element_size() for t in args[1:6])
+    if backward:
+        nbytes = ins + a.numel() * 4 + (ef.numel() + a.numel() + we.numel() + w_attn.numel()) * 4
+        flops = n_valid * (3 * 2 * de * d + 4 * de + 6 * d)
+    else:
+        nbytes = ins + a.numel() * 4
+        flops = n_valid * (2 * de * d + 2 * de + 3 * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def random_k2_inputs(seed=1, b=8, j=17, k=40, c=80, w=64):
+    rng = np.random.RandomState(seed)
+    n = b * j * k
+    e = n * c
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()  # noqa: E731
+    i = lambda x: torch.from_numpy(x.astype(np.int32)).cuda()  # noqa: E731
+    args = (f(e, w), f(n, j, w), i(rng.randint(0, j, e)), i(rng.rand(e) > 0.3),
+            f(w, j * w) * 0.2, f(w, 1) * 0.2)
+    return args, f(n, j, w), (n, j)
+
+
+def check_k2(label, args, g, dims, typed_message):
+    """K2 and K2b through the wrapper ``fused_typed_message_aggregate`` and
+    its autograd Function, against the plain version and autograd through
+    it, on the same inputs and cotangent ``g``; out, d_ef, da, dwe and dwa
+    are each held to their own largest value. Times the forward, and the
+    backward alone on a kept graph, on both sides. Returns
+    {"fwd": numbers, "bwd": numbers}."""
+    def run(fn):
+        leaves = [args[i].clone().requires_grad_() for i in (0, 1, 4, 5)]
+        out = fn(leaves[0], leaves[1], args[2], args[3], leaves[2], leaves[3], *dims)
+        grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        return out, leaves, grads
+
+    got, got_leaves, got_grads = run(typed_message.fused_typed_message_aggregate)
+    want, want_leaves, want_grads = run(typed_message.fused_typed_message_plain)
+    torch.cuda.synchronize()
+    numbers = {}
+    # f32 on both sides, sums in another order: the JAX package's kernel
+    # tolerance (tests/test_fused_kernel.py, 1e-4), relative to each
+    # output's own largest value (the training path's gradients can be as
+    # small as 1e-9)
+    for kind, names, pairs in (
+        ("fwd", ("out",), [(got, want)]),
+        ("bwd", ("d_ef", "da", "dwe", "dwa"), list(zip(got_grads, want_grads))),
+    ):
+        parts = []
+        for name, (x, y) in zip(names, pairs):
+            err, scale = (x - y).abs().max().item(), y.abs().max().item()
+            if not (np.isfinite(err) and err <= 1e-4 * scale):
+                raise SystemExit(f"K2 {kind} {label}: {name} max abs error {err} exceeds "
+                                 f"1e-4 of its max |plain| {scale}")
+            parts.append((name, err, scale))
+        if kind == "fwd":
+            ms = median_ms(lambda: typed_message.fused_typed_message_aggregate(*args, *dims))
+            plain_ms = median_ms(lambda: typed_message.fused_typed_message_plain(*args, *dims))
+        else:
+            ms = median_ms(lambda: torch.autograd.grad(got, got_leaves, g, retain_graph=True))
+            plain_ms = median_ms(
+                lambda: torch.autograd.grad(want, want_leaves, g, retain_graph=True))
+        bound, bound_by, nbytes, flops = k2_bound_ms(args, kind == "bwd")
+        errs = ", ".join(f"{n} {e:.3e} of max {s:.3e}" for n, e, s in parts)
+        log(f"K2 {kind} {label}: max abs err {errs} (tol 1e-4 of each max) "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+            f"by {bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; valid slots "
+            f"{int(args[3].sum())}/{args[3].numel()})")
+        numbers[kind] = (max(e for _, e, _ in parts), ms, plain_ms, bound, bound_by)
+    return numbers
+
+
+def capture_k2_inputs(trainer, batch, steps=(0, 9)):
+    """Runs one training forward and backward and keeps K2's inputs and the
+    cotangent K2b receives at the given MPN steps."""
+    from pemp_tpu_torch.models.mpn import layers
+
+    real = layers.fused_typed_message_aggregate
+    calls = []
+    kept = {}
+
+    def recording(*args):
+        out = real(*args)
+        step = len(calls)
+        calls.append(1)
+        if step in steps:
+            kept[step] = [tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                for a in args)]
+            out.register_hook(lambda g: kept[step].append(g.detach().clone()))
+        return out
+
+    layers.fused_typed_message_aggregate = recording
+    try:
+        trainer.optimizer.zero_grad()
+        loss, _, _ = trainer.loss(batch)
+        loss.backward()
+    finally:
+        layers.fused_typed_message_aggregate = real
+        trainer.optimizer.zero_grad()
+    torch.cuda.synchronize()
+    return kept
+
+
+def phase_small_train():
+    """small_train(), same seeded weights and batch, CPU against card."""
+    from pemp_tpu_torch.config import small_train
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    cfg = small_train()
+    batch = make_batch(np.random.RandomState(5), cfg.TRAIN.BATCH_SIZE, 64, (16, 32), 17, 30,
+                       scale_range=(0.4, 0.9))
+    runs = {}
+    state = None
+    for dev in ("cpu", "cuda"):
+        trainer = build_trainer(cfg, device=dev, seed=3)
+        if state is None:
+            state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        trainer.model.load_state_dict(state)
+        loss, logging, out = trainer.loss(batch_to_torch(batch, dev))
+        loss.backward()
+        runs[dev] = (
+            {k: float(v.detach()) for k, v in logging.items()},
+            {k: (v[0] if isinstance(v, list) else v).cpu() for k, v in out["labels"].items()},
+            {k: p.grad.cpu() for k, p in trainer.model.named_parameters() if p.grad is not None},
+            {k: b.cpu() for k, b in trainer.model.mpn.named_buffers() if "running" in k},
+        )
+    (lc, labc, gc, sc), (lg, labg, gg, sg) = runs["cpu"], runs["cuda"]
+    for key in ("node", "class", "person", "edge"):
+        if not torch.equal(labc[key], labg[key]):
+            raise SystemExit(f"small train: labels {key} differ between CPU and card")
+    # f32 on both sides (TF32 off); cuDNN and the kernels sum in other
+    # orders than the CPU: loss parts at 1e-4; gradients within 5e-3 of each
+    # tensor's largest |grad| (the CPU tests' tolerance against the JAX
+    # package, set from a float64 evaluation)
+    bad = {k: (lc[k], lg[k]) for k in lc if abs(lc[k] - lg[k]) > 1e-4 * max(1.0, abs(lc[k]))}
+    if bad:
+        raise SystemExit(f"small train: loss parts differ: {bad}")
+    if set(gc) != set(gg):
+        raise SystemExit("small train: different parameters have gradients")
+    worst = max(((gc[k] - gg[k]).abs().max() / max(gc[k].abs().max(), 1e-30)).item()
+                for k in gc if gc[k].abs().max() > 0)
+    if not worst <= 5e-3:
+        raise SystemExit(f"small train: gradients differ by {worst:.2e} of their largest")
+    stat_err = max((sc[k] - sg[k]).abs().max().item() for k in sc)
+    if not stat_err <= 1e-4:
+        raise SystemExit(f"small train: MPN running statistics differ by {stat_err}")
+    log(f"small train: CPU vs card labels exact ({int(labc['node'].sum())} positive nodes, "
+        f"{int(labc['edge'].sum())} positive edges); loss {lc['loss']:.6f} vs "
+        f"{lg['loss']:.6f}; gradients within {worst:.2e} of each tensor's largest; "
+        f"MPN running statistics within {stat_err:.2e}")
 
 
 def capture_k1_inputs(pipe, images, steps=(0, 9)):
@@ -223,20 +405,21 @@ def phase_decode():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 2
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     log(f"device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"capability {torch.cuda.get_device_capability(0)})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    from pemp_tpu_torch.ops import _build, fused_step
+    from pemp_tpu_torch.ops import _build, fused_step, typed_message
 
     t0 = time.perf_counter()
     report = _build.build_all()
@@ -310,18 +493,103 @@ def main() -> int:
         f"{int(g['edge_valid'].sum())}/{g['edge_valid'].numel()}; persons found "
         f"{int(valid.sum())}")
 
+    del pipe, persons, scoremaps, out, images
+    torch.cuda.empty_cache()
+
+    # 6. K2 and K2b against their plain version
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    k2_errs = {"fwd": [], "bwd": []}
+    args, g, dims = random_k2_inputs()
+    for way, numbers in check_k2("random f32", args, g, dims, typed_message).items():
+        k2_errs[way].append(numbers[0])
+    del args, g
+    cfg = w32_512_train()
+    bs, size = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.INPUT_SIZE
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    batches = [batch_to_torch(make_batch(rng, bs, size, tuple(cfg.DATASET.OUTPUT_SIZE), 17,
+                                         cfg.DATASET.MAX_NUM_PEOPLE), "cuda")
+               for _ in range(5)]
+    log(f"train batches: 5 synthetic batches of {bs} at {size} made in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    captured = capture_k2_inputs(trainer, batches[0])
+    k2_numbers = None
+    for step in (0, 9):
+        args, g = captured[step]
+        numbers = check_k2(f"train path step {step}", args[:6], g, args[6:], typed_message)
+        for way in k2_errs:
+            k2_errs[way].append(numbers[way][0])
+        if step == 0:
+            k2_numbers = numbers
+    del captured, args, g
+    torch.cuda.empty_cache()
+
+    # 7. small training step, CPU against card
+    phase_small_train()
+
+    # 8. training at full width
+    trainer.step(batches[1])                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    typed_message.LAUNCHES_FWD = typed_message.LAUNCHES_BWD = 0
+    timed = batches[2:]
+    losses = []
+    t0 = time.perf_counter()
+    for batch in timed:
+        loss, logging = trainer.step(batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k2_fwd, k2_bwd = typed_message.LAUNCHES_FWD, typed_message.LAUNCHES_BWD
+    steps = trainer.model.mpn.cfg["STEPS"]
+    if (k2_fwd, k2_bwd) != (steps * len(timed), steps * len(timed)):
+        raise SystemExit(f"training: K2 launched {k2_fwd} and K2b {k2_bwd} times in "
+                         f"{len(timed)} steps, expected {steps * len(timed)} each")
+    if not all(bool(torch.isfinite(x)) for x in losses) or trainer.fail_count:
+        raise SystemExit(f"training: losses {[float(x) for x in losses]}, "
+                         f"{trainer.fail_count} skipped steps")
+    lab, gr = trainer.last_output["labels"], trainer.last_output["graph"]
+    log(f"training: model_58_4 w32/{size} batch {bs} f32, {len(timed)} steps in {dt:.3f} s: "
+        f"{len(timed) / dt:.3f} steps/s, {bs * len(timed) / dt:.2f} img/s on {card}; "
+        f"K2 launches {k2_fwd}, K2b {k2_bwd} ({k2_fwd // len(timed)} and "
+        f"{k2_bwd // len(timed)} per step); losses {[round(float(x), 4) for x in losses]}; "
+        f"parts of the last {({k: round(float(v), 4) for k, v in logging.items()})}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
+        f"{int(gr['node_valid'].sum())}/{gr['node_valid'].numel()}, label-positive "
+        f"{int(lab['node'].sum())}; valid edges {int(gr['edge_valid'].sum())}/"
+        f"{gr['edge_valid'].numel()}, label-positive {int(lab['edge'][0].sum())}")
+
     ms, plain_ms, bound, bound_by = main_numbers
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_mpn_step", "route": "cuda",
         "source": "pemp_tpu_torch/csrc/fused_step.cu",
         "replaces": "pemp_tpu/ops/pallas/fused_step.py:252",
         "launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }]
+    for way, name, replaces, count in (
+        ("fwd", "fused_typed_message_aggregate", "pemp_tpu/ops/pallas/fused_typed_message.py:412",
+         k2_fwd),
+        ("bwd", "fused_typed_message_aggregate_bwd",
+         "pemp_tpu/ops/pallas/fused_typed_message.py:352", k2_bwd),
+    ):
+        _, k_ms, k_plain, k_bound, k_by = k2_numbers[way]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "pemp_tpu_torch/csrc/typed_message.cu",
+            "replaces": replaces, "launches": count, "max_abs_err": max(k2_errs[way]),
+            "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": None,
+        })
+    log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

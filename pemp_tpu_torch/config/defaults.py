@@ -1,21 +1,28 @@
-"""The port's configuration: the keys the eval slice reads, with the names
-and defaults of pemp_tpu.config.defaults, and nothing else.
+"""The port's configuration: the keys its paths read, with the names and
+defaults of pemp_tpu.config.defaults, and nothing else.
 
 A YAML file of the repo's ``configs/`` loads through :func:`update_config`
 (PyYAML is imported only there). Each of its keys is one of:
 
 * a key of the tree below: merged;
-* a key of :data:`FIXED`, whose behaviour the slice implements for one
-  value only: the file must give that value, else loading raises
+* a key of :data:`FIXED`, whose value no path of the port implements
+  otherwise (the backbone, the graph layout, collect-at-eval, the message
+  passing forms): a file giving another value raises
   ``NotImplementedError``;
-* a key of :data:`NOT_READ`, which cannot change what the eval slice
-  computes (run and logging settings, data loading, training, the other
-  backbone, the stages after decode): dropped.
+* a key of :data:`NOT_READ`, which no path reads (run and logging
+  settings, data loading, the other backbone, the label methods and losses
+  the port refuses, the stages after decode): dropped.
 
 Any other key raises ``KeyError``, and so does setting a key the tree does
 not hold. The ``MODEL.MPN`` subtree takes new keys, as in the JAX package;
-the model checks it (``models.mpn.models._check_fused_path``).
-:func:`w48_640` carries ``configs/hrnet/w48_640.yaml`` as Python, for
+the model checks it (``models.mpn.models._check_flagship``).
+
+Each path then checks the values it implements for one setting only:
+:func:`check_path` with ``"eval"`` (the builders of the eval model and
+pipeline) or ``"train"`` (the trainer), against :data:`EVAL_FIXED` or
+:data:`TRAIN_FIXED` and :func:`resolve_msg_pass`. :func:`w48_640` and
+:func:`w32_512_train` carry ``configs/hrnet/w48_640.yaml`` and
+``configs/hybrid_class_agnostic_end2end/model_58_4.yaml`` as Python, for
 machines without PyYAML.
 """
 
@@ -28,15 +35,37 @@ def _stage(modules, branches, blocks, channels):
 
 
 _C = CN({
-    "DATASET": {"NUM_JOINTS": 17},
+    "DATASET": {
+        "NUM_JOINTS": 17,
+        "MAX_NUM_PEOPLE": 30,
+        "INPUT_SIZE": 512,
+        "OUTPUT_SIZE": [128, 256],
+    },
     "MODEL": {
+        "PRETRAINED": "",
         "FEATURE_GATHER_KERNEL": 3,
+        "LOSS": {
+            "NAME": ["edge_loss"],
+            "NODE_WEIGHT": 1.0,
+            "EDGE_WEIGHT": 1.0,
+            "CLASS_WEIGHT": 1.0,
+            "USE_FOCAL": True,
+            "NODE_USE_FOCAL": True,
+            "FOCAL_ALPHA": 1.0,
+            "FOCAL_GAMMA": 2.0,
+            "EDGE_BCE_POS_WEIGHT": 1.0,
+            "INCLUDE_BORDERING_NODES": False,
+        },
         "HRNET": {
             "NUM_JOINTS": 17,
             "TAG_PER_JOINT": True,
             "FEATURE_FUSION": "avg",
             "SCOREMAP_MODE": "avg",
-            "LOSS": {"WITH_AE_LOSS": (True, False)},   # sizes the tag head
+            "LOSS": {
+                "WITH_AE_LOSS": (True, False),   # sizes the tag head
+                "WITH_HEATMAPS_LOSS": (True, True),
+                "HEATMAPS_LOSS_FACTOR": (1.0, 1.0),
+            },
             "EXTRA": {
                 "STEM_INPLANES": 64,
                 "FINAL_CONV_KERNEL": 1,
@@ -67,6 +96,7 @@ _C = CN({
             "AGGR_SUB": "None",
             "UPDATE_TYPE": "mlp",
             "SKIP": False,
+            "AUX_LOSS_STEPS": 0,
             "LATE_FUSION_POS": False,
             "NUM_JOINTS": 17,
             "NODE_THRESHOLD": 0.5,
@@ -78,37 +108,92 @@ _C = CN({
             "HYBRID_K": 5,
             "NORM_NODE_DISTANCE": False,
             "EDGE_FEATURES_TO_USE": ["position", "connection_type"],
+            "CC_METHOD": "GAEC",
+            # training labels
+            "EDGE_LABEL_METHOD": 4,
+            "MATCHING_RADIUS": 0.1,
+            "USE_NEIGHBOURS": False,
+            "WITH_BACKGROUND": False,
+            "IMAGE_CENTRIC_SAMPLING": False,
+            "WEIGHT_CLASS_LOSS": False,
+            "NODE_DROPOUT": 0.0,
         },
     },
-    # graph sizing of the JAX package (no reference equivalent)
+    "TEST": {
+        "FLIP_TEST": True,
+        "SCALE_FACTOR": [0.5, 1.0, 2.0],
+        "FILL_MEAN": True,
+        "WITH_REFINE": False,
+        "ADJUST": True,
+    },
+    "TRAIN": {
+        "LR": 3e-4,
+        "KP_LR": 1e-5,
+        "LR_FACTOR": 0.1,
+        "LR_STEP": [60, 150],
+        "W_DECAY": 0.0,
+        "KP_W_DECAY": 0.0,
+        "BATCH_SIZE": 8,
+        "END_TO_END": False,
+        "KP_FREEZE_MODE": "complete",
+        "FREEZE_BN": True,
+        "WITH_AE_LOSS": [False, False],
+    },
+    # graph sizing and routing of the JAX package (no reference equivalent)
     "TPU": {
         "NODES_PER_TYPE": 40,   # K: padded detections per joint type
         "KNN_K": 50,
         "KNN_CAP_IN": 30,       # C = KNN_K + KNN_CAP_IN slots per node
+        "MSG_PASS": "auto",
+        "MATCHER": "hungarian",
+        "S2D_DECONV": -1,
     },
 })
 
-# The only values the slice implements. The eval it runs is bench.py's:
-# HigherHRNet with the standard deconvolution, the target-major kNN graph
-# on detections, the fused MPN step with per-step outputs off, threshold
-# grouping with fill, refine and quarter adjust, one scale, no flip.
+# Values no path of the port implements otherwise: HigherHRNet with the
+# standard blocks, the target-major kNN graph on detections, per-step MPN
+# outputs only where training asks for them, and the two message-passing
+# forms with kernels (fused_step for eval, pallas for training). Refused
+# when a file is loaded.
 FIXED = {
     "MODEL.KP": ("hrnet",),
-    "MODEL.PRETRAINED": ("",),                  # weights come from the caller
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.FUSE_METHOD": ("SUM",) for i in (2, 3, 4)},
     "MODEL.GC.GRAPH_TYPE": ("knn",),
     "MODEL.GC.USE_GT": (False,),
-    "MODEL.GC.CC_METHOD": ("threshold",),
     "TPU.TARGET_MAJOR": (True,),
-    "TPU.MSG_PASS": ("fused_step",),
     "TPU.COLLECT_AUX": (False,),
-    "TPU.S2D_DECONV": (-1, 0),                  # -1 picks the standard form off a TPU
+    "TPU.MSG_PASS": ("auto", "fused_step", "pallas"),
+}
+
+# The eval path is bench.py's: weights from the caller, threshold grouping
+# with fill, refine and quarter adjust, one scale, no flip, the standard
+# deconvolution (-1 picks it off a TPU).
+EVAL_FIXED = {
+    "MODEL.PRETRAINED": ("",),
+    "MODEL.GC.CC_METHOD": ("threshold",),
+    "TPU.S2D_DECONV": (-1, 0),
     "TEST.FLIP_TEST": (False,),
     "TEST.SCALE_FACTOR": ([1.0],),
     "TEST.FILL_MEAN": (True,),
     "TEST.WITH_REFINE": (True,),
     "TEST.ADJUST": (True,),
+}
+
+# The training path is model_58_4's: edge labels by method 6 without the
+# neighbour pass, the auction matcher, no node dropout or image-centric
+# sampling, an unweighted class loss, the backbone's BatchNorm frozen and
+# no associative-embedding loss.
+TRAIN_FIXED = {
+    "MODEL.GC.EDGE_LABEL_METHOD": (6,),
+    "MODEL.GC.USE_NEIGHBOURS": (False,),
+    "MODEL.GC.WITH_BACKGROUND": (False,),
+    "MODEL.GC.IMAGE_CENTRIC_SAMPLING": (False,),
+    "MODEL.GC.WEIGHT_CLASS_LOSS": (False,),
+    "MODEL.GC.NODE_DROPOUT": (0.0,),
+    "TRAIN.FREEZE_BN": (True,),
+    "TRAIN.WITH_AE_LOSS": ([False, False],),
+    "TPU.MATCHER": ("hungarian", "auction"),   # anything but greedy is the auction
 }
 
 
@@ -121,29 +206,30 @@ NOT_READ = frozenset({
     "OUTPUT_DIR", "LOG_DIR", "DATA_DIR", "GPUS", "WORKERS", "PRINT_FREQ", "CUDNN",
     "AUTO_RESUME", "PIN_MEMORY", "RANK", "VERBOSE", "DIST_BACKEND",
     "MULTIPROCESSING_DISTRIBUTED",
-    # data loading and augmentation (the network is fully convolutional)
-    *_under("DATASET", "ROOT DATASET WITH_CENTER MAX_NUM_PEOPLE SCALING_TYPE SIGMA "
-                       "HEAT_GENERATOR MAX_ROTATION MIN_SCALE MAX_SCALE SCALE_TYPE "
-                       "MAX_TRANSLATE INPUT_SIZE OUTPUT_SIZE FLIP"),
-    # training: losses, schedules, graph labels, backbone initialisation
-    "TRAIN", "UB", "TPU.MATCHER",
-    *_under("MODEL", "LOSS AUX_STEPS WITH_FLIP_KERNEL FOCAL_LOSS"),
+    # data loading and augmentation (the trainer's batches are synthetic)
+    *_under("DATASET", "ROOT DATASET WITH_CENTER SCALING_TYPE SIGMA HEAT_GENERATOR "
+                       "MAX_ROTATION MIN_SCALE MAX_SCALE SCALE_TYPE MAX_TRANSLATE FLIP"),
+    # epochs, resumption and splits (the trainer runs a given number of steps)
+    *_under("TRAIN", "SPLIT START_EPOCH END_EPOCH CONTINUE SPLIT_OPTIMIZER FINETUNE "
+                     "LOSS_REDUCTION USE_LABEL_MASK USE_BATCH_INDEX"),
+    "UB",
+    # read only by the loss factories, label methods and heads the port refuses
+    *_under("MODEL", "AUX_STEPS WITH_FLIP_KERNEL FOCAL_LOSS"),
+    *_under("MODEL.LOSS", "TAG_WEIGHT SYNC_TAGS SYNC_GT_TAGS EDGE_WITH_LOGITS "
+                          "NODE_BCE_POS_WEIGHT LOSS_WEIGHTS"),
     *_under("MODEL.HRNET", "PRETRAINED SYNC_BN"),
-    *_under("MODEL.HRNET.LOSS", "NUM_STAGES WITH_HEATMAPS_LOSS HEATMAPS_LOSS_FACTOR "
-                                "AE_LOSS_TYPE PUSH_LOSS_FACTOR PULL_LOSS_FACTOR"),
+    *_under("MODEL.HRNET.LOSS", "NUM_STAGES AE_LOSS_TYPE PUSH_LOSS_FACTOR PULL_LOSS_FACTOR"),
     "MODEL.HRNET.EXTRA.PRETRAINED_LAYERS",
-    *_under("MODEL.GC", "CHEAT USE_NEIGHBOURS EDGE_LABEL_METHOD WITH_BACKGROUND "
-                        "MATCHING_RADIUS INCLUSION_RADIUS GT_FOR_END2END "
-                        "IMAGE_CENTRIC_SAMPLING NODE_MATCHING_RADIUS "
-                        "NODE_INCLUSION_RADIUS WEIGHT_CLASS_LOSS NODE_DROPOUT"),
+    *_under("MODEL.GC", "CHEAT INCLUSION_RADIUS GT_FOR_END2END NODE_MATCHING_RADIUS "
+                        "NODE_INCLUSION_RADIUS"),
     # names and sizes the JAX package does not read either
     *_under("MODEL", "KP_OUTPUT_DIM FEATURE_GATHER_PADDING"),
     *_under("MODEL.HRNET", "NAME INPUT_SIZE OUTPUT_SIZE"),
     "MODEL.GC.NAME",
     # the other backbone (MODEL.KP is fixed to hrnet)
     "MODEL.HG",
-    # evaluation sets, test-time augmentation and output formatting, which
-    # come after the persons the pipeline returns
+    # evaluation sets and output formatting, which come after the persons
+    # the pipeline returns
     *_under("TEST", "SPLIT NUM_EVAL PROJECT_TO_IMAGE PROJECT2IMAGE REFINE_COMP "
                     "WITH_HEATMAPS WITH_AE FLIP_AND_REARANGE WITH_POSE_FILTER SCORING"),
     # how the JAX package runs on a TPU; the working type is the entry
@@ -153,25 +239,61 @@ NOT_READ = frozenset({
 })
 
 
-def _drop_unread(tree: dict, prefix: str = "") -> dict:
-    """``tree`` without its :data:`FIXED` and :data:`NOT_READ` keys; raises
-    on a fixed key whose value the slice does not implement."""
+def _drop_unread(tree: dict, prefix: str = "", node=None) -> dict:
+    """``tree`` without its :data:`NOT_READ` keys and the :data:`FIXED`
+    keys the tree does not hold; raises on a fixed key whose value no path
+    implements."""
+    node = _C if node is None else node
     kept = {}
     for k, v in tree.items():
         key = prefix + k
-        if key in FIXED:
-            if v not in FIXED[key]:
-                raise NotImplementedError(
-                    f"{key}={v!r}: the port implements only {FIXED[key]}")
-        elif key in NOT_READ:
+        if key in FIXED and v not in FIXED[key]:
+            raise NotImplementedError(
+                f"{key}={v!r}: the port implements only {FIXED[key]}")
+        if key in NOT_READ or (key in FIXED and k not in node):
             continue
-        elif isinstance(v, dict):
-            sub = _drop_unread(v, key + ".")
+        child = node.get(k) if isinstance(node, dict) else None
+        if isinstance(v, dict) and isinstance(child, dict):
+            sub = _drop_unread(v, key + ".", child)
             if sub or not v:
                 kept[k] = sub
         else:
             kept[k] = v
     return kept
+
+
+def _lookup(cfg, key: str):
+    for part in key.split("."):
+        cfg = cfg[part]
+    return cfg
+
+
+def resolve_msg_pass(cfg, train: bool) -> str:
+    """``TPU.MSG_PASS`` as the JAX package resolves it on a TPU
+    (pemp_tpu.models.pose_estimation.build_pose_model): ``auto`` is the
+    fused step (K1) at eval, where per-step outputs are off, and the
+    per-op kernel with its backward (K2, K2b) in training, which collects
+    them."""
+    msg_pass = cfg.TPU.MSG_PASS
+    if msg_pass == "auto":
+        msg_pass = "pallas" if train else "fused_step"
+    return msg_pass
+
+
+def check_path(cfg, path: str) -> None:
+    """Raises ``NotImplementedError`` unless ``cfg`` asks the ``"eval"`` or
+    ``"train"`` path for what the port implements there."""
+    fixed = {"eval": EVAL_FIXED, "train": TRAIN_FIXED}[path]
+    for key, allowed in fixed.items():
+        value = _lookup(cfg, key)
+        if value not in allowed:
+            raise NotImplementedError(
+                f"{key}={value!r}: the port's {path} path implements only {allowed}")
+    want = "pallas" if path == "train" else "fused_step"
+    got = resolve_msg_pass(cfg, path == "train")
+    if got != want:
+        raise NotImplementedError(
+            f"TPU.MSG_PASS={cfg.TPU.MSG_PASS!r}: the port's {path} path runs only {want!r}")
 
 
 def get_config():
@@ -187,8 +309,31 @@ def update_config(cfg, config_file):
     return cfg
 
 
-# configs/hrnet/w48_640.yaml, the keys of it that the slice reads
+# the flagship MPN head, as both presets' files give it
+_FLAGSHIP_MPN = {
+    "NAME": "NodeClassificationMPN",
+    "STEPS": 10,
+    "NODE_STEPS": 0,
+    "AGGR_TYPE": "per_type",
+    "NODE_INPUT_DIM": 128,
+    "EDGE_INPUT_DIM": 19,
+    "NODE_FEATURE_DIM": 64,
+    "EDGE_FEATURE_DIM": 64,
+    "EDGE_FEATURE_HIDDEN": 64,
+    "NODE_EMB": {"BN": True, "END_WITH_RELU": False, "OUTPUT_SIZES": [128, 64, 64]},
+    "EDGE_EMB": {"BN": True, "END_WITH_RELU": False, "OUTPUT_SIZES": [32, 64, 64, 64]},
+    "EDGE_CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 1]},
+    "NODE_CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 1]},
+    "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 17]},
+    "BN": False,
+    "AGGR": "add",
+    "AGGR_SUB": "node_edge_attn",
+    "SKIP": True,
+}
+
+# configs/hrnet/w48_640.yaml, the keys of it that the port reads
 W48_640 = {
+    "DATASET": {"INPUT_SIZE": 640, "OUTPUT_SIZE": [160, 320]},
     "MODEL": {
         "HRNET": {
             "NUM_JOINTS": 17,
@@ -204,35 +349,18 @@ W48_640 = {
                            "NUM_BASIC_BLOCKS": 4, "CAT_OUTPUT": [True]},
             },
         },
-        "MPN": {
-            "NAME": "NodeClassificationMPN",
-            "STEPS": 10,
-            "NODE_STEPS": 0,
-            "AGGR_TYPE": "per_type",
-            "NODE_INPUT_DIM": 128,
-            "EDGE_INPUT_DIM": 19,
-            "NODE_FEATURE_DIM": 64,
-            "EDGE_FEATURE_DIM": 64,
-            "EDGE_FEATURE_HIDDEN": 64,
-            "NODE_EMB": {"BN": True, "END_WITH_RELU": False, "OUTPUT_SIZES": [128, 64, 64]},
-            "EDGE_EMB": {"BN": True, "END_WITH_RELU": False,
-                         "OUTPUT_SIZES": [32, 64, 64, 64]},
-            "EDGE_CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 1]},
-            "NODE_CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 1]},
-            "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 17]},
-            "BN": False,
-            "AGGR": "add",
-            "AGGR_SUB": "node_edge_attn",
-            "SKIP": True,
-            "NODE_THRESHOLD": 0.1,
-        },
+        "MPN": {**_FLAGSHIP_MPN, "NODE_THRESHOLD": 0.1},
         "GC": {
             "POOL_KERNEL_SIZE": 3,
+            "EDGE_LABEL_METHOD": 6,
             "MASK_CROWDS": True,
             "DETECT_THRESHOLD": 0.1,
+            "MATCHING_RADIUS": 0.5,
+            "CC_METHOD": "threshold",
             "NORM_NODE_DISTANCE": True,
         },
     },
+    "TEST": {"ADJUST": True, "FLIP_TEST": False, "WITH_REFINE": True, "SCALE_FACTOR": [1.0]},
 }
 
 
@@ -245,12 +373,65 @@ def w48_640():
     return cfg
 
 
+# configs/hybrid_class_agnostic_end2end/model_58_4.yaml, the keys of it that
+# the port reads: HigherHRNet-w32 at 512 (the default tree), the flagship
+# MPN, method-6 labels, losses [edge, node, class, heatmap], split-LR AdamW
+MODEL_58_4 = {
+    "DATASET": {"MAX_NUM_PEOPLE": 30},
+    "MODEL": {
+        "PRETRAINED": "log/PoseEstimationBaseline/Real_node/58_4/pose_estimation.ckpt",
+        "HRNET": {
+            "NUM_JOINTS": 17,
+            "TAG_PER_JOINT": True,
+            "FEATURE_FUSION": "small",
+            "LOSS": {"WITH_AE_LOSS": [True, False], "WITH_HEATMAPS_LOSS": [True, True],
+                     "HEATMAPS_LOSS_FACTOR": [1.0, 1.0]},
+        },
+        "MPN": {**_FLAGSHIP_MPN, "NODE_THRESHOLD": 1.0},
+        "GC": {
+            "USE_NEIGHBOURS": False,
+            "POOL_KERNEL_SIZE": 3,
+            "EDGE_LABEL_METHOD": 6,
+            "MASK_CROWDS": True,
+            "DETECT_THRESHOLD": 0.1,
+            "MATCHING_RADIUS": 0.5,
+            "CC_METHOD": "GAEC",
+            "NORM_NODE_DISTANCE": True,
+        },
+        "LOSS": {"NAME": ["edge", "node", "class", "heatmap"], "USE_FOCAL": True,
+                 "FOCAL_GAMMA": 2.0, "FOCAL_ALPHA": 1.0},
+    },
+    "TEST": {"ADJUST": True, "FLIP_TEST": False, "WITH_REFINE": True, "SCALE_FACTOR": [1.0]},
+    "TRAIN": {
+        "LR": 3.0e-4,
+        "KP_LR": 1.0e-6,
+        "KP_W_DECAY": 0.0001,
+        "LR_FACTOR": 0.1,
+        "LR_STEP": [10, 30],
+        "BATCH_SIZE": 8,
+        "END_TO_END": True,
+        "FREEZE_BN": True,
+        "KP_FREEZE_MODE": "nothing",
+    },
+}
+
+
+def w32_512_train():
+    """model_58_4, the flagship training configuration (HigherHRNet-w32 at
+    512, batch 8), as ``update_config(get_config(),
+    "configs/hybrid_class_agnostic_end2end/model_58_4.yaml")`` gives it,
+    built without PyYAML."""
+    cfg = get_config()
+    cfg.merge_from_other(MODEL_58_4)
+    return cfg
+
+
 # A narrow HigherHRNet (widths 8-32, one block per branch) at 64x64 with the
 # flagship MPN widths, K = 8 detections per type and 3 MPN steps: the size
-# the CPU parity tests and the card's CPU-against-card check run at. K = 8
-# keeps 17 * K a multiple of 8, which the JAX package's fused-step tiling
-# needs (pemp_tpu.models.mpn.layers.fused_tile_ok); otherwise the JAX side
-# would take its unfused path.
+# the CPU parity tests and the card's CPU-against-card checks run at. K = 8
+# keeps 17 * K a multiple of 8, which the JAX package's Pallas tiling needs
+# (pemp_tpu.models.mpn.layers.fused_tile_ok); otherwise the JAX side would
+# take its unfused path.
 SMALL = {
     "MODEL": {
         "HRNET": {
@@ -273,4 +454,14 @@ def small():
     """:data:`W48_640` cut to :data:`SMALL`'s size."""
     cfg = w48_640()
     cfg.merge_from_other(SMALL)
+    return cfg
+
+
+def small_train():
+    """:data:`MODEL_58_4` cut to :data:`SMALL`'s size: 64x64 input with
+    output maps of 16 and 32, batch 2."""
+    cfg = w32_512_train()
+    cfg.merge_from_other(SMALL)
+    cfg.merge_from_other({"DATASET": {"INPUT_SIZE": 64, "OUTPUT_SIZE": [16, 32]},
+                          "TRAIN": {"BATCH_SIZE": 2}})
     return cfg

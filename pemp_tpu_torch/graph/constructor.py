@@ -1,11 +1,19 @@
-"""Batched, static-shape graph construction for eval (counterpart of
-pemp_tpu.graph.constructor, ``testing=True`` without labels).
+"""Batched, static-shape graph construction (counterpart of
+pemp_tpu.graph.constructor), with the training labels of edge label
+method 6 when ground truth is given.
 
 Detection (NMS + per-type top-K) gives J*K padded nodes per image; the
 target-major kNN builder gives C = k + cap_in in-edge slots per node. The
 per-image graphs are flattened into one disjoint graph by offsetting node
 ids (reference: src/graph_constructor/ConstructGraph.py:221-231), so the MPN
 runs once over (B*N, B*N*C).
+
+Labels (method 6 without the neighbour pass, reference
+ConstructGraph.py:769-942): an OKS-style similarity between every GT joint
+and every detection, thresholded at the matching radius, is matched twice
+with the auction (same-type pairs, then cross-type pairs for the rows the
+first pass left unmatched); matched detections take their GT row's person
+and type, and an edge is positive when both ends belong to one person.
 """
 
 from __future__ import annotations
@@ -18,14 +26,16 @@ import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.detection import joint_det_from_scoremaps
 from pemp_tpu_torch.ops.knn import knn_edges_target_major
+from pemp_tpu_torch.ops.matching import auction_assignment
 
 
 @dataclasses.dataclass(frozen=True)
 class GCConfig:
     """Static graph settings from config.MODEL.GC and the TPU sizing keys.
 
-    Only what the eval path reads; the kNN layout is the asymmetric one that
-    ``TPU.MSG_PASS=fused_step`` selects in the JAX package.
+    Only what the port's paths read; the kNN layout is the asymmetric one
+    that ``TPU.MSG_PASS`` ``fused_step`` and ``pallas`` select in the JAX
+    package.
     """
 
     num_joints: int = 17
@@ -38,6 +48,7 @@ class GCConfig:
     edge_features: tuple = ("position", "connection_type")
     norm_node_distance: bool = False
     mask_crowds: bool = True
+    matching_radius: float = 0.5
 
     @classmethod
     def from_config(cls, config) -> "GCConfig":
@@ -56,6 +67,7 @@ class GCConfig:
             edge_features=tuple(gc.EDGE_FEATURES_TO_USE),
             norm_node_distance=gc.NORM_NODE_DISTANCE,
             mask_crowds=gc.MASK_CROWDS,
+            matching_radius=gc.MATCHING_RADIUS,
         )
 
     @property
@@ -79,6 +91,14 @@ class GraphBatch:
     node_valid: Any        # (N*,) bool
     edge_valid: Any        # (E*,) bool
     edge_src_local: Any    # (E*,) source index WITHIN its image
+    # training labels (None without ground truth)
+    edge_labels: Any = None      # (E*,)
+    node_labels: Any = None      # (N*,)
+    node_classes: Any = None     # (N*,)
+    node_persons: Any = None     # (N*,)
+    label_mask: Any = None       # (E*,)
+    label_mask_node: Any = None  # (N*,)
+    class_mask: Any = None       # (N*,)
 
 
 def _edge_features(cfg: GCConfig, det, edge_index, hw):
@@ -105,11 +125,91 @@ def _edge_features(cfg: GCConfig, det, edge_index, hw):
     return torch.cat([dx[:, None], dy[:, None], conn], dim=-1)
 
 
-def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=None):
-    """Eval graph construction.
+def _similarity(det, det_valid, joints_gt, factors, hw):
+    """OKS-style similarity between every GT joint (rows: person-major
+    (person, joint) entries) and every detection, per image.
+
+    det (B, N, 3), det_valid (B, N), joints_gt (B, P, J, 3), factors
+    (B, P, J). reference: ConstructGraph.py:775-782.
+    """
+    b, p, j = joints_gt.shape[:3]
+    gt = joints_gt.reshape(b, p * j, 3).float()
+    gt_valid = gt[..., 2] > 0
+    fac = factors.reshape(b, p * j).float()
+    gt_type = torch.arange(j, device=det.device).repeat(p)
+    gt_person = torch.arange(p, device=det.device).repeat_interleave(j)
+    gt_xy = torch.clamp(torch.round(gt[..., :2]), 0, float(max(hw)))
+    diff = gt_xy[:, :, None, :] - det[:, None, :, :2].float()
+    d2 = torch.sum(diff ** 2, dim=-1)
+    sim = torch.exp(-d2 / torch.clamp(fac[:, :, None], min=1e-12))
+    sim = torch.where(gt_valid[:, :, None] & det_valid[:, None, :], sim, torch.zeros_like(sim))
+    same_type = gt_type[None, :, None] == det[:, None, :, 2]
+    return sim, same_type, gt_valid, gt_person, gt_type
+
+
+def _labels_from_matching(num_det, col_of_row, row_valid, gt_person, gt_type):
+    """Scatter matched GT attributes onto detections, per image. Where two
+    rows claim one detection the largest row index wins, as the
+    reference's ordered index_put (ConstructGraph.py:929-940)."""
+    b, r = col_of_row.shape
+    matched = row_valid & (col_of_row >= 0)
+    row_ids = torch.arange(r, device=col_of_row.device).expand(b, r)
+    tgt = torch.where(matched, col_of_row, torch.full_like(col_of_row, num_det))
+    winner = torch.full((b, num_det + 1), -1, dtype=torch.int64, device=col_of_row.device)
+    winner = winner.scatter_reduce(1, tgt, torch.where(matched, row_ids, -1), "amax",
+                                   include_self=True)[:, :num_det]
+    has = winner >= 0
+    w = torch.clamp(winner, 0, r - 1)
+    node_labels = has.float()
+    node_persons = torch.where(has, gt_person[w], -1).to(torch.int32)
+    node_classes = torch.where(has, gt_type[w], 0).to(torch.int32)
+    return node_labels, node_persons, node_classes
+
+
+def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, factors, hw):
+    """Method 6 (semi-agnostic two-pass, reference method==2 branch,
+    ConstructGraph.py:807-829) without the neighbour pass, for the images
+    of a batch at once. edge_index (B, 2, E) holds per-image node ids.
+    Returns per-image labels and masks, as pemp_tpu's _construct_labels."""
+    b, n = det.shape[:2]
+    sim, same_type, gt_valid, gt_person, gt_type = _similarity(
+        det, det_valid, joints_gt, factors, hw)
+    zero = torch.zeros_like(sim)
+    sim_same = torch.where(same_type, sim, zero)
+    sim_same = torch.where(sim_same < cfg.matching_radius, zero, sim_same)
+    sim_diff = torch.where(same_type, zero, sim)
+    sim_diff = torch.where(sim_diff < cfg.matching_radius, zero, sim_diff)
+    # both passes of every image in one batched auction
+    cols = auction_assignment(torch.cat([sim_same, sim_diff], dim=0))
+    col_same, col_diff = cols[:b], cols[b:]
+    col = torch.where(col_same >= 0, col_same, col_diff)
+    matched_row = gt_valid & (col >= 0)
+    col = torch.where(matched_row, col, torch.full_like(col, -1))
+
+    node_labels, node_persons, node_classes = _labels_from_matching(
+        n, col, gt_valid, gt_person, gt_type)
+    src, dst = edge_index[:, 0].long(), edge_index[:, 1].long()
+    ps, pd = torch.gather(node_persons, 1, src), torch.gather(node_persons, 1, dst)
+    edge_labels = ((ps >= 0) & (ps == pd)).float()
+    # no neighbour pass: nothing is ambiguous, so every edge counts where the
+    # image has a positive edge at all (reference create_loss_mask)
+    any_pos = edge_labels.amax(dim=1, keepdim=True) > 0
+    label_mask = any_pos.float().expand_as(edge_labels)
+    return dict(
+        edge_labels=edge_labels, node_labels=node_labels, node_classes=node_classes,
+        node_persons=node_persons, label_mask=label_mask,
+        label_mask_node=torch.ones_like(node_labels), class_mask=node_labels,
+    )
+
+
+def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=None,
+                          joints_gt=None, factors=None):
+    """Graph construction, with method-6 labels when ``joints_gt`` is given.
 
     scoremaps (B, H, W, J), features (B, H, W, F), tagmaps (B, H, W, J),
-    masks (B, H, W) crowd masks or None. Returns the flattened GraphBatch.
+    masks (B, H, W) crowd masks or None, joints_gt (B, P, J, 3) GT joints in
+    map coordinates, factors (B, P, J) their OKS factors. Returns the
+    flattened GraphBatch.
     """
     b, h, w, j = scoremaps.shape
     n = j * cfg.nodes_per_type
@@ -129,7 +229,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
     offsets = (torch.arange(b, dtype=torch.int32, device=det.device) * n)[:, None, None]
     edge_index = (ei + offsets).transpose(0, 1).reshape(2, b * e)
     det_flat = det.reshape(b * n, 3)
-    return GraphBatch(
+    gb = GraphBatch(
         x=node_feats.reshape(b * n, -1),
         edge_attr=_edge_features(cfg, det_flat, edge_index, (h, w)),
         edge_index=edge_index,
@@ -141,3 +241,8 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
         edge_valid=ev.reshape(b * e),
         edge_src_local=ei[:, 0].reshape(b * e),
     )
+    if joints_gt is not None:
+        labels = _construct_labels(cfg, det, valid, ei, joints_gt, factors, (h, w))
+        for name, value in labels.items():
+            setattr(gb, name, value.reshape(-1))
+    return gb

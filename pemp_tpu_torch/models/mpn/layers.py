@@ -1,12 +1,14 @@
 """Message-passing layers on padded, static-shape graphs (counterpart of
-pemp_tpu.models.mpn.layers, eval path).
+pemp_tpu.models.mpn.layers).
 
 Module and parameter names follow the original reference
 (src/Models/MessagePassingNetwork/layers.py), so its ``state_dict`` keys
-load unchanged. Only the fused-step form of ``TypeAwareMPNLayer`` is
-ported: agnostic edge MLP, ``node_edge_attn`` aggregation, skip
-connections, the target-major blocked layout with type-blocked nodes and
-an ``mlp`` update. Every layer computes in its input's dtype.
+load unchanged. Two forms of the flagship ``TypeAwareMPNLayer`` are
+ported, both with an agnostic edge MLP, ``node_edge_attn`` aggregation,
+skip connections, the target-major blocked layout with type-blocked nodes
+and an ``mlp`` update: the fused step (K1, eval) and the split edge MLP
+followed by the typed message kernel (K2 and its backward K2b, training).
+Every layer computes in its input's dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pemp_tpu_torch.ops.fused_step import fused_mpn_step
+from pemp_tpu_torch.ops.typed_message import fused_typed_message_aggregate
 
 # COCO joint order: nose, eye_l, eye_r, ear_l, ear_r, sho_l, sho_r, elb_l,
 # elb_r, wri_l, wri_r, hip_l, hip_r, kne_l, kne_r, ank_l, ank_r
@@ -54,25 +57,41 @@ class Linear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """Eval BatchNorm1d over running statistics, in float32, cast back.
+    """BatchNorm1d over the element axis with a validity mask, in float32,
+    cast back (pemp_tpu.models.mpn.layers.MaskedBatchNorm).
 
-    The JAX module masks padded elements out of the training statistics;
-    at eval only the running statistics are read, so no mask is needed.
+    In training mode the statistics are taken over the rows ``valid``
+    marks: the biased variance normalises, the unbiased one enters the
+    running update, momentum 0.1, so padding never touches either. In eval
+    mode the running statistics are read.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
-        inv = 1.0 / torch.sqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * inv * self.weight + self.bias
+    def forward(self, x, valid=None):
+        xf = x.float()
+        if self.training:
+            w = valid.to(torch.float32)[:, None]
+            count = torch.clamp(w.sum(), min=1.0)
+            mean = (xf * w).sum(dim=0) / count
+            var = (torch.square(xf - mean) * w).sum(dim=0) / count
+            with torch.no_grad():
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        y = (xf - mean) * inv * self.weight + self.bias
         return y.to(x.dtype)
 
 
 class MLP(nn.Sequential):
     """reference _make_mlp (layers.py:8-29): Linear / ReLU / BN stacks, in
     the reference's Sequential order, so keys read ``<name>.<seq>.weight``.
-    ReLU precedes BN; the final Linear gets neither unless end_with_relu."""
+    ReLU precedes BN; the final Linear gets neither unless end_with_relu.
+    ``valid`` masks the rows of the BatchNorm statistics in training."""
 
     def __init__(self, in_dim: int, hidden_dims, bn: bool = False,
                  end_with_relu: bool = False):
@@ -86,6 +105,11 @@ class MLP(nn.Sequential):
                     layers.append(MaskedBatchNorm(d))
             in_dim = d
         super().__init__(*layers)
+
+    def forward(self, x, valid=None):
+        for layer in self:
+            x = layer(x, valid) if isinstance(layer, MaskedBatchNorm) else layer(x)
+        return x
 
 
 class _TypedNodeMLP(nn.Module):
@@ -106,7 +130,9 @@ class _TypedNodeMLP(nn.Module):
 
 
 class TypeAwareMPNLayer(nn.Module):
-    """Flagship layer, fused-step form. reference: layers.py:157-258.
+    """Flagship layer. reference: layers.py:157-258. ``forward`` is the
+    fused-step form (K1), ``forward_typed`` the split form with the typed
+    message kernel (K2, differentiable through K2b).
 
     ``node_in`` / ``edge_in`` are the widths of the skip-concatenated node
     and edge inputs; ``init_edge_dim`` is the width of their loop-invariant
@@ -168,4 +194,33 @@ class TypeAwareMPNLayer(nn.Module):
             n, self.num_types, pre["nodes_per_image"],
         )
         out = self.update_mlp(updates.reshape(n, -1).to(dt))
+        return out, new_edge
+
+    def forward_typed(self, x, q, init_proj, cur, pre):
+        """One step of the JAX package's ``pallas`` path
+        (pemp_tpu/models/mpn/layers.py:465-533 with the blocked split edge
+        MLP, then :561-614): x (N, node_in) skip-concatenated nodes; q (E, H)
+        the loop-invariant init-edge projection; init_proj (N, H) the
+        loop-invariant init half of the source projection, gathered by
+        source; cur (E, De) the edge carry; ``pre`` the loop-invariant index
+        columns. Returns (new nodes (N, D), new edge carry (E, De))."""
+        n = x.shape[0]
+        dn, di = self.node_in, self.node_in - self.node_dim
+        lin0, lin1 = self.mlp_edge[0], self.mlp_edge[2]
+        w0 = lin0.weight
+        h_node = x @ w0[:, :dn].t() + lin0.bias                          # (N, H)
+        xproj = x[:, di:] @ w0[:, dn + di:2 * dn].t()                    # (N, H)
+        src = pre["src"]
+        h_edge = (init_proj + xproj)[src] + q + cur @ w0[:, 2 * dn + self.init_edge_dim:].t()
+        c = h_edge.shape[0] // n
+        h = torch.relu(h_edge + torch.repeat_interleave(h_node, c, dim=0))
+        new_edge = torch.relu(lin1(h))                                   # (E, De)
+        wn, bn = self.mlp_node.stacked()              # (T, D, dn + De), (T, D)
+        t, d = wn.shape[:2]
+        a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
+        we = wn[:, :, dn:].permute(2, 0, 1).reshape(-1, t * d)   # we[k, t*D+o]
+        updates = fused_typed_message_aggregate(
+            new_edge.contiguous(), a.contiguous(), pre["src_type"], pre["valid"],
+            we.contiguous(), self.attn_net[0].weight.t().contiguous(), n, t)
+        out = self.update_mlp(updates.reshape(n, -1))
         return out, new_edge

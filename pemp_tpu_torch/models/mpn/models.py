@@ -1,11 +1,19 @@
-"""Flagship MPN (counterpart of pemp_tpu.models.mpn.models.NodeClassificationMPN,
-eval with per-step collection off).
+"""Flagship MPN (counterpart of pemp_tpu.models.mpn.models.NodeClassificationMPN).
 
 Forward contract as in the reference
 (src/Models/MessagePassingNetwork/NodeClassificationMPNSimple.py:62-97):
 
     (x, edge_attr, edge_index, ...) ->
         dict(edge=[(E,) logits], node=[(N,)], class=[(N, C)])
+
+Two routes, as the JAX package's build_pose_model resolves ``TPU.MSG_PASS``
+on a TPU (pemp_tpu/models/pose_estimation.py:234-256): at eval, with
+per-step outputs off, each step is the fused step (K1); in training, which
+collects per-step outputs, each step is the split edge MLP and the typed
+message kernel (K2, differentiable through K2b), and the heads run on the
+last ``AUX_LOSS_STEPS + 1`` steps and on the final features
+(pemp_tpu/models/mpn/models.py:288-316). The embeddings' BatchNorm takes
+training statistics over valid rows in training.
 
 The JAX package scans the shared-weight step with ``nn.scan``; here it is a
 Python loop over the same module. The index columns, the init-edge
@@ -33,7 +41,8 @@ def mpn_cfg_from_config(mpn_config) -> dict:
     return d
 
 
-def _check_fused_path(c: dict) -> None:
+def _check_flagship(c: dict) -> None:
+    """Raises unless ``c`` is the flagship MPN the port implements."""
     want = {
         "NAME": "NodeClassificationMPN", "AGGR_TYPE": "per_type", "EDGE_MLP": "agnostic",
         "AGGR_SUB": "node_edge_attn", "UPDATE_TYPE": "mlp", "SKIP": True,
@@ -42,11 +51,11 @@ def _check_fused_path(c: dict) -> None:
     for key, value in want.items():
         if c.get(key) != value:
             raise NotImplementedError(
-                f"MPN {key}={c.get(key)!r}: only the fused-step flagship path "
+                f"MPN {key}={c.get(key)!r}: only the flagship MPN "
                 f"({key}={value!r}) is ported"
             )
     if not c.get("_BLOCKED_C") or not c.get("_NODES_PER_TYPE"):
-        raise NotImplementedError("the fused step needs the blocked, type-blocked layout")
+        raise NotImplementedError("the flagship MPN needs the blocked, type-blocked layout")
 
 
 class NodeClassificationMPN(nn.Module):
@@ -60,7 +69,7 @@ class NodeClassificationMPN(nn.Module):
     def __init__(self, mpn_cfg: dict):
         super().__init__()
         c = dict(mpn_cfg)
-        _check_fused_path(c)
+        _check_flagship(c)
         self.cfg = c
         self.num_types = num_summary_types(c["NODE_TYPE_SUMMARY"], c["NUM_JOINTS"])
         node_emb = c["NODE_EMB"]["OUTPUT_SIZES"]
@@ -79,16 +88,21 @@ class NodeClassificationMPN(nn.Module):
         self.node_classification = MLP(nd, c["NODE_CLASS"]["OUTPUT_SIZES"], c["BN"])
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
-    def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype):
+    def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
+                node_valid=None):
         """x (N, F) f32, edge_attr (E, 2+J), edge_index (2, E) flat ids,
         edge_valid (E,), edge_src_local (E,) source ids within their image;
-        ``dtype`` is the working type. Node types are not an input: on the
-        type-blocked layout they are index arithmetic."""
+        ``dtype`` is the working type; ``node_valid`` (N,) masks the
+        BatchNorm statistics in training. Node types are not an input: on
+        the type-blocked layout they are index arithmetic. The module's
+        ``training`` flag picks the route: K1 in eval mode, the training
+        route (collect, K2/K2b, BatchNorm statistics of the batch) in
+        training mode."""
         c = self.cfg
         npt = c["_NODES_PER_TYPE"]
         e = edge_index.shape[1]
-        edge_features = self.edge_embedding(edge_attr.to(dtype))
-        node_features = self.node_embedding(x.to(dtype))
+        edge_features = self.edge_embedding(edge_attr.to(dtype), edge_valid)
+        node_features = self.node_embedding(x.to(dtype), node_valid)
 
         # loop-invariant inputs of every step (_run_steps' ``pre``): source
         # types are index arithmetic on the type-blocked layout
@@ -100,16 +114,36 @@ class NodeClassificationMPN(nn.Module):
             "nodes_per_image": c["NUM_JOINTS"] * npt,
         }
         layer = self.mpn_node_cls
-        sw = layer.step_weights(dtype)
         init_nodes, init_edges = node_features, edge_features
-        q = (init_edges @ sw["w_init_edge"].t()).contiguous()
-        for _ in range(c["STEPS"]):
+        if not self.training:
+            sw = layer.step_weights(dtype)
+            q = (init_edges @ sw["w_init_edge"].t()).contiguous()
+            for _ in range(c["STEPS"]):
+                nf = torch.cat([init_nodes, node_features], dim=-1)
+                node_features, edge_features = layer(nf, q, edge_features, pre, sw)
+            return {
+                "edge": [self.edge_classification(edge_features)[..., 0]],
+                "node": [self.node_classification(node_features)[..., 0]],
+                "class": [self.classification(node_features)],
+            }
+
+        # training: K2 steps, per-step outputs kept for the heads
+        pre["src"] = edge_index[0].long()
+        dn, dec = layer.node_in, layer.init_edge_dim
+        w0 = layer.mlp_edge[0].weight
+        q = init_edges @ w0[:, 2 * dn:2 * dn + dec].t()
+        init_proj = init_nodes @ w0[:, dn:dn + (dn - layer.node_dim)].t()
+        steps, aux = c["STEPS"], c.get("AUX_LOSS_STEPS", 0)
+        preds = {"edge": [], "node": [], "class": []}
+        for i in range(steps):
             nf = torch.cat([init_nodes, node_features], dim=-1)
-            node_features, edge_features = layer(nf, q, edge_features, pre, sw)
-
-        return {
-            "edge": [self.edge_classification(edge_features)[..., 0]],
-            "node": [self.node_classification(node_features)[..., 0]],
-            "class": [self.classification(node_features)],
-        }
-
+            node_features, edge_features = layer.forward_typed(
+                nf, q, init_proj, edge_features, pre)
+            if i >= steps - aux - 1:
+                preds["node"].append(self.node_classification(node_features, node_valid)[..., 0])
+                preds["class"].append(self.classification(node_features, node_valid))
+                preds["edge"].append(
+                    self.edge_classification(edge_features, edge_valid)[..., 0])
+        preds["node"].append(self.node_classification(node_features, node_valid)[..., 0])
+        preds["class"].append(self.classification(node_features, node_valid))
+        return preds

@@ -1,5 +1,6 @@
 """Composite model: backbone -> graph constructor -> MPN (counterpart of
-pemp_tpu.models.pose_estimation, eval with the hrnet backbone).
+pemp_tpu.models.pose_estimation with the hrnet backbone), for eval and for
+training.
 
 reference: src/Models/PoseEstimation/PoseEstimation.py:53-111. Submodule
 names (``backbone``, ``feature_gather``, ``mpn``) follow the reference, so
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pemp_tpu_torch.config import check_path
 from pemp_tpu_torch.graph.constructor import GCConfig, construct_graph_batch
 from pemp_tpu_torch.models.hrnet import (
     Conv2d,
@@ -45,7 +47,10 @@ class PoseEstimationBaseline(nn.Module):
         self.mpn = NodeClassificationMPN(mpn_cfg)
 
     def backbone_forward(self, imgs):
-        """imgs (B, H, W, 3) -> (scoremaps, features, tags), NHWC float32."""
+        """imgs (B, H, W, 3) -> (per-stage outputs NHWC, scoremaps,
+        features, tags), the last three NHWC float32. The backbone's
+        BatchNorm always reads its running statistics (``FREEZE_BN``);
+        gradients flow through it."""
         x = imgs.to(self.dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -54,34 +59,60 @@ class PoseEstimationBaseline(nn.Module):
         scoremaps, features, tags = hr_process_output(
             final_outputs, feat, self.num_joints, self.scoremap_mode
         )
-        return scoremaps.float(), features.float(), tags.float()
+        stages = [y.permute(0, 2, 3, 1) for y in final_outputs]
+        return stages, scoremaps.float(), features.float(), tags.float()
 
-    def forward(self, imgs):
-        """reference forward: PoseEstimation.py:71-111, eval only.
+    def forward(self, imgs, keypoints_gt=None, masks=None, factors=None):
+        """reference forward: PoseEstimation.py:71-111.
 
-        Returns (scoremaps (B, H, W, J), output) with output["preds"] (MPN
-        logits) and output["graph"] (the flattened eval graph and tags).
+        The module's ``training`` flag picks the path. Eval mode returns
+        (scoremaps (B, H, W, J), output) with output["preds"] (MPN logits)
+        and output["graph"] (the flattened eval graph and tags). Training
+        mode takes the GT joints (B, P, J, 3) in map
+        coordinates, their OKS factors (B, P, J) and the crowd masks
+        (B, H, W) of the last scale, and adds output["labels"] and
+        output["masks"], with output["preds"]["heatmap"] the backbone's
+        per-stage outputs (pemp_tpu/models/pose_estimation.py:109-171).
         """
-        scoremaps, features, tags = self.backbone_forward(imgs)
-        gb = construct_graph_batch(self.gc, scoremaps, features, tags)
+        stages, scoremaps, features, tags = self.backbone_forward(imgs)
+        gb = construct_graph_batch(self.gc, scoremaps.detach(), features, tags.detach(),
+                                   masks=masks, joints_gt=keypoints_gt, factors=factors)
         preds = self.mpn(
             gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
-            self.dtype,
+            self.dtype, node_valid=gb.node_valid,
         )
+        graph = {
+            "nodes": gb.joint_det,
+            "detector_scores": gb.joint_scores,
+            "edge_index": gb.edge_index,
+            "edge_src_local": gb.edge_src_local,
+            "tags": tags,
+            "node_valid": gb.node_valid,
+            "edge_valid": gb.edge_valid,
+            "batch_index": gb.batch_index,
+            "x": gb.x,
+            "edge_attr": gb.edge_attr,
+        }
+        if not self.training:
+            return scoremaps, {"preds": preds, "graph": graph}
+        nv, ev = gb.node_valid.float(), gb.edge_valid.float()
         output = {
-            "preds": preds,
-            "graph": {
-                "nodes": gb.joint_det,
-                "detector_scores": gb.joint_scores,
-                "edge_index": gb.edge_index,
-                "edge_src_local": gb.edge_src_local,
-                "tags": tags,
+            "labels": {
+                "edge": gb.edge_labels,
+                "node": gb.node_labels,
+                "class": gb.node_classes,
+                "person": gb.node_persons,
+                "batch_index": gb.batch_index,
+            },
+            "masks": {
+                "edge": gb.label_mask * ev,
+                "node": gb.label_mask_node * nv,
+                "class": gb.class_mask * nv,
                 "node_valid": gb.node_valid,
                 "edge_valid": gb.edge_valid,
-                "batch_index": gb.batch_index,
-                "x": gb.x,
-                "edge_attr": gb.edge_attr,
             },
+            "preds": {**preds, "heatmap": stages},
+            "graph": graph,
         }
         return scoremaps, output
 
@@ -95,12 +126,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def build_pose_model(config, dtype=torch.float32, device="cuda") -> PoseEstimationBaseline:
+def build_pose_model(config, dtype=torch.float32, device="cuda",
+                     train: bool = False) -> PoseEstimationBaseline:
     """Factory from the config tree (reference get_pose_model:
-    PoseEstimation.py:14-38). The weights are PyTorch's default
-    initialisation; load real ones with ``load_state_dict`` or
+    PoseEstimation.py:14-38), for the eval path or, with ``train``, the
+    training path; raises on settings that path does not implement
+    (config.check_path). Returned in eval mode; ``.train()`` switches the
+    forward to the training path. The weights are PyTorch's
+    default initialisation; load real ones with ``load_state_dict`` or
     :func:`pemp_tpu_torch.weights.from_jax_variables`."""
     device = resolve_device(device)
+    check_path(config, "train" if train else "eval")
     gc = GCConfig.from_config(config)
     mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
     # edges arrive in target-major blocks of C slots and nodes are

@@ -1,0 +1,126 @@
+"""The training step (counterpart of pemp_tpu.train.train_step.make_train_step;
+reference: src/train.py:115-184): forward in training mode, graph-reduction
+edge masks, the multi-loss, backward, the optimizer update, and the skip of
+a step whose loss or any gradient is not finite.
+
+The JAX step is a pure function that selects the old parameters, optimizer
+state and BatchNorm statistics on a skipped step. Here the forward updates
+the MPN's running statistics in place, so the step snapshots them first
+and puts them back on a skip; parameters and optimizer state are left
+alone, because the finiteness test comes before the update.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pemp_tpu_torch.losses.factories import mask_node_connections
+
+
+def _running_stats(model: torch.nn.Module) -> dict:
+    return {name: buf for name, buf in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))}
+
+
+class TrainStep:
+    """``step(batch) -> (loss, logging)``; ``fail_count`` counts skipped
+    steps (the reference's oom_counter abort guard, src/train.py:276-299).
+
+    ``batch`` holds torch tensors on the model's device: imgs (B, H, W, 3),
+    heatmaps [per scale (B, h, w, J)], masks [per scale (B, h, w)],
+    keypoints (B, P, J, 3) in the last scale's coordinates, factors
+    (B, P, J).
+    """
+
+    def __init__(self, model, loss_factory, optimizer, config):
+        self.model = model
+        self.loss_factory = loss_factory
+        self.optimizer = optimizer
+        self.node_threshold = config.MODEL.MPN.NODE_THRESHOLD
+        self.include_bordering = config.MODEL.LOSS.INCLUDE_BORDERING_NODES
+        self.fail_count = 0
+        self.last_output = None   # labels and validity of the last step
+
+    def loss(self, batch):
+        """Forward and loss (pemp_tpu/train/train_step.py:56-96); returns
+        (loss, logging, output). Puts the model in training mode."""
+        self.model.train()
+        _, output = self.model(batch["imgs"], keypoints_gt=batch["keypoints"],
+                               masks=batch["masks"][-1], factors=batch["factors"])
+        labels, masks, preds = output["labels"], output["masks"], output["preds"]
+        masks["heatmap"] = batch["masks"]
+        labels["heatmap"] = batch["heatmaps"]
+        # graph reduction: the edge loss only between predicted or labelled
+        # positive nodes (reference: train.py:140-154)
+        edge_masks, edge_labels = [], []
+        for pred_node in preds["node"]:
+            m = mask_node_connections(
+                torch.sigmoid(pred_node.detach()), output["graph"]["edge_index"],
+                self.node_threshold, labels["node"],
+                include_bordering_nodes=self.include_bordering)
+            edge_labels.append(labels["edge"])
+            edge_masks.append(masks["edge"] * m.float())
+        labels["edge"] = edge_labels
+        masks["edge"] = edge_masks
+        loss, logging = self.loss_factory(preds, labels, masks)
+        return loss, logging, output
+
+    def step(self, batch):
+        """One update; returns (loss, logging) with ``logging["skipped"]``
+        1.0 where the step was skipped."""
+        saved = {k: v.clone() for k, v in _running_stats(self.model).items()}
+        self.optimizer.zero_grad()
+        loss, logging, output = self.loss(batch)
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        finite = torch.isfinite(loss)
+        if grads:
+            finite = finite & torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if bool(finite):
+            self.optimizer.step()
+        else:
+            # the JAX step keeps the old state: put back the statistics the
+            # forward updated; the update was never made
+            with torch.no_grad():
+                for name, buf in _running_stats(self.model).items():
+                    buf.copy_(saved[name])
+            self.fail_count += 1
+        # what a caller may count (labels, validity), without the graph
+        self.last_output = {"labels": output["labels"], "graph": {
+            k: output["graph"][k] for k in ("node_valid", "edge_valid")}}
+        logging = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v))
+                   for k, v in logging.items()}
+        logging["skipped"] = torch.tensor(0.0 if bool(finite) else 1.0)
+        return loss.detach(), logging
+
+
+def batch_to_torch(batch: dict, device) -> dict:
+    """A numpy batch of ``data.synthetic.make_batch`` as torch tensors."""
+    def conv(x):
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return torch.from_numpy(x).to(device)
+    return {k: conv(v) for k, v in batch.items()}
+
+
+def build_trainer(config, device="cuda", seed: int = 0):
+    """The training path for ``config`` (float32, as tools/train.py builds
+    it) with seeded random weights; runs on CUDA unless ``device="cpu"``.
+    Raises on settings the training path does not implement.
+
+    On CUDA it turns TF32 off for matmuls and cuDNN convolutions (PyTorch
+    leaves it on for cuDNN by default), so the step computes in the float32
+    that tools/train.py builds it in; the card's checks and timings run in
+    this state."""
+    from pemp_tpu_torch.losses.factories import dispatch_loss_func
+    from pemp_tpu_torch.models.pose_estimation import build_pose_model, resolve_device
+    from pemp_tpu_torch.pipeline import init_random_weights
+    from pemp_tpu_torch.train.optim import SplitAdamW
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model = build_pose_model(config, dtype=torch.float32, device=device, train=True)
+    init_random_weights(model, seed)
+    return TrainStep(model, dispatch_loss_func(config), SplitAdamW(config, model), config)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pemp_tpu_torch.ops import fused_step
+from pemp_tpu_torch.ops import fused_step, typed_message
 
 
 def _k1_inputs(seed=2, imgs=2, n_img=16, c=8, t=4, w=64):
@@ -58,3 +58,44 @@ def test_kernel_rejects_what_it_does_not_take():
     tens = [torch.from_numpy(a).cuda() for a in args]
     with pytest.raises(ValueError, match="row width"):
         fused_step.fused_mpn_step(*tens, n, t, n_img)
+
+
+def _k2_inputs(seed=3, n=40, c=80, t=17, w=64):
+    rng = np.random.RandomState(seed)
+    e = n * c
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    types = rng.randint(0, t, e).astype(np.int32)
+    types[: 2 * c] = 0            # nodes 0-1 see one type only: empty groups
+    valid = (rng.rand(e) > 0.3).astype(np.int32)
+    valid[3 * c: 4 * c] = 0       # node 3 has no valid slot at all
+    args = (f(e, w), f(n, t, w), types, valid, f(w, t * w) * 0.2, f(w, 1) * 0.3)
+    return [torch.from_numpy(a).cuda() for a in args], f(n, t, w), n, t
+
+
+@pytest.mark.cuda
+def test_typed_message_kernels_match_plain_on_card():
+    # K2 against the plain version, and K2b against autograd through it;
+    # f32 sums in another order (1e-4, the JAX package's kernel tolerance)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (ef, a, types, valid, we, wa), g, n, t = _k2_inputs()
+    g = torch.from_numpy(g).cuda()
+    leaves = [x.clone().requires_grad_() for x in (ef, a, we, wa)]
+    out_k = typed_message.fused_typed_message_aggregate(
+        leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t)
+    grads_k = torch.autograd.grad((out_k * g).sum(), leaves)
+    plain = [x.clone().requires_grad_() for x in (ef, a, we, wa)]
+    out_p = typed_message.fused_typed_message_plain(
+        plain[0], plain[1], types, valid, plain[2], plain[3], n, t)
+    grads_p = torch.autograd.grad((out_p * g).sum(), plain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=1e-4)
+    for name, gk, gp in zip(("ef", "a", "we", "w_attn"), grads_k, grads_p):
+        torch.testing.assert_close(gk, gp, atol=1e-4, rtol=1e-4, msg=name)
+    assert bool((grads_k[0][valid == 0] == 0).all())
+    # the sums across blocks are in a fixed order: the same bits again
+    again = torch.autograd.grad((typed_message.fused_typed_message_aggregate(
+        leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t) * g).sum(), leaves)
+    for first, second in zip(grads_k, again):
+        assert torch.equal(first, second)

@@ -1,5 +1,6 @@
-"""The port's entry points: the w48/640 preset, the CUDA requirement and
-chip_smoke.py's refusal to run without a card."""
+"""The port's entry points: the w48/640 and model_58_4 presets, the
+per-path configuration checks, the CUDA requirement and chip_smoke.py's
+refusal to run without a card."""
 
 import os
 import pathlib
@@ -11,17 +12,30 @@ import torch
 
 from pemp_tpu.config import get_config as jax_get_config
 from pemp_tpu.config import update_config as jax_update_config
-from pemp_tpu_torch.config import get_config, small, update_config, w48_640
+from pemp_tpu_torch.config import (
+    check_path,
+    get_config,
+    small,
+    small_train,
+    update_config,
+    w32_512_train,
+    w48_640,
+)
 from pemp_tpu_torch.config.defaults import FIXED, NOT_READ
-from pemp_tpu_torch.models.mpn.models import _check_fused_path, mpn_cfg_from_config
+from pemp_tpu_torch.losses.factories import dispatch_loss_func
+from pemp_tpu_torch.models.mpn.models import _check_flagship, mpn_cfg_from_config
 from pemp_tpu_torch.models.pose_estimation import build_pose_model
 from pemp_tpu_torch.pipeline import build_pipeline
+from pemp_tpu_torch.train.__main__ import main as train_main
+from pemp_tpu_torch.train.train_step import build_trainer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = ROOT / "configs"
 W48_YAML = str(CONFIGS / "hrnet" / "w48_640.yaml")
-# the only config file of the repo whose settings the slice implements
-LOADS = {"hrnet/w48_640.yaml"}
+M58_YAML = str(CONFIGS / "hybrid_class_agnostic_end2end" / "model_58_4.yaml")
+# the config files of the repo whose settings a path of the port implements
+LOADS = {"hrnet/w48_640.yaml": {"eval"},
+         "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train"}}
 
 
 def _project(full: dict, like: dict) -> dict:
@@ -36,6 +50,17 @@ def test_w48_preset_matches_yaml():
     got = w48_640().to_dict()
     assert got == _project(jax_update_config(jax_get_config(), W48_YAML).to_dict(), got)
     assert update_config(get_config(), W48_YAML).to_dict() == got
+
+
+def test_model_58_4_preset_matches_yaml():
+    """The same for the training preset, and its small cut keeps every key
+    but the sizes."""
+    got = w32_512_train().to_dict()
+    assert got == _project(jax_update_config(jax_get_config(), M58_YAML).to_dict(), got)
+    assert update_config(get_config(), M58_YAML).to_dict() == got
+    small_cfg = small_train()
+    assert small_cfg.MODEL.LOSS == w32_512_train().MODEL.LOSS
+    assert small_cfg.TRAIN.KP_FREEZE_MODE == "nothing" and small_cfg.DATASET.INPUT_SIZE == 64
 
 
 def _jax_keys(tree: dict, prefix: str = ""):
@@ -67,13 +92,30 @@ def test_every_jax_key_is_read_fixed_or_not_read():
         _lookup(jax_tree, key)
 
 
+def _paths(cfg) -> set:
+    """The paths of the port that run ``cfg``: its checks, the flagship MPN
+    and, for training, the loss."""
+    ok = set()
+    mpn = {**mpn_cfg_from_config(cfg.MODEL.MPN), "_BLOCKED_C": 80, "_NODES_PER_TYPE": 40}
+    for path in ("eval", "train"):
+        try:
+            check_path(cfg, path)
+            _check_flagship(mpn)
+            if path == "train":
+                dispatch_loss_func(cfg)
+        except NotImplementedError:
+            continue
+        ok.add(path)
+    return ok
+
+
 @pytest.mark.parametrize(
     "path", sorted(CONFIGS.rglob("*.yaml")), ids=lambda p: str(p.relative_to(CONFIGS))
 )
 def test_repo_yaml_loads_or_is_refused(path):
-    """A config file is refused by the loader for asking what the slice
-    does not implement, or loads with the values the JAX package reads from
-    it; then the MPN refuses it unless it is one the slice runs."""
+    """A config file is refused by the loader for asking what no path
+    implements, or loads with the values the JAX package reads from it;
+    then each path of the port refuses it unless it is one that path runs."""
     name = str(path.relative_to(CONFIGS))
     try:
         cfg = update_config(get_config(), str(path))
@@ -82,12 +124,7 @@ def test_repo_yaml_loads_or_is_refused(path):
         return
     got = cfg.to_dict()
     assert got == _project(jax_update_config(jax_get_config(), str(path)).to_dict(), got)
-    mpn = {**mpn_cfg_from_config(cfg.MODEL.MPN), "_BLOCKED_C": 80, "_NODES_PER_TYPE": 40}
-    if name in LOADS:
-        _check_fused_path(mpn)
-    else:
-        with pytest.raises(NotImplementedError, match="only the fused-step flagship path"):
-            _check_fused_path(mpn)
+    assert _paths(cfg) == LOADS.get(name, set())
 
 
 @pytest.mark.parametrize("text,error", [
@@ -98,22 +135,39 @@ def test_repo_yaml_loads_or_is_refused(path):
     ("MODEL: {HRNET: {NUM_JOINTS: seventeen}}", ValueError),
 ])
 def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
+    """Refused when the file loads (a value no path implements, an unknown
+    key, a wrong type) or, for eval-only settings, by the eval path."""
     path = tmp_path / "c.yaml"
     path.write_text(text)
     with pytest.raises(error):
-        update_config(get_config(), str(path))
+        check_path(update_config(get_config(), str(path)), "eval")
 
 
 def test_config_drops_what_eval_does_not_read(tmp_path):
+    """Keys no path reads are dropped; keys a path reads are kept, and each
+    path checks its own (eval here: MSG_PASS fused_step, CC_METHOD GAEC)."""
     path = tmp_path / "c.yaml"
-    path.write_text("TRAIN: {LR: 0.1}\nTEST: {FLIP_TEST: false, SCORING: mean}\n"
-                    "TPU: {KNN_K: 20, MSG_PASS: fused_step}\n")
+    path.write_text("TRAIN: {LR: 0.1, END_EPOCH: 3}\nTEST: {FLIP_TEST: false, SCORING: mean}\n"
+                    "TPU: {KNN_K: 20, MSG_PASS: fused_step, COMPUTE_DTYPE: float32}\n"
+                    "MODEL: {GC: {CC_METHOD: GAEC, CHEAT: true}}\n")
     cfg = update_config(get_config(), str(path))
     want = get_config()
     want.TPU.KNN_K = 20
+    want.TRAIN.LR = 0.1
+    want.TEST.FLIP_TEST = False
+    want.TPU.MSG_PASS = "fused_step"
     assert cfg == want
     with pytest.raises(KeyError):
-        cfg.TPU.MSG_PASS = "hybrid"
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    with pytest.raises(NotImplementedError, match="MODEL.GC.CC_METHOD"):
+        check_path(cfg, "eval")
+    with pytest.raises(NotImplementedError, match="TPU.MSG_PASS"):
+        check_path(_with(w32_512_train(), "fused_step"), "train")
+
+
+def _with(cfg, msg_pass):
+    cfg.TPU.MSG_PASS = msg_pass
+    return cfg
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
@@ -122,6 +176,19 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         build_pose_model(small())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_pipeline(2, cfg=small())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_trainer(small_train())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["hybrid_class_agnostic_end2end/model_58_4", "--synthetic", "--steps", "1"])
+
+
+def test_builders_check_their_path():
+    """The eval builder refuses the training configuration (a checkpoint
+    path, GAEC grouping), and the trainer an eval-only one (no node loss)."""
+    with pytest.raises(NotImplementedError, match="MODEL.PRETRAINED"):
+        build_pose_model(w32_512_train(), device="cpu")
+    with pytest.raises(NotImplementedError, match="only the flagship multi-loss"):
+        build_trainer(small(), device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card():
