@@ -37,6 +37,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    3 timed steps with the counts zeroed just before; K2 and K2b must launch
    10 times each per step, the loss must be finite and no step skipped.
    Prints steps/s, img/s, peak memory and the graph and label counts.
+9. K3 and K3b (the hybrid path's attention aggregation) through their
+   wrapper ``fused_attn_aggregate`` (forward, and ``torch.autograd.grad``
+   through it) against their plain version, TF32 off: on seeded random f32
+   inputs at the model_58_4 shapes and on the inputs the hybrid model_58_4
+   training path feeds at MPN steps 0 and 9 (out, db, da, dlogit each
+   within 1e-4 of its own largest value), and forward in bf16 on the hybrid
+   w48/640 eval path's step-0 inputs (2e-2 of its largest). Prints errors,
+   kernel and plain ms (median of 25; the backward alone on a kept graph)
+   and the bounds.
+10. K4 (the einsum path's blocked aggregate) against its plain version on
+   the einsum w48/640 eval path's step-0 inputs (bf16, 2e-2) and on random
+   f32 inputs (1e-4); K4 on relu(a_sel + b) equals K3 on (b, a).
+11. small slices on the reverse-permutation routes, CPU against card: a
+   hybrid small training step as phase 7, and the hybrid and einsum small
+   eval slices as phase 4.
+12. full width per route, the counts zeroed just before each run and read
+   just after: 3 hybrid model_58_4 training steps (K3 and K3b 10 times
+   each per step, no K2), 5 hybrid w48/640 forwards (K3 10 times per
+   forward, no K1), 5 einsum w48/640 forwards (K4 10 times per forward, no
+   K1 or K3). Prints steps/s or img/s and peak memory per route.
+
+Phases 5 and 8 check the counts the same way: every kernel not named
+launches 0 times.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -81,6 +104,30 @@ def median_ms(fn, n=TIMED_LAUNCHES) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def counters():
+    """Each kernel's launch counter: {name: (module, attribute)}."""
+    from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, typed_message
+
+    return {"K1": (fused_step, "LAUNCHES"), "K2": (typed_message, "LAUNCHES_FWD"),
+            "K2b": (typed_message, "LAUNCHES_BWD"), "K3": (attn_aggregate, "LAUNCHES_FWD"),
+            "K3b": (attn_aggregate, "LAUNCHES_BWD"), "K4": (blocked_attn, "LAUNCHES")}
+
+
+def zero_counts():
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts(label, want):
+    """The counts since zero_counts(); raises unless each kernel of ``want``
+    launched exactly that often and every other one never."""
+    counts = {k: getattr(module, attr) for k, (module, attr) in counters().items()}
+    bad = {k: (v, want.get(k, 0)) for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise SystemExit(f"{label}: launches (got, expected) {bad}")
+    return counts
 
 
 def k1_bound_ms(args):
@@ -215,12 +262,203 @@ def check_k2(label, args, g, dims, typed_message):
     return numbers
 
 
-def capture_k2_inputs(trainer, batch, steps=(0, 9)):
-    """Runs one training forward and backward and keeps K2's inputs and the
-    cotangent K2b receives at the given MPN steps."""
+def k3_bound_ms(args, backward: bool):
+    """Least time for K3's (or K3b's) work on these inputs: the valid slots'
+    b rows (no output depends on the others), a and the index and logit
+    columns read once, out (K3b: every db row, da and dlogit, after reading
+    g) written once at the memory rate, against the elementwise work of the
+    valid slots at the f32 rate (K3: add, ReLU, weight, sum; K3b that again
+    and the five terms of its gradients); the larger."""
+    b, a, types, valid, logits = args
+    e, d = b.shape
+    n_valid = int(valid.sum())
+    ins = (n_valid * d * b.element_size() + a.numel() * a.element_size()
+           + (types.numel() + valid.numel() + logits.numel()) * 4)
+    if backward:
+        nbytes = ins + a.numel() * 4 + (e * d + a.numel() + e) * 4
+        flops = n_valid * 9 * d
+    else:
+        nbytes = ins + a.numel() * 4
+        flops = n_valid * 4 * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def random_k3_inputs(seed=6, b=8, j=17, k=40, c=80, w=64):
+    rng = np.random.RandomState(seed)
+    n = b * j * k
+    e = n * c
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()  # noqa: E731
+    i = lambda x: torch.from_numpy(x.astype(np.int32)).cuda()  # noqa: E731
+    args = (f(e, w), f(n, j, w), i(rng.randint(0, j, e)), i(rng.rand(e) > 0.3), f(e))
+    return args, f(n, j, w), (n, j)
+
+
+def check_k3(label, args, g, dims, tol, attn_aggregate):
+    """K3 (and, given a cotangent ``g``, K3b) through the wrapper
+    ``fused_attn_aggregate`` and its autograd Function, against the plain
+    version and autograd through it, on the same inputs; out, db, da and
+    dlogit each held to ``tol`` of its own largest value. Times the
+    forward, and the backward alone on a kept graph, on both sides.
+    Returns {"fwd": numbers[, "bwd": numbers]}."""
+    def run(fn):
+        leaves = [args[i].clone().requires_grad_(g is not None) for i in (0, 1, 4)]
+        with torch.set_grad_enabled(g is not None):
+            out = fn(leaves[0], leaves[1], args[2], args[3], leaves[2], *dims)
+        grads = () if g is None else torch.autograd.grad(out, leaves, g, retain_graph=True)
+        return out, leaves, grads
+
+    got, got_leaves, got_grads = run(attn_aggregate.fused_attn_aggregate)
+    want, want_leaves, want_grads = run(attn_aggregate.fused_attn_aggregate_plain)
+    torch.cuda.synchronize()
+    numbers = {}
+    kinds = [("fwd", ("out",), [(got, want)])]
+    if g is not None:
+        kinds.append(("bwd", ("db", "da", "dlogit"), list(zip(got_grads, want_grads))))
+    for kind, names, pairs in kinds:
+        parts = []
+        for name, (x, y) in zip(names, pairs):
+            err, scale = (x - y).abs().max().item(), y.abs().max().item()
+            if not (np.isfinite(err) and err <= tol * scale):
+                raise SystemExit(f"K3 {kind} {label}: {name} max abs error {err} exceeds "
+                                 f"{tol} of its max |plain| {scale}")
+            parts.append((name, err, scale))
+        if kind == "fwd":
+            ms = median_ms(lambda: attn_aggregate.fused_attn_aggregate(*args, *dims))
+            plain_ms = median_ms(lambda: attn_aggregate.fused_attn_aggregate_plain(*args, *dims))
+        else:
+            ms = median_ms(lambda: torch.autograd.grad(got, got_leaves, g, retain_graph=True))
+            plain_ms = median_ms(
+                lambda: torch.autograd.grad(want, want_leaves, g, retain_graph=True))
+        bound, bound_by, nbytes, flops = k3_bound_ms(args, kind == "bwd")
+        errs = ", ".join(f"{n} {e:.3e} of max {s:.3e}" for n, e, s in parts)
+        log(f"K3 {kind} {label}: max abs err {errs} (tol {tol} of each max) "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+            f"by {bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; valid slots "
+            f"{int(args[3].sum())}/{args[3].numel()})")
+        numbers[kind] = (max(e for _, e, _ in parts), ms, plain_ms, bound, bound_by)
+    return numbers
+
+
+def k4_bound_ms(m, attn, types, valid, num_nodes, num_types):
+    """Least time for K4's work on these inputs: the valid slots' message
+    rows and the logit and index columns read once, out written once, at
+    the memory rate, against a multiply-add per valid element at the f32
+    rate; the larger."""
+    e, d = m.shape
+    n_valid = int(valid.sum())
+    nbytes = (n_valid * d * m.element_size() + (attn.numel() + types.numel() + valid.numel()) * 4
+              + num_nodes * num_types * d * m.element_size())
+    flops = n_valid * 2 * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def check_k4(label, args, tol, blocked_attn, segment):
+    """K4 through its wrapper against the plain version on the same inputs
+    (m, attn, types, num_nodes, num_types, valid), held to ``tol`` of the
+    plain output's largest value; times both. Returns the numbers."""
+    with torch.no_grad():
+        got = blocked_attn.blocked_attn_aggregate(*args)
+        want = segment.blocked_per_type_attention_aggregate(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if not (got.dtype == args[0].dtype and np.isfinite(err) and err <= tol * scale):
+            raise SystemExit(f"K4 {label}: max abs error {err} exceeds {tol} of its max "
+                             f"|plain| {scale} (or the output is {got.dtype})")
+        ms = median_ms(lambda: blocked_attn.blocked_attn_aggregate(*args))
+        plain_ms = median_ms(lambda: segment.blocked_per_type_attention_aggregate(*args))
+    m, attn, types, n, t, valid = args
+    bound, bound_by, nbytes, flops = k4_bound_ms(m, attn, types, valid, n, t)
+    log(f"K4 {label}: max abs err {err:.3e} of max {scale:.3e} (tol {tol} of the max) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; valid slots "
+        f"{int(valid.sum())}/{valid.numel()})")
+    return err, ms, plain_ms, bound, bound_by
+
+
+def drive_eval(label, pipe, images, iters, want, card):
+    """The eval path at full width: a warm-up forward, then ``iters``
+    forwards with the counts zeroed just before and read just after; each
+    kernel of ``want`` must launch that often per forward, every other one
+    never. Checks shapes and finiteness; returns the counts."""
+    pipe(images)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch, size = images.shape[0], images.shape[1]
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        persons, valid, scoremaps, out = pipe.forward(images)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(label, {k: v * iters for k, v in want.items()})
+    n = 17 * pipe.model.gc.nodes_per_type
+    if tuple(persons.shape) != (batch, 30, 17, 3) or tuple(scoremaps.shape) != (
+        batch, size // 2, size // 2, 17
+    ):
+        raise SystemExit(f"{label}: unexpected shapes {tuple(persons.shape)}, "
+                         f"{tuple(scoremaps.shape)}")
+    for name, t in (("persons", persons), ("scoremaps", scoremaps),
+                    ("edge logits", out["preds"]["edge"][-1]),
+                    ("node logits", out["preds"]["node"][-1])):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise SystemExit(f"{label}: non-finite {name}")
+    g = out["graph"]
+    launched = ", ".join(f"{k} {v} ({v // iters} per forward)" for k, v in counts.items() if v)
+    log(f"{label}: w48/{size} batch {batch} bf16, {iters} forwards in {dt:.3f} s: "
+        f"{batch * iters / dt:.2f} img/s on {card}; launches {launched}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
+        f"{int(g['node_valid'].sum())}/{batch * n}; valid edges "
+        f"{int(g['edge_valid'].sum())}/{g['edge_valid'].numel()}; persons found "
+        f"{int(valid.sum())}")
+    return counts
+
+
+def drive_train(label, trainer, batches, want, card):
+    """Training at full width: a warm-up step on ``batches[0]``, then one
+    step on each of the others with the counts zeroed just before and read
+    just after; each kernel of ``want`` must launch that often per step,
+    every other one never; losses finite, no step skipped. Returns the
+    counts."""
+    trainer.step(batches[0])                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches[1:]
+    losses = []
+    zero_counts()
+    t0 = time.perf_counter()
+    for batch in timed:
+        loss, logging = trainer.step(batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(label, {k: v * len(timed) for k, v in want.items()})
+    if not all(bool(torch.isfinite(x)) for x in losses) or trainer.fail_count:
+        raise SystemExit(f"{label}: losses {[float(x) for x in losses]}, "
+                         f"{trainer.fail_count} skipped steps")
+    lab, gr = trainer.last_output["labels"], trainer.last_output["graph"]
+    bs, size = batches[0]["imgs"].shape[:2]
+    launched = ", ".join(f"{k} {v} ({v // len(timed)} per step)" for k, v in counts.items() if v)
+    log(f"{label}: model_58_4 w32/{size} batch {bs} f32, {len(timed)} steps in {dt:.3f} s: "
+        f"{len(timed) / dt:.3f} steps/s, {bs * len(timed) / dt:.2f} img/s on {card}; "
+        f"launches {launched}; losses {[round(float(x), 4) for x in losses]}; "
+        f"parts of the last {({k: round(float(v), 4) for k, v in logging.items()})}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
+        f"{int(gr['node_valid'].sum())}/{gr['node_valid'].numel()}, label-positive "
+        f"{int(lab['node'].sum())}; valid edges {int(gr['edge_valid'].sum())}/"
+        f"{gr['edge_valid'].numel()}, label-positive {int(lab['edge'][0].sum())}")
+    return counts
+
+
+def capture_train_inputs(trainer, batch, name, steps=(0, 9)):
+    """Runs one training forward and backward and keeps the inputs of the
+    MPN layer's kernel wrapper ``name`` and the cotangent its backward
+    receives at the given MPN steps."""
     from pemp_tpu_torch.models.mpn import layers
 
-    real = layers.fused_typed_message_aggregate
+    real = getattr(layers, name)
     calls = []
     kept = {}
 
@@ -234,25 +472,27 @@ def capture_k2_inputs(trainer, batch, steps=(0, 9)):
             out.register_hook(lambda g: kept[step].append(g.detach().clone()))
         return out
 
-    layers.fused_typed_message_aggregate = recording
+    setattr(layers, name, recording)
     try:
         trainer.optimizer.zero_grad()
         loss, _, _ = trainer.loss(batch)
         loss.backward()
     finally:
-        layers.fused_typed_message_aggregate = real
+        setattr(layers, name, real)
         trainer.optimizer.zero_grad()
     torch.cuda.synchronize()
     return kept
 
 
-def phase_small_train():
-    """small_train(), same seeded weights and batch, CPU against card."""
+def phase_small_train(msg_pass="auto"):
+    """small_train() on ``msg_pass``, same seeded weights and batch, CPU
+    against card."""
     from pemp_tpu_torch.config import small_train
     from pemp_tpu_torch.data.synthetic import make_batch
     from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
 
     cfg = small_train()
+    cfg.TPU.MSG_PASS = msg_pass
     batch = make_batch(np.random.RandomState(5), cfg.TRAIN.BATCH_SIZE, 64, (16, 32), 17, 30,
                        scale_range=(0.4, 0.9))
     runs = {}
@@ -273,34 +513,36 @@ def phase_small_train():
     (lc, labc, gc, sc), (lg, labg, gg, sg) = runs["cpu"], runs["cuda"]
     for key in ("node", "class", "person", "edge"):
         if not torch.equal(labc[key], labg[key]):
-            raise SystemExit(f"small train: labels {key} differ between CPU and card")
+            raise SystemExit(f"small train {msg_pass}: labels {key} differ between CPU and card")
     # f32 on both sides (TF32 off); cuDNN and the kernels sum in other
     # orders than the CPU: loss parts at 1e-4; gradients within 5e-3 of each
     # tensor's largest |grad| (the CPU tests' tolerance against the JAX
     # package, set from a float64 evaluation)
     bad = {k: (lc[k], lg[k]) for k in lc if abs(lc[k] - lg[k]) > 1e-4 * max(1.0, abs(lc[k]))}
     if bad:
-        raise SystemExit(f"small train: loss parts differ: {bad}")
+        raise SystemExit(f"small train {msg_pass}: loss parts differ: {bad}")
     if set(gc) != set(gg):
-        raise SystemExit("small train: different parameters have gradients")
+        raise SystemExit(f"small train {msg_pass}: different parameters have gradients")
     worst = max(((gc[k] - gg[k]).abs().max() / max(gc[k].abs().max(), 1e-30)).item()
                 for k in gc if gc[k].abs().max() > 0)
     if not worst <= 5e-3:
-        raise SystemExit(f"small train: gradients differ by {worst:.2e} of their largest")
+        raise SystemExit(f"small train {msg_pass}: gradients differ by {worst:.2e} of their "
+                         f"largest")
     stat_err = max((sc[k] - sg[k]).abs().max().item() for k in sc)
     if not stat_err <= 1e-4:
-        raise SystemExit(f"small train: MPN running statistics differ by {stat_err}")
-    log(f"small train: CPU vs card labels exact ({int(labc['node'].sum())} positive nodes, "
-        f"{int(labc['edge'].sum())} positive edges); loss {lc['loss']:.6f} vs "
+        raise SystemExit(f"small train {msg_pass}: MPN running statistics differ by {stat_err}")
+    log(f"small train {msg_pass}: CPU vs card labels exact ({int(labc['node'].sum())} positive "
+        f"nodes, {int(labc['edge'].sum())} positive edges); loss {lc['loss']:.6f} vs "
         f"{lg['loss']:.6f}; gradients within {worst:.2e} of each tensor's largest; "
         f"MPN running statistics within {stat_err:.2e}")
 
 
-def capture_k1_inputs(pipe, images, steps=(0, 9)):
-    """Runs one forward and keeps K1's inputs at the given MPN steps."""
+def capture_eval_inputs(pipe, images, name, steps=(0, 9)):
+    """Runs one forward and keeps the inputs of the MPN layer's kernel
+    wrapper ``name`` at the given MPN steps."""
     from pemp_tpu_torch.models.mpn import layers
 
-    real = layers.fused_mpn_step
+    real = getattr(layers, name)
     seen = []
     kept = {}
 
@@ -310,21 +552,23 @@ def capture_k1_inputs(pipe, images, steps=(0, 9)):
         seen.append(1)
         return real(*args)
 
-    layers.fused_mpn_step = recording
+    setattr(layers, name, recording)
     try:
         pipe(images)
     finally:
-        layers.fused_mpn_step = real
+        setattr(layers, name, real)
     torch.cuda.synchronize()
     return kept
 
 
-def phase_small_slice():
-    """The narrow test configuration, same weights, CPU against card."""
+def phase_small_slice(msg_pass="auto"):
+    """The narrow test configuration on ``msg_pass``, same weights, CPU
+    against card."""
     from pemp_tpu_torch.config import small
     from pemp_tpu_torch.pipeline import build_pipeline
 
     cfg = small()
+    cfg.TPU.MSG_PASS = msg_pass
     imgs = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -336,7 +580,8 @@ def phase_small_slice():
     (pc, vc, gc, mc), (pg, vg, gg, mg) = runs["cpu"], runs["cuda"]
     for key in ("nodes", "edge_index", "edge_valid", "node_valid"):
         if not torch.equal(gc[key], gg[key]):
-            raise SystemExit(f"small slice: graph field {key} differs between CPU and card")
+            raise SystemExit(f"small slice {msg_pass}: graph field {key} differs between CPU "
+                             f"and card")
     ev = gc["edge_valid"]
     errs = {"edge": (mc["edge"] - mg["edge"])[ev].abs().max().item(),
             "node": (mc["node"] - mg["node"]).abs().max().item(),
@@ -345,11 +590,11 @@ def phase_small_slice():
     # than the CPU: the JAX package's MPN parity tolerance
     bad = {k: v for k, v in errs.items() if not v <= 2e-3}
     if bad:
-        raise SystemExit(f"small slice: MPN outputs differ: {bad}")
+        raise SystemExit(f"small slice {msg_pass}: MPN outputs differ: {bad}")
     if not (torch.equal(vc, vg) and torch.equal(pc[..., :2], pg[..., :2])
             and (pc[..., 2] - pg[..., 2]).abs().max().item() <= 1e-5):
-        raise SystemExit("small slice: persons differ between CPU and card")
-    log(f"small slice: CPU vs card MPN max abs err {errs}; graph exact; "
+        raise SystemExit(f"small slice {msg_pass}: persons differ between CPU and card")
+    log(f"small slice {msg_pass}: CPU vs card MPN max abs err {errs}; graph exact; "
         f"persons equal ({int(vc.sum())} found); valid edges {int(ev.sum())}")
 
 
@@ -442,7 +687,7 @@ def main() -> int:
     pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda", seed=0)
     gen = torch.Generator().manual_seed(0)
     images = torch.rand(batch, size, size, 3, generator=gen).cuda()
-    captured = capture_k1_inputs(pipe, images)
+    captured = capture_eval_inputs(pipe, images, "fused_mpn_step")
     main_numbers = None
     for step in (0, 9):
         args = captured[step][:13]
@@ -458,42 +703,10 @@ def main() -> int:
     phase_decode()
 
     # 5. main path at full width
-    pipe(images)                                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    iters = 5
-    fused_step.LAUNCHES = 0
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        persons, valid, scoremaps, out = pipe.forward(images)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = fused_step.LAUNCHES
     steps = pipe.model.mpn.cfg["STEPS"]
-    if launches != steps * iters:
-        raise SystemExit(f"main path: K1 launched {launches} times in {iters} forwards, "
-                         f"expected {steps * iters}")
-    n = 17 * pipe.model.gc.nodes_per_type
-    if tuple(persons.shape) != (batch, 30, 17, 3) or tuple(scoremaps.shape) != (
-        batch, size // 2, size // 2, 17
-    ):
-        raise SystemExit(f"main path: unexpected shapes {tuple(persons.shape)}, "
-                         f"{tuple(scoremaps.shape)}")
-    for name, t in (("persons", persons), ("scoremaps", scoremaps),
-                    ("edge logits", out["preds"]["edge"][-1]),
-                    ("node logits", out["preds"]["node"][-1])):
-        if not bool(torch.isfinite(t.float()).all()):
-            raise SystemExit(f"main path: non-finite {name}")
-    g = out["graph"]
-    log(f"main path: w48/{size} batch {batch} bf16, {iters} forwards in {dt:.3f} s: "
-        f"{batch * iters / dt:.2f} img/s on {card}; K1 launches {launches} "
-        f"({launches // iters} per forward); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
-        f"{int(g['node_valid'].sum())}/{batch * n}; valid edges "
-        f"{int(g['edge_valid'].sum())}/{g['edge_valid'].numel()}; persons found "
-        f"{int(valid.sum())}")
-
-    del pipe, persons, scoremaps, out, images
+    counts = drive_eval("main path", pipe, images, 5, {"K1": steps}, card)
+    launches = counts["K1"]
+    del pipe
     torch.cuda.empty_cache()
 
     # 6. K2 and K2b against their plain version
@@ -507,16 +720,16 @@ def main() -> int:
         k2_errs[way].append(numbers[0])
     del args, g
     cfg = w32_512_train()
-    bs, size = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.INPUT_SIZE
+    bs, train_size = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.INPUT_SIZE
     rng = np.random.RandomState(0)
     t0 = time.perf_counter()
-    batches = [batch_to_torch(make_batch(rng, bs, size, tuple(cfg.DATASET.OUTPUT_SIZE), 17,
-                                         cfg.DATASET.MAX_NUM_PEOPLE), "cuda")
+    batches = [batch_to_torch(make_batch(rng, bs, train_size, tuple(cfg.DATASET.OUTPUT_SIZE),
+                                         17, cfg.DATASET.MAX_NUM_PEOPLE), "cuda")
                for _ in range(5)]
-    log(f"train batches: 5 synthetic batches of {bs} at {size} made in "
+    log(f"train batches: 5 synthetic batches of {bs} at {train_size} made in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
     trainer = build_trainer(cfg, device="cuda", seed=0)
-    captured = capture_k2_inputs(trainer, batches[0])
+    captured = capture_train_inputs(trainer, batches[0], "fused_typed_message_aggregate")
     k2_numbers = None
     for step in (0, 9):
         args, g = captured[step]
@@ -532,36 +745,91 @@ def main() -> int:
     phase_small_train()
 
     # 8. training at full width
-    trainer.step(batches[1])                      # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    typed_message.LAUNCHES_FWD = typed_message.LAUNCHES_BWD = 0
-    timed = batches[2:]
-    losses = []
-    t0 = time.perf_counter()
-    for batch in timed:
-        loss, logging = trainer.step(batch)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    k2_fwd, k2_bwd = typed_message.LAUNCHES_FWD, typed_message.LAUNCHES_BWD
-    steps = trainer.model.mpn.cfg["STEPS"]
-    if (k2_fwd, k2_bwd) != (steps * len(timed), steps * len(timed)):
-        raise SystemExit(f"training: K2 launched {k2_fwd} and K2b {k2_bwd} times in "
-                         f"{len(timed)} steps, expected {steps * len(timed)} each")
-    if not all(bool(torch.isfinite(x)) for x in losses) or trainer.fail_count:
-        raise SystemExit(f"training: losses {[float(x) for x in losses]}, "
-                         f"{trainer.fail_count} skipped steps")
-    lab, gr = trainer.last_output["labels"], trainer.last_output["graph"]
-    log(f"training: model_58_4 w32/{size} batch {bs} f32, {len(timed)} steps in {dt:.3f} s: "
-        f"{len(timed) / dt:.3f} steps/s, {bs * len(timed) / dt:.2f} img/s on {card}; "
-        f"K2 launches {k2_fwd}, K2b {k2_bwd} ({k2_fwd // len(timed)} and "
-        f"{k2_bwd // len(timed)} per step); losses {[round(float(x), 4) for x in losses]}; "
-        f"parts of the last {({k: round(float(v), 4) for k, v in logging.items()})}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
-        f"{int(gr['node_valid'].sum())}/{gr['node_valid'].numel()}, label-positive "
-        f"{int(lab['node'].sum())}; valid edges {int(gr['edge_valid'].sum())}/"
-        f"{gr['edge_valid'].numel()}, label-positive {int(lab['edge'][0].sum())}")
+    counts = drive_train("training", trainer, batches[1:], {"K2": steps, "K2b": steps}, card)
+    k2_fwd, k2_bwd = counts["K2"], counts["K2b"]
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 9. K3 and K3b against their plain version
+    from pemp_tpu_torch.config import w48_640
+    from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, segment
+
+    k3_errs = {"fwd": [], "bwd": []}
+    k3_random, g, dims = random_k3_inputs()
+    for way, numbers in check_k3("random f32", k3_random, g, dims, 1e-4,
+                                 attn_aggregate).items():
+        k3_errs[way].append(numbers[0])
+    del g
+    train_cfg = w32_512_train()
+    train_cfg.TPU.MSG_PASS = "hybrid"
+    trainer = build_trainer(train_cfg, device="cuda", seed=0)
+    captured = capture_train_inputs(trainer, batches[0], "fused_attn_aggregate")
+    k3_numbers = None
+    for step in (0, 9):
+        args, g = captured[step]
+        numbers = check_k3(f"hybrid train path step {step}", args[:5], g, args[5:], 1e-4,
+                           attn_aggregate)
+        for way in k3_errs:
+            k3_errs[way].append(numbers[way][0])
+        if step == 0:
+            k3_numbers = numbers
+    del captured, args, g, trainer
+    torch.cuda.empty_cache()
+    eval_cfgs = {}
+    for route in ("hybrid", "einsum"):
+        eval_cfgs[route] = w48_640()
+        eval_cfgs[route].TPU.MSG_PASS = route
+    pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
+                          cfg=eval_cfgs["hybrid"], seed=0)
+    args = capture_eval_inputs(pipe, images, "fused_attn_aggregate", steps=(0,))[0]
+    k3_errs["fwd"].append(check_k3("hybrid eval path step 0 bf16", args[:5], None, args[5:],
+                                   2e-2, attn_aggregate)["fwd"][0])
+    del pipe, args
+    torch.cuda.empty_cache()
+
+    # 10. K4 against its plain version
+    pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
+                          cfg=eval_cfgs["einsum"], seed=0)
+    args = capture_eval_inputs(pipe, images, "blocked_attn_aggregate", steps=(0,))[0]
+    k4_numbers = check_k4("einsum eval path step 0 bf16", args, 2e-2, blocked_attn, segment)
+    k4_errs = [k4_numbers[0]]
+    del pipe, args
+    b, a, types, valid, logits = k3_random
+    n, t = dims
+    node = torch.arange(b.shape[0], device="cuda") // (b.shape[0] // n)
+    m = torch.relu(a[node, types.long()] + b)
+    k4_errs.append(check_k4("random f32", (m, logits, types, n, t, valid), 1e-4, blocked_attn,
+                            segment)[0])
+    with torch.no_grad():
+        via_k4 = blocked_attn.blocked_attn_aggregate(m, logits, types, n, t, valid)
+        via_k3 = attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
+    err, scale = (via_k4 - via_k3).abs().max().item(), via_k3.abs().max().item()
+    if not err <= 1e-5 * scale:
+        raise SystemExit(f"K4 on relu(a_sel + b) differs from K3 on (b, a) by {err}")
+    log(f"K4 on relu(a_sel + b) against K3 on (b, a), random f32: max abs err {err:.3e} of "
+        f"max {scale:.3e}")
+    del k3_random, b, a, types, valid, logits, node, m, via_k4, via_k3
+    torch.cuda.empty_cache()
+
+    # 11. small slices on the reverse-permutation routes, CPU against card
+    phase_small_train("hybrid")
+    phase_small_slice("hybrid")
+    phase_small_slice("einsum")
+
+    # 12. full width per route
+    trainer = build_trainer(train_cfg, device="cuda", seed=0)
+    counts_train = drive_train("hybrid training", trainer, batches[1:],
+                               {"K3": steps, "K3b": steps}, card)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    counts_eval = {}
+    for route, kernel in (("hybrid", "K3"), ("einsum", "K4")):
+        pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
+                              cfg=eval_cfgs[route], seed=0)
+        counts_eval[route] = drive_eval(f"{route} eval", pipe, images, 5, {kernel: steps}, card)
+        del pipe
+        torch.cuda.empty_cache()
 
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
@@ -572,20 +840,27 @@ def main() -> int:
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None,
     }]
-    for way, name, replaces, count in (
-        ("fwd", "fused_typed_message_aggregate", "pemp_tpu/ops/pallas/fused_typed_message.py:412",
-         k2_fwd),
-        ("bwd", "fused_typed_message_aggregate_bwd",
-         "pemp_tpu/ops/pallas/fused_typed_message.py:352", k2_bwd),
-    ):
-        _, k_ms, k_plain, k_bound, k_by = k2_numbers[way]
+    rows = (
+        ("fused_typed_message_aggregate", "typed_message.cu", "fused_typed_message.py:412",
+         k2_fwd, max(k2_errs["fwd"]), k2_numbers["fwd"]),
+        ("fused_typed_message_aggregate_bwd", "typed_message.cu", "fused_typed_message.py:352",
+         k2_bwd, max(k2_errs["bwd"]), k2_numbers["bwd"]),
+        ("fused_attn_aggregate", "attn_aggregate.cu", "fused_typed_message.py:596",
+         counts_train["K3"] + counts_eval["hybrid"]["K3"], max(k3_errs["fwd"]),
+         k3_numbers["fwd"]),
+        ("fused_attn_aggregate_bwd", "attn_aggregate.cu", "fused_typed_message.py:630",
+         counts_train["K3b"], max(k3_errs["bwd"]), k3_numbers["bwd"]),
+        ("blocked_attn_aggregate", "blocked_attn.cu", "blocked_attn.py:68",
+         counts_eval["einsum"]["K4"], max(k4_errs), k4_numbers),
+    )
+    for name, source, replaces, count, err, (_, k_ms, k_plain, k_bound, k_by) in rows:
         kernels.append({
-            "name": name, "route": "cuda", "source": "pemp_tpu_torch/csrc/typed_message.cu",
-            "replaces": replaces, "launches": count, "max_abs_err": max(k2_errs[way]),
-            "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
-            "library_ms": None,
+            "name": name, "route": "cuda", "source": f"pemp_tpu_torch/csrc/{source}",
+            "replaces": f"pemp_tpu/ops/pallas/{replaces}", "launches": count,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+            "bound_by": k_by, "library_ms": None,
         })
-    log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-12 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

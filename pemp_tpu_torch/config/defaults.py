@@ -20,7 +20,7 @@ the model checks it (``models.mpn.models._check_flagship``).
 Each path then checks the values it implements for one setting only:
 :func:`check_path` with ``"eval"`` (the builders of the eval model and
 pipeline) or ``"train"`` (the trainer), against :data:`EVAL_FIXED` or
-:data:`TRAIN_FIXED` and :func:`resolve_msg_pass`. :func:`w48_640` and
+:data:`TRAIN_FIXED` and :func:`msg_pass_route`. :func:`w48_640` and
 :func:`w32_512_train` carry ``configs/hrnet/w48_640.yaml`` and
 ``configs/hybrid_class_agnostic_end2end/model_58_4.yaml`` as Python, for
 machines without PyYAML.
@@ -152,9 +152,8 @@ _C = CN({
 
 # Values no path of the port implements otherwise: HigherHRNet with the
 # standard blocks, the target-major kNN graph on detections, per-step MPN
-# outputs only where training asks for them, and the two message-passing
-# forms with kernels (fused_step for eval, pallas for training). Refused
-# when a file is loaded.
+# outputs only where training asks for them, and the message-passing forms
+# with kernels (``ROUTES``). Refused when a file is loaded.
 FIXED = {
     "MODEL.KP": ("hrnet",),
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
@@ -163,8 +162,15 @@ FIXED = {
     "MODEL.GC.USE_GT": (False,),
     "TPU.TARGET_MAJOR": (True,),
     "TPU.COLLECT_AUX": (False,),
-    "TPU.MSG_PASS": ("auto", "fused_step", "pallas"),
+    "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum"),
 }
+
+# The message-passing forms each path runs (pemp_tpu/models/mpn/layers.py):
+# the fused step (K1), the typed message kernel (K2, backward K2b), and on
+# the symmetric kNN layout with the reverse-edge permutation the slim
+# attention aggregation (K3, backward K3b) or the blocked aggregate (K4,
+# which has no backward).
+ROUTES = {"eval": ("fused_step", "hybrid", "einsum"), "train": ("pallas", "hybrid")}
 
 # The eval path is bench.py's: weights from the caller, threshold grouping
 # with fill, refine and quarter adjust, one scale, no flip, the standard
@@ -268,16 +274,24 @@ def _lookup(cfg, key: str):
     return cfg
 
 
-def resolve_msg_pass(cfg, train: bool) -> str:
+def msg_pass_route(msg_pass: str, train: bool) -> str:
     """``TPU.MSG_PASS`` as the JAX package resolves it on a TPU
     (pemp_tpu.models.pose_estimation.build_pose_model): ``auto`` is the
     fused step (K1) at eval, where per-step outputs are off, and the
     per-op kernel with its backward (K2, K2b) in training, which collects
-    them."""
-    msg_pass = cfg.TPU.MSG_PASS
-    if msg_pass == "auto":
-        msg_pass = "pallas" if train else "fused_step"
-    return msg_pass
+    them; any other value names its route. Raises ``NotImplementedError``
+    for a route the port does not run on that path."""
+    route = msg_pass
+    if route == "auto":
+        route = "pallas" if train else "fused_step"
+    path = "train" if train else "eval"
+    if route not in ROUTES[path]:
+        why = ("; the blocked aggregate (K4) has no backward kernel"
+               if route == "einsum" and train else "")
+        raise NotImplementedError(
+            f"TPU.MSG_PASS={msg_pass!r}: the port's {path} path runs only "
+            f"{ROUTES[path]}{why}")
+    return route
 
 
 def check_path(cfg, path: str) -> None:
@@ -289,11 +303,7 @@ def check_path(cfg, path: str) -> None:
         if value not in allowed:
             raise NotImplementedError(
                 f"{key}={value!r}: the port's {path} path implements only {allowed}")
-    want = "pallas" if path == "train" else "fused_step"
-    got = resolve_msg_pass(cfg, path == "train")
-    if got != want:
-        raise NotImplementedError(
-            f"TPU.MSG_PASS={cfg.TPU.MSG_PASS!r}: the port's {path} path runs only {want!r}")
+    msg_pass_route(cfg.TPU.MSG_PASS, path == "train")
 
 
 def get_config():

@@ -47,26 +47,18 @@
 
 #include <cuda_runtime.h>
 
+#include "group_softmax.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWidth = 64;          // De == D: every row is 64 wide
+using pemp::kMaxSlots;
+using pemp::kThreads;
+using pemp::kWarps;
+using pemp::kWidth;
+using pemp::warp_sum;
+
 constexpr int kLd = kWidth + 1;     // padded row stride: column reads hit distinct banks
-constexpr int kMaxSlots = kThreads; // one thread per slot in the type scan
 constexpr int kFwdChunk = 64;       // nodes per block of the forward
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Shared memory of one block, carved from the dynamic allocation.
 struct Smem {
@@ -125,22 +117,8 @@ __device__ int group_forward(const Smem& s, const float* __restrict__ ef,
                              bool keep_pre) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long slot0 = static_cast<long long>(n) * c;
-  __syncthreads();  // the previous group's buffers are free
-  int flag = 0;
-  if (tid < c) flag = valid[slot0 + tid] != 0 && types[slot0 + tid] == t;
-  const unsigned mask = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) s.warp_cnt[warp] = __popc(mask);
-  __syncthreads();
-  int before = 0, cnt = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int cw = s.warp_cnt[w];
-    before += w < warp ? cw : 0;
-    cnt += cw;
-  }
+  const int cnt = pemp::select_group(s.list, s.warp_cnt, types, valid, slot0, c, t);
   if (cnt == 0) return 0;
-  if (flag) s.list[before + __popc(mask & ((1u << lane) - 1u))] = tid;
-  __syncthreads();
 
   for (int i = tid; i < cnt * kWidth; i += kThreads) {
     const int r = i / kWidth, k = i % kWidth;
@@ -155,23 +133,7 @@ __device__ int group_forward(const Smem& s, const float* __restrict__ ef,
     if (lane == 0) s.logit[r] = v;
   }
   __syncthreads();
-  if (warp == 0) {
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int r = lane; r < cnt; r += 32) mx = fmaxf(mx, s.logit[r]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int r = lane; r < cnt; r += 32) {
-      const float ev = expf(s.logit[r] - mx);
-      s.e[r] = ev;
-      sum += ev;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      s.scal[0] = mx;
-      s.scal[1] = fmaxf(sum, 1e-16f);
-    }
-  }
-  __syncthreads();
+  pemp::group_softmax(s.logit, s.e, s.scal, cnt);
 
   // pre = a + ef @ We_t: a warp per row, lanes on output columns lane, lane + 32
   float acc0 = 0.f, acc1 = 0.f;
@@ -200,14 +162,6 @@ __device__ int group_forward(const Smem& s, const float* __restrict__ ef,
   return cnt;
 }
 
-// Sums the per-warp partials of column `col` in a fixed order.
-__device__ __forceinline__ float warp_partials(const Smem& s, int col) {
-  float v = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) v += s.red[w * kWidth + col];
-  return v;
-}
-
 __global__ void __launch_bounds__(kThreads) typed_message_fwd(
     const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
     const int* __restrict__ valid, const float* __restrict__ we,
@@ -223,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) typed_message_fwd(
     const int cnt = group_forward(s, ef, a, types, valid, n, c, t, num_types, false);
     if (threadIdx.x < kWidth) {
       const long long o = (static_cast<long long>(n) * num_types + t) * kWidth + threadIdx.x;
-      out[o] = cnt == 0 ? 0.f : warp_partials(s, threadIdx.x) / s.scal[1];
+      out[o] = cnt == 0 ? 0.f : pemp::sum_partials(s.red, threadIdx.x) / s.scal[1];
     }
   }
 }
@@ -259,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) typed_message_bwd(
     const float den = s.scal[1];
     if (tid < kWidth) {
       const float gv = g[row + tid];
-      const float ov = warp_partials(s, tid) / den;
+      const float ov = pemp::sum_partials(s.red, tid) / den;
       s.vec[kWidth + tid] = gv;
       const float prod = warp_sum(gv * ov);
       if (lane == 0) s.scal[2 + warp] = prod;
@@ -301,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) typed_message_bwd(
     s.red[warp * kWidth + lane] = da0;
     s.red[warp * kWidth + lane + 32] = da1;
     __syncthreads();
-    if (tid < kWidth) da[row + tid] = warp_partials(s, tid);
+    if (tid < kWidth) da[row + tid] = pemp::sum_partials(s.red, tid);
     for (int r = 0; r < cnt; ++r) {
       const float x = s.ef[r * kLd + kk];
       const float* dr = s.pre + r * kWidth + oo;

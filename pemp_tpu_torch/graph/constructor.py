@@ -33,9 +33,10 @@ from pemp_tpu_torch.ops.matching import auction_assignment
 class GCConfig:
     """Static graph settings from config.MODEL.GC and the TPU sizing keys.
 
-    Only what the port's paths read; the kNN layout is the asymmetric one
-    that ``TPU.MSG_PASS`` ``fused_step`` and ``pallas`` select in the JAX
-    package.
+    Only what the port's paths read. The kNN layout is symmetric exactly
+    when ``TPU.MSG_PASS`` is ``hybrid`` or ``einsum``, whose reverse-edge
+    permutation needs it (pemp_tpu/graph/constructor.py:74-82,104); ``auto``
+    runs the asymmetric layout of ``fused_step`` and ``pallas``.
     """
 
     num_joints: int = 17
@@ -49,6 +50,7 @@ class GCConfig:
     norm_node_distance: bool = False
     mask_crowds: bool = True
     matching_radius: float = 0.5
+    knn_symmetric: bool = False
 
     @classmethod
     def from_config(cls, config) -> "GCConfig":
@@ -68,6 +70,7 @@ class GCConfig:
             norm_node_distance=gc.NORM_NODE_DISTANCE,
             mask_crowds=gc.MASK_CROWDS,
             matching_radius=gc.MATCHING_RADIUS,
+            knn_symmetric=config.TPU.MSG_PASS in ("hybrid", "einsum"),
         )
 
     @property
@@ -223,7 +226,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
     node_feats = features[bi, ys, xs]                       # (B, N, F)
     tags_at = tagmaps[bi, ys, xs, ts]                       # (B, N)
     ei, ev = knn_edges_target_major(
-        det[..., :2].float(), valid, cfg.knn_k, cfg.knn_cap_in
+        det[..., :2].float(), valid, cfg.knn_k, cfg.knn_cap_in, cfg.knn_symmetric
     )                                                       # (B, 2, E), (B, E)
     e = ei.shape[-1]
     offsets = (torch.arange(b, dtype=torch.int32, device=det.device) * n)[:, None, None]

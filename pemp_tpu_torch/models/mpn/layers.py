@@ -3,12 +3,15 @@ pemp_tpu.models.mpn.layers).
 
 Module and parameter names follow the original reference
 (src/Models/MessagePassingNetwork/layers.py), so its ``state_dict`` keys
-load unchanged. Two forms of the flagship ``TypeAwareMPNLayer`` are
-ported, both with an agnostic edge MLP, ``node_edge_attn`` aggregation,
-skip connections, the target-major blocked layout with type-blocked nodes
-and an ``mlp`` update: the fused step (K1, eval) and the split edge MLP
-followed by the typed message kernel (K2 and its backward K2b, training).
-Every layer computes in its input's dtype.
+load unchanged. The flagship ``TypeAwareMPNLayer`` is ported with an
+agnostic edge MLP, ``node_edge_attn`` aggregation, skip connections, the
+target-major blocked layout with type-blocked nodes and an ``mlp`` update,
+in the four forms of ``TPU.MSG_PASS``: the fused step (K1), and the split
+edge MLP followed by the typed message kernel (``pallas``: K2, backward
+K2b), by the reverse-permutation projection and the slim attention
+aggregation (``hybrid``: K3, backward K3b), or by the same projection and
+the blocked aggregate (``einsum``: K4, forward only). All four read the
+same parameters. Every layer computes in its input's dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pemp_tpu_torch.ops.attn_aggregate import fused_attn_aggregate
+from pemp_tpu_torch.ops.blocked_attn import blocked_attn_aggregate
 from pemp_tpu_torch.ops.fused_step import fused_mpn_step
 from pemp_tpu_torch.ops.typed_message import fused_typed_message_aggregate
 
@@ -46,6 +51,45 @@ def num_summary_types(node_summary: str, num_joints: int) -> int:
     if node_summary == "per_body_part":
         return 6
     raise NotImplementedError(node_summary)
+
+
+def type_blocked_projection(edge, w_edge, rev_perm, raw_types: int, block_slots: int,
+                            sum_map=None):
+    """Each slot's edge features times the weight of its source's type, as
+    one batched matmul with no type waste (the ``rev_perm`` form of
+    pemp_tpu.models.mpn.layers.TypeAwareSplitLinear, :224-235).
+
+    edge (E, De) in the symmetric target-major layout with type-blocked
+    nodes; w_edge (T, D, De) per-type weights in nn.Linear's layout;
+    rev_perm (E,) the reverse-edge involution (ops.knn.reverse_edge_perm);
+    raw_types J and block_slots K * C. Slot f of the permuted rows carries
+    the features of f's reverse, whose source is node f // C, of raw type
+    (f // (K*C)) mod J: so row block j of each image takes weight j
+    (``sum_map[j]`` under a node-type summary), and permuting back gives
+    every valid slot its source type's projection. Returns (E, D).
+    """
+    e, de = edge.shape
+    w = w_edge if sum_map is None else w_edge[sum_map]                 # (J, D, De)
+    cperm = edge[rev_perm].reshape(e // (raw_types * block_slots), raw_types, block_slots, de)
+    bj = torch.einsum("bjkd,jfd->bjkf", cperm, w)
+    return bj.reshape(e, -1)[rev_perm]
+
+
+def type_aware_split_linear(x, edge, types, weight, bias, rev_perm, raw_types: int,
+                            block_slots: int, sum_map=None):
+    """pemp_tpu.models.mpn.layers.TypeAwareSplitLinear with ``rev_perm``:
+    the type-``types[s]`` Linear of [x[s // C], edge[s]] for every slot s,
+    its node part computed once per (node, type). x (N, dn), edge (E, De),
+    types (E,) source types; weight (T, D, dn + De), bias (T, D). Returns
+    (E, D)."""
+    n, dn = x.shape
+    e = edge.shape[0]
+    tv = types.long()
+    a = torch.einsum("ni,toi->nto", x, weight[:, :, :dn])               # (N, T, D)
+    a_sel = a[torch.arange(e, device=x.device) // (e // n), tv]
+    b_sel = type_blocked_projection(edge, weight[:, :, dn:], rev_perm, raw_types, block_slots,
+                                    sum_map)
+    return a_sel + b_sel + bias[tv]
 
 
 class Linear(nn.Linear):
@@ -131,8 +175,9 @@ class _TypedNodeMLP(nn.Module):
 
 class TypeAwareMPNLayer(nn.Module):
     """Flagship layer. reference: layers.py:157-258. ``forward`` is the
-    fused-step form (K1), ``forward_typed`` the split form with the typed
-    message kernel (K2, differentiable through K2b).
+    fused-step form (K1); ``forward_typed`` (K2, differentiable through
+    K2b), ``forward_hybrid`` (K3, through K3b) and ``forward_einsum`` (K4)
+    are the split forms.
 
     ``node_in`` / ``edge_in`` are the widths of the skip-concatenated node
     and edge inputs; ``init_edge_dim`` is the width of their loop-invariant
@@ -196,25 +241,32 @@ class TypeAwareMPNLayer(nn.Module):
         out = self.update_mlp(updates.reshape(n, -1).to(dt))
         return out, new_edge
 
-    def forward_typed(self, x, q, init_proj, cur, pre):
-        """One step of the JAX package's ``pallas`` path
-        (pemp_tpu/models/mpn/layers.py:465-533 with the blocked split edge
-        MLP, then :561-614): x (N, node_in) skip-concatenated nodes; q (E, H)
-        the loop-invariant init-edge projection; init_proj (N, H) the
-        loop-invariant init half of the source projection, gathered by
-        source; cur (E, De) the edge carry; ``pre`` the loop-invariant index
-        columns. Returns (new nodes (N, D), new edge carry (E, De))."""
-        n = x.shape[0]
+    def _edge_mlp(self, x, q, init_proj, cur, src):
+        """The blocked split edge MLP of the JAX package
+        (pemp_tpu/models/mpn/layers.py:465-533), in x's dtype: x (N,
+        node_in) skip-concatenated nodes; q (E, H) the loop-invariant
+        init-edge projection; init_proj (N, H) the loop-invariant init half
+        of the source projection, gathered by source ``src`` (E,); cur (E,
+        De) the edge carry. Returns the new edge carry (E, De)."""
+        dt = x.dtype
         dn, di = self.node_in, self.node_in - self.node_dim
         lin0, lin1 = self.mlp_edge[0], self.mlp_edge[2]
-        w0 = lin0.weight
-        h_node = x @ w0[:, :dn].t() + lin0.bias                          # (N, H)
-        xproj = x[:, di:] @ w0[:, dn + di:2 * dn].t()                    # (N, H)
-        src = pre["src"]
+        w0 = lin0.weight.to(dt)
+        h_node = x @ w0[:, :dn].t() + lin0.bias.to(dt)                 # (N, H)
+        xproj = x[:, di:] @ w0[:, dn + di:2 * dn].t()                   # (N, H)
         h_edge = (init_proj + xproj)[src] + q + cur @ w0[:, 2 * dn + self.init_edge_dim:].t()
-        c = h_edge.shape[0] // n
+        c = h_edge.shape[0] // x.shape[0]
         h = torch.relu(h_edge + torch.repeat_interleave(h_node, c, dim=0))
-        new_edge = torch.relu(lin1(h))                                   # (E, De)
+        return torch.relu(lin1(h))                                      # (E, De)
+
+    def forward_typed(self, x, q, init_proj, cur, pre):
+        """One step of the JAX package's ``pallas`` path (the split edge MLP,
+        then pemp_tpu/models/mpn/layers.py:561-614), in float32: arguments
+        as :meth:`_edge_mlp`, ``pre`` the loop-invariant index columns.
+        Returns (new nodes (N, D), new edge carry (E, De))."""
+        n = x.shape[0]
+        dn = self.node_in
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
         wn, bn = self.mlp_node.stacked()              # (T, D, dn + De), (T, D)
         t, d = wn.shape[:2]
         a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
@@ -222,5 +274,43 @@ class TypeAwareMPNLayer(nn.Module):
         updates = fused_typed_message_aggregate(
             new_edge.contiguous(), a.contiguous(), pre["src_type"], pre["valid"],
             we.contiguous(), self.attn_net[0].weight.t().contiguous(), n, t)
+        out = self.update_mlp(updates.reshape(n, -1))
+        return out, new_edge
+
+    def forward_hybrid(self, x, q, init_proj, cur, pre):
+        """One step of the ``hybrid`` path (pemp_tpu/models/mpn/layers.py:
+        580-604): the typed projection by :func:`type_blocked_projection`,
+        the logits without their bias (constant within each softmax group),
+        then K3 (``ops.attn_aggregate``). In x's dtype up to the aggregate,
+        which computes and returns float32. ``pre`` adds ``rev_perm``,
+        ``blocks`` (J, K * C) and ``type_sum_map`` to the index columns."""
+        n, dt = x.shape[0], x.dtype
+        dn = self.node_in
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
+        wn, bn = self.mlp_node.stacked()
+        wn, bn = wn.to(dt), bn.to(dt)
+        a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
+        b = type_blocked_projection(new_edge, wn[:, :, dn:], pre["rev_perm"], *pre["blocks"],
+                                    pre["type_sum_map"])
+        logits = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0].float()
+        updates = fused_attn_aggregate(b.contiguous(), a.contiguous(), pre["src_type"],
+                                       pre["valid"], logits.contiguous(), n, self.num_types)
+        out = self.update_mlp(updates.reshape(n, -1).to(dt))
+        return out, new_edge
+
+    def forward_einsum(self, x, q, init_proj, cur, pre):
+        """One step of the ``einsum`` path (pemp_tpu/models/mpn/layers.py:
+        627-676): messages by :func:`type_aware_split_linear` and ReLU, the
+        attention scores, then K4 (``ops.blocked_attn``), all in x's dtype;
+        ``pre`` as :meth:`forward_hybrid`. Forward only on the card."""
+        n, dt = x.shape[0], x.dtype
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
+        wn, bn = self.mlp_node.stacked()
+        m = torch.relu(type_aware_split_linear(
+            x, new_edge, pre["src_type"], wn.to(dt), bn.to(dt), pre["rev_perm"],
+            *pre["blocks"], pre["type_sum_map"]))
+        scores = self.attn_net(new_edge)[:, 0]
+        updates = blocked_attn_aggregate(m.contiguous(), scores, pre["src_type"], n,
+                                         self.num_types, pre["valid"])
         out = self.update_mlp(updates.reshape(n, -1))
         return out, new_edge

@@ -6,14 +6,19 @@ Forward contract as in the reference
     (x, edge_attr, edge_index, ...) ->
         dict(edge=[(E,) logits], node=[(N,)], class=[(N, C)])
 
-Two routes, as the JAX package's build_pose_model resolves ``TPU.MSG_PASS``
-on a TPU (pemp_tpu/models/pose_estimation.py:234-256): at eval, with
-per-step outputs off, each step is the fused step (K1); in training, which
-collects per-step outputs, each step is the split edge MLP and the typed
-message kernel (K2, differentiable through K2b), and the heads run on the
-last ``AUX_LOSS_STEPS + 1`` steps and on the final features
-(pemp_tpu/models/mpn/models.py:288-316). The embeddings' BatchNorm takes
-training statistics over valid rows in training.
+The route of each step is ``TPU.MSG_PASS`` (``_MSG_PASS`` in the MPN
+config), resolved as the JAX package's build_pose_model resolves it on a
+TPU (pemp_tpu/models/pose_estimation.py:234-256) for the module's mode:
+``auto`` is the fused step (K1) in eval mode and the typed message kernel
+(``pallas``: K2, differentiable through K2b) in training mode; ``hybrid``
+(K3, through K3b) runs in both, ``einsum`` (K4) in eval mode. The two
+reverse-permutation routes read the reverse-edge involution of the
+symmetric layout, built once per forward. The module's mode decides the
+rest: training collects per-step outputs, with the heads on the last
+``AUX_LOSS_STEPS + 1`` steps and on the final features
+(pemp_tpu/models/mpn/models.py:288-316), and takes the embeddings'
+BatchNorm statistics over valid rows; eval runs the heads on the final
+features only.
 
 The JAX package scans the shared-weight step with ``nn.scan``; here it is a
 Python loop over the same module. The index columns, the init-edge
@@ -26,12 +31,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pemp_tpu_torch.config.defaults import msg_pass_route
 from pemp_tpu_torch.models.mpn.layers import (
     MLP,
     TypeAwareMPNLayer,
     num_summary_types,
     sum_node_types,
 )
+from pemp_tpu_torch.ops.knn import reverse_edge_perm
 
 
 def mpn_cfg_from_config(mpn_config) -> dict:
@@ -63,7 +70,8 @@ class NodeClassificationMPN(nn.Module):
 
     reference: NodeClassificationMPNSimple.py:23-97. ``mpn_cfg`` is the
     plain-dict MPN config plus ``_BLOCKED_C`` (slots per node) and
-    ``_NODES_PER_TYPE`` (K), as the JAX package's build_pose_model sets them.
+    ``_NODES_PER_TYPE`` (K), as the JAX package's build_pose_model sets them,
+    and ``_MSG_PASS`` (``TPU.MSG_PASS``, ``auto`` when absent).
     """
 
     def __init__(self, mpn_cfg: dict):
@@ -94,11 +102,10 @@ class NodeClassificationMPN(nn.Module):
         edge_valid (E,), edge_src_local (E,) source ids within their image;
         ``dtype`` is the working type; ``node_valid`` (N,) masks the
         BatchNorm statistics in training. Node types are not an input: on
-        the type-blocked layout they are index arithmetic. The module's
-        ``training`` flag picks the route: K1 in eval mode, the training
-        route (collect, K2/K2b, BatchNorm statistics of the batch) in
-        training mode."""
+        the type-blocked layout they are index arithmetic. The route is
+        ``_MSG_PASS`` resolved for the module's mode (module docstring)."""
         c = self.cfg
+        route = msg_pass_route(c.get("_MSG_PASS", "auto"), self.training)
         npt = c["_NODES_PER_TYPE"]
         e = edge_index.shape[1]
         edge_features = self.edge_embedding(edge_attr.to(dtype), edge_valid)
@@ -110,12 +117,12 @@ class NodeClassificationMPN(nn.Module):
         pre = {
             "src_type": sum_node_types(c["NODE_TYPE_SUMMARY"], raw).to(torch.int32).reshape(e),
             "valid": edge_valid.to(torch.int32).reshape(e),
-            "src_local": edge_src_local.to(torch.int32).reshape(e),
-            "nodes_per_image": c["NUM_JOINTS"] * npt,
         }
         layer = self.mpn_node_cls
         init_nodes, init_edges = node_features, edge_features
-        if not self.training:
+        if route == "fused_step":
+            pre["src_local"] = edge_src_local.to(torch.int32).reshape(e)
+            pre["nodes_per_image"] = c["NUM_JOINTS"] * npt
             sw = layer.step_weights(dtype)
             q = (init_edges @ sw["w_init_edge"].t()).contiguous()
             for _ in range(c["STEPS"]):
@@ -127,23 +134,33 @@ class NodeClassificationMPN(nn.Module):
                 "class": [self.classification(node_features)],
             }
 
-        # training: K2 steps, per-step outputs kept for the heads
+        # the split edge MLP routes (pemp_tpu/models/mpn/models.py:199-211)
         pre["src"] = edge_index[0].long()
+        step = {"pallas": layer.forward_typed, "hybrid": layer.forward_hybrid,
+                "einsum": layer.forward_einsum}[route]
+        if route != "pallas":
+            n, cslots = x.shape[0], c["_BLOCKED_C"]
+            pre["rev_perm"] = reverse_edge_perm(edge_index[0], edge_valid, n, cslots).long()
+            pre["blocks"] = (c["NUM_JOINTS"], npt * cslots)
+            summary = c["NODE_TYPE_SUMMARY"]
+            pre["type_sum_map"] = None if summary == "not" else sum_node_types(
+                summary, torch.arange(c["NUM_JOINTS"], device=x.device))
         dn, dec = layer.node_in, layer.init_edge_dim
-        w0 = layer.mlp_edge[0].weight
+        w0 = layer.mlp_edge[0].weight.to(dtype)
         q = init_edges @ w0[:, 2 * dn:2 * dn + dec].t()
         init_proj = init_nodes @ w0[:, dn:dn + (dn - layer.node_dim)].t()
         steps, aux = c["STEPS"], c.get("AUX_LOSS_STEPS", 0)
         preds = {"edge": [], "node": [], "class": []}
         for i in range(steps):
             nf = torch.cat([init_nodes, node_features], dim=-1)
-            node_features, edge_features = layer.forward_typed(
-                nf, q, init_proj, edge_features, pre)
-            if i >= steps - aux - 1:
+            node_features, edge_features = step(nf, q, init_proj, edge_features, pre)
+            if self.training and i >= steps - aux - 1:
                 preds["node"].append(self.node_classification(node_features, node_valid)[..., 0])
                 preds["class"].append(self.classification(node_features, node_valid))
                 preds["edge"].append(
                     self.edge_classification(edge_features, edge_valid)[..., 0])
+        if not self.training:
+            preds["edge"].append(self.edge_classification(edge_features, edge_valid)[..., 0])
         preds["node"].append(self.node_classification(node_features, node_valid)[..., 0])
         preds["class"].append(self.classification(node_features, node_valid))
         return preds

@@ -6,8 +6,11 @@ reference: src/Models/PoseEstimation/PoseEstimation.py:53-111. Submodule
 names (``backbone``, ``feature_gather``, ``mpn``) follow the reference, so
 its composite ``state_dict`` loads unchanged.
 
-Routing is by device: on CUDA tensors the MPN step runs the hand-written
-kernel, on CPU tensors its plain PyTorch version (see ops.fused_step).
+``TPU.MSG_PASS`` picks the MPN's route (models.mpn.models) and, for
+``hybrid`` and ``einsum``, the symmetric kNN layout (graph.constructor).
+Routing to a kernel is by device: on CUDA tensors each kernel of the route
+runs as a hand-written CUDA kernel, on CPU tensors as its plain PyTorch
+version (see ops/).
 """
 
 from __future__ import annotations
@@ -143,6 +146,7 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
     # type-blocked, as the JAX package's build_pose_model records them
     mpn_cfg["_BLOCKED_C"] = gc.slots
     mpn_cfg["_NODES_PER_TYPE"] = gc.nodes_per_type
+    mpn_cfg["_MSG_PASS"] = config.TPU.MSG_PASS
     model = PoseEstimationBaseline(
         HRNetSpec.from_config(config), gc, mpn_cfg,
         num_joints=config.DATASET.NUM_JOINTS,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries go to ``build/pemp_tpu_torch/`` beside the package (or
-``$PEMP_TORCH_BUILD_DIR``), named by a hash of their source, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs
+``$PEMP_TORCH_BUILD_DIR``), named by a hash of their source and the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs
 at import time.
 """
 
@@ -19,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_step", "typed_message")
+SOURCES = ("fused_step", "typed_message", "attn_aggregate", "blocked_attn")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,7 +46,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"lib{name}_{digest}.so"
 
 
@@ -90,3 +94,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, with its argument
+    types declared and an int (cudaError_t) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,7 +1,9 @@
 """Target-major kNN edges (counterpart of pemp_tpu.ops.knn).
 
-Only the asymmetric layout that the fused-step eval path uses is ported
-(``knn_edges_target_major(symmetric=False)``).
+``knn_edges_target_major`` in both layouts: the asymmetric one of the
+``fused_step`` and ``pallas`` message paths and the symmetric one of
+``hybrid`` and ``einsum``, with ``reverse_edge_perm``, the reverse-edge
+involution those two read.
 
 Convention as in the reference MPN: ``edge_index[0]`` is the message
 source j, ``edge_index[1]`` the target i (reference layers.py:210).
@@ -25,7 +27,7 @@ def pairwise_dist2(pos: torch.Tensor) -> torch.Tensor:
 
 
 def knn_edges_target_major(pos: torch.Tensor, valid: torch.Tensor, k: int,
-                           cap_in: int | None = None):
+                           cap_in: int | None = None, symmetric: bool = False):
     """Undirected kNN edges in a *target-major blocked* layout.
 
     pos: (B, N, 2) or (N, 2); valid: matching (B, N) or (N,).
@@ -35,11 +37,15 @@ def knn_edges_target_major(pos: torch.Tensor, valid: torch.Tensor, k: int,
       * slots [i*C+k, (i+1)*C): sources j with i in knn(j) and j not in
         knn(i), placed by rank; entries beyond ``cap_in`` are dropped.
 
+    ``symmetric=True`` also drops the A-side reverse of every truncated
+    B-edge, so every valid edge's reverse is a valid slot
+    (pemp_tpu/ops/knn.py:172-177, 235-244).
+
     Returns edge_index (B, 2, N*C) int32 (edge_index[:, 1] == slot // C)
     and edge_valid (B, N*C) bool, without the batch axis for unbatched input.
     """
     if pos.dim() == 2:
-        ei, ev = knn_edges_target_major(pos[None], valid[None], k, cap_in)
+        ei, ev = knn_edges_target_major(pos[None], valid[None], k, cap_in, symmetric)
         return ei[0], ev[0]
     b, n, _ = pos.shape
     dev = pos.device
@@ -78,6 +84,16 @@ def knn_edges_target_major(pos: torch.Tensor, valid: torch.Tensor, k: int,
     counts.scatter_add_(1, tgt_sorted, torch.ones_like(tgt_sorted))
     counts = counts[:, :n]
     starts = torch.cumsum(counts, dim=1) - counts
+    if symmetric:
+        # kept[f]: forward edge f survived its target's B-region cap. A-slot
+        # (i, m) is the reverse of forward edge i*k+m, so A-edges whose
+        # non-mutual reverse was cut are dropped; the stable sort's order is
+        # the slot-id payload that scatters the flags back
+        rank = torch.arange(n * k, device=dev) - torch.gather(
+            starts, 1, torch.clamp(tgt_sorted, max=n - 1))
+        kept_sorted = (rank < cap_in) & (tgt_sorted < n)
+        kept = torch.zeros_like(kept_sorted).scatter(1, order, kept_sorted)
+        nbr_ok = nbr_ok & (mutual | kept.reshape(b, n, k))
     r_iota = torch.arange(cap_in, device=dev)
     slot = starts[:, :, None] + r_iota[None, None, :]        # (B, N, cap)
     valid_b = r_iota[None, None, :] < torch.clamp(counts, max=cap_in)[:, :, None]
@@ -90,3 +106,19 @@ def knn_edges_target_major(pos: torch.Tensor, valid: torch.Tensor, k: int,
     edge_dst = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(c)
     edge_index = torch.stack([edge_src, edge_dst[None].expand(b, n * c)], dim=1)
     return edge_index, edge_valid
+
+
+def reverse_edge_perm(edge_src: torch.Tensor, edge_valid: torch.Tensor, num_nodes: int,
+                      c: int) -> torch.Tensor:
+    """Slot of each edge's reverse in the symmetric target-major layout
+    (pemp_tpu.ops.knn.reverse_edge_perm): R (E,) with R[R[e]] == e on valid
+    edges. The first matching slot of block src(e) is taken; an invalid slot
+    e gets src(e) * C. Same dtype as ``edge_src``. Builds an (E, C) table
+    of candidates once per forward (139 MB in int32 at the flagship eval
+    size)."""
+    src = edge_src.long()
+    dst = torch.arange(num_nodes, device=edge_src.device).repeat_interleave(c)
+    cand = edge_src.reshape(num_nodes, c)[src]                       # (E, C)
+    match = (cand == dst[:, None]) & edge_valid.reshape(num_nodes, c)[src]
+    first = torch.argmax(match.to(torch.uint8), dim=1)   # the first maximum
+    return (src * c + first).to(edge_src.dtype)

@@ -36,6 +36,8 @@ import ctypes
 
 import torch
 
+from pemp_tpu_torch.ops.attn_aggregate import fused_attn_aggregate_plain
+
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
@@ -48,33 +50,19 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 def fused_typed_message_plain(ef, a, types, valid, we, w_attn, num_nodes: int,
                               num_types: int):
-    """Plain PyTorch version of K2 (the math of ``_tile_forward``):
-    the typed projection onto every type, then selection, a per-(node,
-    type) max shift held constant, masked softmax and weighted sum.
-    Differentiable by autograd. Returns (N, T, D) float32."""
-    e, de = ef.shape
-    c = e // num_nodes
+    """Plain PyTorch version of K2 (the math of ``_tile_forward``): the
+    typed projection onto every type and the selection of each slot's own,
+    the logits, then K3's plain version (selection of a, ReLU, per-(node,
+    type) softmax and weighted sum). Differentiable by autograd. Returns
+    (N, T, D) float32."""
+    e = ef.shape[0]
     d = a.shape[-1]
-    dev = ef.device
     f32 = torch.float32
     tv = types.reshape(-1).long()
-    vv = valid.reshape(-1) != 0
     b_all = (ef.to(f32) @ we.to(f32)).reshape(e, num_types, d)
     b_sel = torch.gather(b_all, 1, tv[:, None, None].expand(e, 1, d))[:, 0]
-    node_of_edge = torch.arange(e, device=dev) // c
-    a_sel = a.reshape(num_nodes, num_types, d).to(f32)[node_of_edge, tv]
-    m = torch.relu(a_sel + b_sel)                                        # (E, D)
     logits = (ef.to(f32) @ w_attn[:, :1].to(f32))[:, 0]
-    hot = (tv.reshape(num_nodes, c)[:, :, None] == torch.arange(num_types, device=dev)) & (
-        vv.reshape(num_nodes, c)[:, :, None])                            # (N, C, T)
-    neg = torch.tensor(-1e30, dtype=f32, device=dev)
-    sc = torch.where(hot, logits.reshape(num_nodes, c)[:, :, None], neg)
-    mx = torch.amax(sc, dim=1, keepdim=True).detach()   # the shift is a constant
-    mx = torch.where(mx <= neg / 2, torch.zeros_like(mx), mx)
-    ex = torch.where(hot, torch.exp(sc - mx), torch.zeros_like(sc))
-    num = torch.einsum("nct,ncd->ntd", ex, m.reshape(num_nodes, c, d))
-    den = torch.clamp(ex.sum(dim=1), min=1e-16)
-    return num / den[:, :, None]
+    return fused_attn_aggregate_plain(b_sel, a, types, valid, logits, num_nodes, num_types)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -110,14 +98,10 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _fn(name, argtypes):
+def _fn(symbol, argtypes):
     from pemp_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("typed_message"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.function("typed_message", symbol, argtypes)
 
 
 def _launch_forward(ef, a, types, valid, we, w_attn, num_nodes, num_types):

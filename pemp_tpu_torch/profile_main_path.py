@@ -1,8 +1,10 @@
 """Where the main path's time goes on the card, stage by stage.
 
-    python -m pemp_tpu_torch.profile_main_path
+    python -m pemp_tpu_torch.profile_main_path [--msg-pass ROUTE]
 
-Runs the w48/640 eval pipeline at batch 8 (bf16, seeded random weights)
+Runs the w48/640 eval pipeline at batch 8 (bf16, seeded random weights),
+with ``TPU.MSG_PASS`` set to ROUTE (auto, fused_step, hybrid or einsum;
+default auto, the fused step), as ``BENCH_MSG_PASS`` sets it for bench.py,
 with CUDA events between its stages (backbone + feature gather, graph
 construction, MPN, decode; the heatmap resize and slicing count to the
 graph stage) and prints each stage's median time over 5 forwards, then
@@ -12,11 +14,13 @@ card; it does not run on the CPU.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import numpy as np
 import torch
 
+from pemp_tpu_torch.config import w48_640
 from pemp_tpu_torch.pipeline import BATCH, INPUT_SIZE, build_pipeline
 
 ITERS = 5
@@ -46,21 +50,27 @@ def _stages(pipe, images):
     return {k: ev[a].elapsed_time(ev[k]) for a, k in zip(names, names[1:])}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="Stage times of the w48/640 eval path on the card")
+    p.add_argument("--msg-pass", default="auto", help="TPU.MSG_PASS for the MPN")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    pipe = build_pipeline(BATCH, INPUT_SIZE, dtype=torch.bfloat16, device="cuda")
+    cfg = w48_640()
+    cfg.TPU.MSG_PASS = args.msg_pass
+    pipe = build_pipeline(BATCH, INPUT_SIZE, dtype=torch.bfloat16, device="cuda", cfg=cfg)
     gen = torch.Generator().manual_seed(0)
     images = torch.rand(BATCH, INPUT_SIZE, INPUT_SIZE, 3, generator=gen).cuda()
     with torch.no_grad():
         pipe(images)
         runs = [_stages(pipe, images) for _ in range(ITERS)]
         total = [sum(r.values()) for r in runs]
-        print(f"card: {card}; w48/{INPUT_SIZE} batch {BATCH} bf16, median of {ITERS}")
+        print(f"card: {card}; w48/{INPUT_SIZE} batch {BATCH} bf16, MSG_PASS "
+              f"{args.msg_pass}, median of {ITERS}")
         for k in runs[0]:
             ms = float(np.median([r[k] for r in runs]))
             print(f"  {k:9s} {ms:9.3f} ms  {100 * ms / np.median(total):5.1f} %")

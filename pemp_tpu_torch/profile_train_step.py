@@ -1,19 +1,21 @@
 """Where a model_58_4 training step's time goes on the card, stage by stage.
 
-    python -m pemp_tpu_torch.profile_train_step
+    python -m pemp_tpu_torch.profile_train_step [--msg-pass ROUTE]
 
 Trains model_58_4 (HigherHRNet-w32 at 512, batch 8, f32, seeded random
-weights, synthetic batches made before timing) with CUDA events between the
-stages of each step: backbone (with the feature gather), graph (detection,
-kNN graph and edge features), labels (the auction matcher and the method-6
-labels), MPN (embeddings, 10 K2 steps and the heads), losses, backward and
-optimizer. Prints each stage's median over 3 steps after a warm-up, then
-``torch.profiler``'s device time per kernel over one step. Needs a CUDA
-card; it does not run on the CPU.
+weights, synthetic batches made before timing), with ``TPU.MSG_PASS`` set
+to ROUTE (auto, pallas or hybrid; default auto, the typed message kernel),
+with CUDA events between the stages of each step: backbone (with the
+feature gather), graph (detection, kNN graph and edge features), labels
+(the auction matcher and the method-6 labels), MPN (embeddings, the 10
+steps and the heads), losses, backward and optimizer. Prints each stage's
+median over 3 steps after a warm-up, then ``torch.profiler``'s device time
+per kernel over one step. Needs a CUDA card; it does not run on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import numpy as np
@@ -76,7 +78,10 @@ def _step(trainer, batch):
     return out
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="Stage times of a model_58_4 training step")
+    p.add_argument("--msg-pass", default="auto", help="TPU.MSG_PASS for the MPN")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(
@@ -84,6 +89,7 @@ def main() -> None:
         check=True, capture_output=True, text=True,
     ).stdout.strip()
     cfg = w32_512_train()
+    cfg.TPU.MSG_PASS = args.msg_pass
     bs, size = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.INPUT_SIZE
     rng = np.random.RandomState(0)
     batches = [batch_to_torch(make_batch(rng, bs, size, tuple(cfg.DATASET.OUTPUT_SIZE), 17,
@@ -93,7 +99,8 @@ def main() -> None:
     _step(trainer, batches[0])
     runs = [_step(trainer, b) for b in batches[1:STEPS + 1]]
     total = [sum(r.values()) for r in runs]
-    print(f"card: {card}; model_58_4 w32/{size} batch {bs} f32, median of {STEPS} steps")
+    print(f"card: {card}; model_58_4 w32/{size} batch {bs} f32, MSG_PASS {args.msg_pass}, "
+          f"median of {STEPS} steps")
     for k in runs[0]:
         ms = float(np.median([r[k] for r in runs]))
         print(f"  {k:9s} {ms:9.3f} ms  {100 * ms / np.median(total):5.1f} %")

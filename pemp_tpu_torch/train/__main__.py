@@ -1,13 +1,15 @@
 """Trains a configuration for a few steps on synthetic batches.
 
     python -m pemp_tpu_torch.train hybrid_class_agnostic_end2end/model_58_4 \
-        --synthetic --steps 3 [--device cpu] [--seed 0]
+        --synthetic --steps 3 [--device cpu] [--seed 0] [--msg-pass hybrid]
 
 The counterpart of ``tools/train.py --synthetic`` for a few steps: the
 configuration is read from ``configs/<name>.yaml`` (model_58_4 comes from
 its Python preset, so no PyYAML is needed), the weights are seeded random
 ones, and each step's batch comes from ``data.synthetic`` with a numpy
-``RandomState(seed)``. Runs on CUDA unless given ``--device cpu``; prints
+``RandomState(seed)``. ``--msg-pass`` sets ``TPU.MSG_PASS`` (the
+message-passing route: ``pallas`` or ``hybrid``; the file's own value by
+default). Runs on CUDA unless given ``--device cpu``; prints
 each step's loss parts and the steps per second.
 """
 
@@ -42,9 +44,12 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--msg-pass", help="TPU.MSG_PASS (the file's value by default)")
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
+    if args.msg_pass:
+        cfg.TPU.MSG_PASS = args.msg_pass
     trainer = build_trainer(cfg, device=args.device, seed=args.seed)
     device = next(trainer.model.parameters()).device
     rng = np.random.RandomState(args.seed)

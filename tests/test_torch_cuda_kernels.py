@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from pemp_tpu_torch.ops import fused_step, typed_message
+from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, typed_message
+from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 
 
 def _k1_inputs(seed=2, imgs=2, n_img=16, c=8, t=4, w=64):
@@ -99,3 +100,77 @@ def test_typed_message_kernels_match_plain_on_card():
         leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t) * g).sum(), leaves)
     for first, second in zip(grads_k, again):
         assert torch.equal(first, second)
+
+
+def _k3_inputs(dtype, seed=4, n=40, c=80, t=17, w=64):
+    """K3's inputs at the flagship widths, with empty groups and a node
+    without a valid slot; and a cotangent."""
+    rng = np.random.RandomState(seed)
+    e = n * c
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()  # noqa: E731
+    types = rng.randint(0, t, e).astype(np.int32)
+    types[: 2 * c] = 0
+    valid = (rng.rand(e) > 0.3).astype(np.int32)
+    valid[3 * c: 4 * c] = 0
+    i = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    return (f(e, w).to(dtype), f(n, t, w).to(dtype), i(types), i(valid), f(e)), f(n, t, w), n, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-4)])
+def test_attn_aggregate_kernels_match_plain_on_card(dtype, tol):
+    # K3 against the plain version, both reading the same inputs and
+    # computing in f32 (sums in another order: 1e-4); in f32 also K3b
+    # against autograd through the plain version
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    (b, a, types, valid, logits), g, n, t = _k3_inputs(dtype)
+    before = attn_aggregate.LAUNCHES_FWD
+    out_k = attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
+    out_p = attn_aggregate.fused_attn_aggregate_plain(b, a, types, valid, logits, n, t)
+    torch.cuda.synchronize()
+    assert attn_aggregate.LAUNCHES_FWD == before + 1
+    torch.testing.assert_close(out_k, out_p, atol=tol, rtol=tol)
+    if dtype != torch.float32:
+        leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
+        out = attn_aggregate.fused_attn_aggregate(leaves[0], leaves[1], types, valid,
+                                                  leaves[2], n, t)
+        with pytest.raises(ValueError, match="float32 only"):
+            out.sum().backward()
+        return
+    leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
+    grads_k = torch.autograd.grad((attn_aggregate.fused_attn_aggregate(
+        leaves[0], leaves[1], types, valid, leaves[2], n, t) * g).sum(), leaves)
+    plain = [x.clone().requires_grad_() for x in (b, a, logits)]
+    grads_p = torch.autograd.grad((attn_aggregate.fused_attn_aggregate_plain(
+        plain[0], plain[1], types, valid, plain[2], n, t) * g).sum(), plain)
+    torch.cuda.synchronize()
+    for name, gk, gp in zip(("db", "da", "dlogit"), grads_k, grads_p):
+        torch.testing.assert_close(gk, gp, atol=1e-4, rtol=1e-4, msg=name)
+    assert bool((grads_k[0][valid == 0] == 0).all() and (grads_k[2][valid == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_blocked_attn_kernel_matches_plain_on_card(dtype, tol):
+    # K4 against the plain version (f32 inside both; in bf16 the output
+    # rounds once and may land one ulp apart: 2e-2); and K4 on relu(a + b)
+    # equals K3 on (b, a)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    (b, a, types, valid, logits), _, n, t = _k3_inputs(dtype, seed=5)
+    c = b.shape[0] // n
+    node = torch.arange(b.shape[0], device="cuda") // c
+    m = torch.relu(a[node, types.long()].float() + b.float()).to(dtype)
+    before = blocked_attn.LAUNCHES
+    out_k = blocked_attn.blocked_attn_aggregate(m, logits, types, n, t, valid)
+    out_p = blocked_per_type_attention_aggregate(m, logits, types, n, t, valid)
+    torch.cuda.synchronize()
+    assert blocked_attn.LAUNCHES == before + 1 and out_k.dtype == dtype
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        k3 = attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
+        torch.testing.assert_close(out_k, k3, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        blocked_attn.blocked_attn_aggregate(m.clone().requires_grad_(), logits, types, n, t,
+                                            valid)

@@ -128,7 +128,7 @@ def test_repo_yaml_loads_or_is_refused(path):
 
 
 @pytest.mark.parametrize("text,error", [
-    ("TPU: {MSG_PASS: hybrid}", NotImplementedError),
+    ("TPU: {MSG_PASS: dots}", NotImplementedError),
     ("TPU: {S2D_DECONV: 1}", NotImplementedError),
     ("TEST: {FLIP_TEST: true}", NotImplementedError),
     ("MODEL: {GC: {DETECT_THRESHOLDS: 0.1}}", KeyError),
@@ -141,6 +141,26 @@ def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
     path.write_text(text)
     with pytest.raises(error):
         check_path(update_config(get_config(), str(path)), "eval")
+
+
+@pytest.mark.parametrize("msg_pass,path,runs", [
+    ("hybrid", "eval", True),
+    ("einsum", "eval", True),
+    ("hybrid", "train", True),
+    ("einsum", "train", False),
+])
+def test_reverse_permutation_routes(tmp_path, msg_pass, path, runs):
+    """hybrid and einsum load from a file; eval runs both, training runs
+    hybrid and refuses einsum (no backward kernel for its aggregate)."""
+    file = tmp_path / "c.yaml"
+    file.write_text(f"TPU: {{MSG_PASS: {msg_pass}}}\n")
+    cfg = update_config(w48_640() if path == "eval" else w32_512_train(), str(file))
+    assert cfg.TPU.MSG_PASS == msg_pass
+    if runs:
+        check_path(cfg, path)
+    else:
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            check_path(cfg, path)
 
 
 def test_config_drops_what_eval_does_not_read(tmp_path):
