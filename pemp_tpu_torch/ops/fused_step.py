@@ -12,7 +12,8 @@ Bound on an H100 (reckoned from the shapes, see the kernel source): at the
 flagship eval shapes one launch moves ~209 MB, ~62 us at 3.35 TB/s, and
 does ~10.7 GFLOP, ~11 us at the bf16 tensor-core peak: memory-bound. The
 kernel keeps every E-sized intermediate on chip, gathers source rows by
-index and projects each slot only onto its own type.
+index and projects each slot only onto its own type. ``FORMS`` says which
+form of the kernel serves which dtype.
 
 ``LAUNCHES`` counts kernel launches (the plain version does not count).
 """
@@ -24,6 +25,12 @@ import ctypes
 import torch
 
 LAUNCHES = 0
+
+FORMS = {
+    torch.float32: "f32 CUDA-core form (fused_step_kernel<float>, a block per node)",
+    torch.bfloat16: "bf16 tensor-core form (tc::fused_step_bf16_kernel: mma.sync m16n8k16, "
+                    "ldmatrix, cp.async, node tiles sorted by type)",
+}
 
 _WIDTH = 64                 # the kernel's one row width (kWidth in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -52,6 +52,33 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 
 
 @pytest.mark.cuda
+def test_bf16_kernel_ragged_and_repeatable():
+    # the bf16 form (tensor cores) at a ragged shape: C = 77 is no multiple
+    # of 16, T = 17, and 100 nodes of 50 per image fill no whole number of
+    # its 3-node tiles. Its products add within a k16 step in another order
+    # than cuBLAS, so an h or ef value may land one bf16 step (2^-8 of the
+    # value) apart and move out with it: each output within 2e-2 of its
+    # own largest value. No float atomics: a second call gives the same bits.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, n, t, n_img = _k1_inputs(seed=7, imgs=2, n_img=50, c=77, t=17)
+    tens = [torch.from_numpy(a).cuda() for a in args]
+    tens = [x.to(torch.bfloat16) if x.is_floating_point() else x for x in tens]
+    before = fused_step.LAUNCHES
+    out_k, ne_k = fused_step.fused_mpn_step(*tens, n, t, n_img)
+    out_p, ne_p = fused_step.fused_mpn_step_plain(*tens, n, t, n_img)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 1
+    for got, want in ((out_k, out_p), (ne_k.float(), ne_p.float())):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    out_2, ne_2 = fused_step.fused_mpn_step(*tens, n, t, n_img)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_2) and torch.equal(ne_k, ne_2)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
