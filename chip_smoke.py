@@ -32,7 +32,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    model_58_4 training path feeds at MPN steps 0 and 9; out, d_ef, da, dwe
    and dwa each within 1e-4 of its own largest value. Prints errors,
    kernel and plain ms (CUDA events, median of 25; the backward alone on a
-   kept graph) and the bounds.
+   kept graph) and the bounds; at step 0 also the device ms of each of
+   K2b's two launches (main pass, reduction) and of any other kernel of
+   the backward, by kernel name from ``torch.profiler``, and how the
+   valid slots fall into (node, type) groups and K2b's blocks.
 7. small training step, CPU against card: ``small_train()`` with the same
    seeded weights and synthetic batch; labels exact, loss parts, every
    parameter's gradient and the MPN's running statistics.
@@ -283,6 +286,59 @@ def check_k2(label, args, g, dims, typed_message):
             f"{int(args[3].sum())}/{args[3].numel()})")
         numbers[kind] = (max(e for _, e, _ in parts), ms, plain_ms, bound, bound_by)
     return numbers
+
+
+def k2b_launch_ms(args, g, dims, typed_message, n=10):
+    """Device ms per backward call of each of K2b's two launches (the
+    main pass and the fixed-order reduction of dwe and dwa) and of the rest
+    (any other kernel the backward runs), by kernel name from
+    ``torch.profiler`` over ``n`` backward calls on a kept graph; with the
+    other kernels' names."""
+    leaves = [args[i].clone().requires_grad_() for i in (0, 1, 4, 5)]
+    out = typed_message.fused_typed_message_aggregate(leaves[0], leaves[1], args[2], args[3],
+                                                      leaves[2], leaves[3], *dims)
+    torch.autograd.grad(out, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            torch.autograd.grad(out, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+    parts = {"main": 0.0, "reduce": 0.0, "rest": 0.0}
+    rest = []
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / n / 1e3
+        if ms <= 0:
+            continue
+        if "typed_message_bwd_reduce" in ev.key:
+            parts["reduce"] += ms
+        elif "typed_message_bwd" in ev.key:
+            parts["main"] += ms
+        else:
+            parts["rest"] += ms
+            rest.append(ev.key[:60])
+    return parts, rest
+
+
+def k2_group_stats(args, dims, chunk):
+    """How the valid slots fall into (node, type) groups and into K2b's
+    blocks of one type and up to ``chunk`` nodes, every chunks-th node
+    (``csrc/typed_message.cu``, ``Chunk``): the groups that hold a slot,
+    their mean and largest size, and the rows per block (mean, largest,
+    blocks with any)."""
+    types, valid = args[2], args[3]
+    n, t = dims
+    c = types.numel() // n
+    node = torch.arange(types.numel(), device=types.device) // c
+    key = (node * t + types.long())[valid != 0]
+    groups = torch.bincount(key, minlength=n * t).view(n, t)
+    chunks = -(-n // chunk)
+    blocks = torch.zeros(chunks, t, dtype=groups.dtype, device=groups.device)
+    blocks.index_add_(0, torch.arange(n, device=groups.device) % chunks, groups)
+    held = groups[groups > 0].float()
+    return (f"{held.numel()} groups of {n * t} hold a slot, {held.mean().item():.2f} rows on "
+            f"average, {int(groups.max())} at most; rows per block of {chunk} nodes and one "
+            f"type {blocks.float().mean().item():.1f} on average, {int(blocks.max())} at most, "
+            f"{int((blocks > 0).sum())} of {blocks.numel()} blocks with any")
 
 
 def k3_bound_ms(args, backward: bool):
@@ -769,6 +825,14 @@ def main() -> int:
             k2_errs[way].append(numbers[way][0])
         if step == 0:
             k2_numbers = numbers
+            parts, rest = k2b_launch_ms(args[:6], g, args[6:], typed_message)
+            if not (parts["main"] > 0 and parts["reduce"] > 0):
+                raise SystemExit(f"K2b launches: the profiler saw no device time ({parts})")
+            log(f"K2b launches, train path step 0 (torch.profiler, device ms per backward): "
+                f"main {parts['main']:.4f}, reduce {parts['reduce']:.4f}, rest "
+                f"{parts['rest']:.4f} ({'; '.join(rest)})")
+            log(f"K2b groups, train path step 0: "
+                f"{k2_group_stats(args, args[6:], typed_message._CHUNK)}")
     del captured, args, g
     torch.cuda.empty_cache()
 

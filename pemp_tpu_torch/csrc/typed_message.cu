@@ -29,23 +29,37 @@
 //
 // What the design does about it: everything happens per (node, type)
 // group, and each group needs only its own type's 64x64 slice of `we`. A
-// block owns one type t and a chunk of nodes: it stages We_t once in shared
-// memory and, node by node, finds the node's valid type-t slots with one
-// ballot per warp, loads only those ef rows, and projects them onto We_t
-// alone (the TPU form projects every slot onto all 17 types and selects
-// with one-hot matmuls, because Mosaic has no gather). Each ef row is read
-// by exactly one block and each d_ef, out and da row written by exactly
-// one, so device memory sees every input and output once.
+// block owns one type t and a chunk of nodes and stages We_t once in shared
+// memory; it projects only its type's slots, and onto We_t alone (the TPU
+// form projects every slot onto all 17 types and selects with one-hot
+// matmuls, because Mosaic has no gather). Each ef row is read by exactly one
+// block and each d_ef, out and da row written by exactly one.
+//
+// K2 walks its chunk node by node (select_group, a warp per row). The groups
+// are small (at the first training step 29,337 of the 92,480 hold a slot,
+// 10.3 rows on average), so K2b instead takes all of its type's groups in
+// its nodes at once: one pass over their index columns lists the type-t
+// slots in slot order with each node's first row (and zeroes d_ef of some
+// invalid slots), and the block works through that list in batches of whole
+// nodes, up to kBatchRows rows, five barriers a batch. In each batch
+// cp.async brings the ef rows; the logits and pre = a + ef @ We_t (a register tile of 8 rows x 4 columns a
+// thread, We_t from shared memory) fill the batch; eight-lane groups take
+// each node's softmax, out and q, then each row's dpre and dlogit, then
+// each node's da; last, d_ef = dpre @ We_t^T + dlogit * w_attn in the same
+// tiles, and the dwe_t (4 x 4 a thread) and dwa partials, kept in registers
+// across batches. A block's nodes are every chunks-th node (Chunk), which
+// keeps the blocks' row counts close when some types cluster in the node
+// order.
 //
 // The cross-block sums dwe (278 KB in f32, more than a block's shared
-// memory) and dwa are deterministic: each block keeps its type's 64x64
-// partial of dwe in registers (16 entries a thread) and writes it to a
-// workspace (chunk, type, 64, 64); a second launch sums the chunks in a
-// fixed order. No atomics: the step gives the same bits on every run.
-// This first version computes on the CUDA cores in f32 (no wgmma, TMA or
-// pipelining).
+// memory) and dwa are deterministic: each block writes its type's 64x64
+// partial of dwe to a workspace (chunk, type, 64, 64); a second launch sums
+// the chunks in a fixed order. No atomics: the step gives the same bits on
+// every run. Both compute on the CUDA cores in f32 (no tensor cores).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "group_softmax.cuh"
 
@@ -60,17 +74,18 @@ using pemp::warp_sum;
 constexpr int kLd = kWidth + 1;     // padded row stride: column reads hit distinct banks
 constexpr int kFwdChunk = 64;       // nodes per block of the forward
 
-// Shared memory of one block, carved from the dynamic allocation.
+// ---------------------------------------------------------------- K2
+
+// Shared memory of one forward block, carved from the dynamic allocation.
 struct Smem {
   float* we;      // kWidth x kLd: We_t[k][o] at k * kLd + o
   float* wat;     // kWidth: w_attn
   float* ef;      // C x kLd: the group's ef rows
-  float* pre;     // C x kWidth: pre, then dpre in place (backward only)
   float* red;     // kWarps x kWidth: per-warp partial sums
-  float* logit;   // C: logits, then dlogit (backward)
+  float* logit;   // C: logits
   float* e;       // C: exp(logit - max)
-  float* vec;     // 3 x kWidth: a[n, t], g[n, t], out[n, t]
-  float* scal;    // 8: max, den, two halves of <g, out>
+  float* vec;     // kWidth: a[n, t]
+  float* scal;    // 8: max, den
   int* list;      // C: the group's slots, in slot order
   int* warp_cnt;  // kWarps: group members per warp of the scan
 
@@ -78,20 +93,19 @@ struct Smem {
     we = base;
     wat = we + kWidth * kLd;
     ef = wat + kWidth;
-    pre = ef + c * kLd;
-    red = pre + c * kWidth;
+    red = ef + c * kLd;
     logit = red + kWarps * kWidth;
     e = logit + c;
     vec = e + c;
-    scal = vec + 3 * kWidth;
+    scal = vec + kWidth;
     list = reinterpret_cast<int*>(scal + 8);
     warp_cnt = list + c;
   }
 };
 
 size_t smem_bytes(int c) {
-  return sizeof(float) * (kWidth * kLd + kWidth + c * kLd + c * kWidth + kWarps * kWidth +
-                          2 * c + 3 * kWidth + 8) +
+  return sizeof(float) * (kWidth * kLd + kWidth + c * kLd + kWarps * kWidth + 2 * c + kWidth +
+                          8) +
          sizeof(int) * (c + kWarps);
 }
 
@@ -109,12 +123,10 @@ __device__ void stage_weights(const Smem& s, const float* __restrict__ we,
 // The forward of group (n, t): collects the group's slots, its ef rows,
 // logits, softmax weights and pre-activations; leaves the unnormalised
 // output sum over warps in s.red. Returns the group size (0: nothing else
-// was done). `keep_pre` stores pre for the backward. Starts and ends with
-// a block-wide barrier.
+// was done). Starts and ends with a block-wide barrier.
 __device__ int group_forward(const Smem& s, const float* __restrict__ ef,
                              const float* __restrict__ a, const int* __restrict__ types,
-                             const int* __restrict__ valid, int n, int c, int t, int num_types,
-                             bool keep_pre) {
+                             const int* __restrict__ valid, int n, int c, int t, int num_types) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long slot0 = static_cast<long long>(n) * c;
   const int cnt = pemp::select_group(s.list, s.warp_cnt, types, valid, slot0, c, t);
@@ -148,10 +160,6 @@ __device__ int group_forward(const Smem& s, const float* __restrict__ ef,
     }
     p0 += s.vec[lane];
     p1 += s.vec[lane + 32];
-    if (keep_pre) {
-      s.pre[r * kWidth + lane] = p0;
-      s.pre[r * kWidth + lane + 32] = p1;
-    }
     const float ev = s.e[r];
     acc0 += ev * fmaxf(p0, 0.f);
     acc1 += ev * fmaxf(p1, 0.f);
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) typed_message_fwd(
   const int n0 = blockIdx.x * kFwdChunk;
   const int n1 = min(n0 + kFwdChunk, num_nodes);
   for (int n = n0; n < n1; ++n) {
-    const int cnt = group_forward(s, ef, a, types, valid, n, c, t, num_types, false);
+    const int cnt = group_forward(s, ef, a, types, valid, n, c, t, num_types);
     if (threadIdx.x < kWidth) {
       const long long o = (static_cast<long long>(n) * num_types + t) * kWidth + threadIdx.x;
       out[o] = cnt == 0 ? 0.f : pemp::sum_partials(s.red, threadIdx.x) / s.scal[1];
@@ -182,124 +190,505 @@ __global__ void __launch_bounds__(kThreads) typed_message_fwd(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) typed_message_bwd(
+// ---------------------------------------------------------------- K2b
+
+constexpr int kChunkNodes = 64;     // most nodes a backward block owns (the wrapper's _CHUNK)
+constexpr int kBatchRows = 128;     // rows of a batch; 2x when C > 128, so a group always fits
+constexpr int kPassRows = 128;      // rows of one register-tiled pass: 16 row groups x 8
+constexpr int kGroups = kThreads / 8;  // eight-lane groups of the softmax backward
+constexpr int kLdR = kWidth + 4;    // row stride of We_t, ef and pre: 16-byte rows, and rows
+                                    // r, r + 1, ... read by one quarter-warp fall in
+                                    // distinct banks
+static_assert(kThreads == 256, "the tiles map 16 row groups x 16 column groups of threads");
+static_assert(kChunkNodes * kMaxSlots <= 64 * kThreads, "a thread scans at most 64 slots");
+static_assert(kChunkNodes * kMaxSlots <= 65536, "slot offsets fit 16 bits");
+
+__host__ __device__ constexpr int batch_rows(int c) {
+  return c <= kBatchRows ? kBatchRows : 2 * kBatchRows;
+}
+
+// Shared memory of one backward block, carved from the dynamic allocation;
+// the float4-read arrays come first, at 16-byte offsets.
+struct BwdSmem {
+  float* we;        // kWidth x kLdR: We_t[k][o] at k * kLdR + o
+  float* ef;        // rows x kLdR: the batch's ef rows
+  float* p;         // rows x kLdR: pre, then dpre in place
+  float* wat;       // kWidth: w_attn
+  float* logit;     // rows
+  float* e;         // rows: exp(logit - the group's max)
+  float* dlogit;    // rows
+  float* red;       // kThreads: dwa partials
+  float* node_den;  // kChunkNodes: each node's softmax denominator
+  float* node_q;    // kChunkNodes: each node's <g, out> / den
+  int* warp_tot;    // kWarps: rows found per warp of the scan
+  int* row_node;    // rows: each batch row's node, from the chunk's first
+  int* seg;         // kChunkNodes + 1: each node's first row in list; seg[nodes] = count
+  uint16_t* list;   // node_chunk * C: the chunk's type-t slots as local offsets j * C + slot
+
+  __device__ BwdSmem(float* base, int rows) {
+    we = base;
+    ef = we + kWidth * kLdR;
+    p = ef + rows * kLdR;
+    wat = p + rows * kLdR;
+    logit = wat + kWidth;
+    e = logit + rows;
+    dlogit = e + rows;
+    red = dlogit + rows;
+    node_den = red + kThreads;
+    node_q = node_den + kChunkNodes;
+    warp_tot = reinterpret_cast<int*>(node_q + kChunkNodes);
+    row_node = warp_tot + kWarps;
+    seg = row_node + rows;
+    list = reinterpret_cast<uint16_t*>(seg + kChunkNodes + 1);
+  }
+};
+
+size_t bwd_smem_bytes(int c, int node_chunk) {
+  const int rows = batch_rows(c);
+  return sizeof(float) *
+             (kWidth * kLdR + 2 * rows * kLdR + kWidth + 3 * rows + kThreads + 2 * kChunkNodes) +
+         sizeof(int) * (kWarps + rows + kChunkNodes + 1) +
+         sizeof(uint16_t) * static_cast<size_t>(node_chunk) * c;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float x, const float4& w) {
+  acc[0] = fmaf(x, w.x, acc[0]);
+  acc[1] = fmaf(x, w.y, acc[1]);
+  acc[2] = fmaf(x, w.z, acc[2]);
+  acc[3] = fmaf(x, w.w, acc[3]);
+}
+
+__device__ __forceinline__ float dot4(float acc, const float4& x, const float4& w) {
+  return fmaf(x.w, w.w, fmaf(x.z, w.z, fmaf(x.y, w.y, fmaf(x.x, w.x, acc))));
+}
+
+// sum and max over the eight lanes of `mask` (0xff << a multiple of 8)
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float group_max(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The nodes of a backward block: its local node j is node first + j * stride,
+// every chunks-th node (the blocks of one type together own each node once).
+// Spread so, a block's nodes come from every image and many node types, and
+// its rows of one source type do not depend on which node types lie near each
+// other in the node order (the training graph links many nodes to nodes of
+// their own type). The local offset of slot k of node j is j * C + k.
+struct Chunk {
+  int first, stride, nodes, c, num_types, t;
+
+  __device__ Chunk(int num_nodes, int c_, int num_types_, int t_)
+      : first(blockIdx.x), stride(gridDim.x),
+        nodes((num_nodes - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1),
+        c(c_), num_types(num_types_), t(t_) {}
+
+  __device__ long long node(int j) const { return first + static_cast<long long>(j) * stride; }
+  // the slot at local offset loc
+  __device__ long long slot(int loc) const {
+    const int j = loc / c;
+    return node(j) * c + (loc - j * c);
+  }
+  // local node j's row of a, g and da for the block's type
+  __device__ long long row(int j) const { return node(j) * num_types + t; }
+};
+
+// Lists the chunk's type-t valid slots in slot order, as local offsets, in
+// s.list; s.seg[j] gets local node j's first row, s.seg[nodes] the count.
+// Each thread tests a run of up to 64 consecutive slots (16-byte loads
+// where C allows) into a bit mask; a prefix sum over the runs' counts
+// places them. Also writes zeros to the d_ef rows of the chunk's invalid
+// slots at offsets i with i % T == t, so that the chunk's blocks together
+// cover each once. Ends with a block-wide barrier.
+__device__ void list_rows(const BwdSmem& s, const int* __restrict__ types,
+                          const int* __restrict__ valid, float* __restrict__ d_ef,
+                          const Chunk& ch) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = ch.c, t = ch.t;
+  const int num_slots = ch.nodes * c;
+  const int per = ((num_slots + kThreads - 1) / kThreads + 3) & ~3;  // <= 64
+  const int first = min(tid * per, num_slots);
+  const int last = min(first + per, num_slots);
+  unsigned long long mask = 0, zero = 0;
+  auto take = [&](int i, int type, int ok) {
+    const unsigned long long bit = 1ull << (i - first);
+    if (ok != 0 && type == t) mask |= bit;
+    if (ok == 0 && i % ch.num_types == t) zero |= bit;
+  };
+  if (c % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(types) | reinterpret_cast<uintptr_t>(valid)) & 15) == 0) {
+    // runs of whole 16-byte pieces of one node each (per and C are multiples
+    // of 4), all loads issued before any is used
+#pragma unroll
+    for (int q4 = 0; q4 < 16; ++q4) {
+      const int i = first + 4 * q4;
+      if (i < last) {
+        const long long k = ch.slot(i);
+        const int4 t4 = __ldg(reinterpret_cast<const int4*>(types + k));
+        const int4 v4 = __ldg(reinterpret_cast<const int4*>(valid + k));
+        take(i, t4.x, v4.x);
+        take(i + 1, t4.y, v4.y);
+        take(i + 2, t4.z, v4.z);
+        take(i + 3, t4.w, v4.w);
+      }
+    }
+  } else {
+    for (int i = first; i < last; ++i) {
+      const long long k = ch.slot(i);
+      take(i, types[k], valid[k]);
+    }
+  }
+  const int mine = __popcll(mask);
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s.warp_tot[warp] = incl;
+  for (; zero; zero &= zero - 1) {
+    float4* dst = reinterpret_cast<float4*>(d_ef + ch.slot(first + __ffsll(zero) - 1) * kWidth);
+#pragma unroll
+    for (int q = 0; q < kWidth / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  int pos = incl - mine, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int v = s.warp_tot[w];
+    pos += w < warp ? v : 0;
+    total += v;
+  }
+  for (; mask; mask &= mask - 1) s.list[pos++] = static_cast<uint16_t>(first + __ffsll(mask) - 1);
+  __syncthreads();
+  if (tid <= ch.nodes) {  // first row at or after node tid's first slot
+    const int key = tid * c;
+    int lo = 0, hi = total;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s.list[mid] < key) lo = mid + 1;
+      else hi = mid;
+    }
+    s.seg[tid] = lo;
+  }
+  __syncthreads();
+}
+
+// pre = a[n, t] + ef @ We_t for rows base + rg + 16 i (i < RT) of the
+// batch, columns c0..c0 + 3; rows at or past nr are computed on whatever the
+// buffer holds and not stored.
+template <int RT>
+__device__ void project_pass(const BwdSmem& s, const float* __restrict__ a, int base, int nr,
+                             const Chunk& ch) {
+  const int rg = threadIdx.x >> 4, c0 = 4 * (threadIdx.x & 15);
+  float acc[RT][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < kWidth; k += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = ld4(s.we + (k + j) * kLdR + c0);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 x = ld4(s.ef + (base + rg + 16 * i) * kLdR + k);
+      fma4(acc[i], x.x, w[0]);
+      fma4(acc[i], x.y, w[1]);
+      fma4(acc[i], x.z, w[2]);
+      fma4(acc[i], x.w, w[3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = base + rg + 16 * i;
+    if (r < nr) {
+      const float4 av =
+          __ldg(reinterpret_cast<const float4*>(a + ch.row(s.row_node[r]) * kWidth + c0));
+      *reinterpret_cast<float4*>(s.p + r * kLdR + c0) =
+          make_float4(acc[i][0] + av.x, acc[i][1] + av.y, acc[i][2] + av.z, acc[i][3] + av.w);
+    }
+  }
+}
+
+// d_ef = dpre @ We_t^T + dlogit * w_attn for rows base + rg + 16 i (i < RT)
+// of the batch, columns cg + 16 j (j < 4), stored to the rows' slots.
+template <int RT>
+__device__ void backproject_pass(const BwdSmem& s, float* __restrict__ d_ef, int base, int nr,
+                                 int b0, const Chunk& ch) {
+  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  float acc[RT][4] = {};
+#pragma unroll 2
+  for (int o = 0; o < kWidth; o += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = ld4(s.we + (cg + 16 * j) * kLdR + o);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 d = ld4(s.p + (base + rg + 16 * i) * kLdR + o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = dot4(acc[i][j], d, w[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = base + rg + 16 * i;
+    if (r < nr) {
+      const float dl = s.dlogit[r];
+      float* dst = d_ef + ch.slot(s.list[b0 + r]) * kWidth;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[cg + 16 * j] = acc[i][j] + dl * s.wat[cg + 16 * j];
+    }
+  }
+}
+
+// Runs pass<RT> over the batch's nr rows in passes of kPassRows, with RT the
+// fewest rows a thread needs for the pass (the same on every thread).
+#define PEMP_ROW_PASSES(pass, ...)                                              \
+  for (int base = 0; base < nr; base += kPassRows) {                            \
+    switch ((min(nr - base, kPassRows) + 15) >> 4) {                            \
+      case 1: pass<1>(s, __VA_ARGS__); break;                                   \
+      case 2: pass<2>(s, __VA_ARGS__); break;                                   \
+      case 3: pass<3>(s, __VA_ARGS__); break;                                   \
+      case 4: pass<4>(s, __VA_ARGS__); break;                                   \
+      case 5: pass<5>(s, __VA_ARGS__); break;                                   \
+      case 6: pass<6>(s, __VA_ARGS__); break;                                   \
+      case 7: pass<7>(s, __VA_ARGS__); break;                                   \
+      default: pass<8>(s, __VA_ARGS__); break;                                  \
+    }                                                                           \
+  }
+
+__global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
     const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
     const int* __restrict__ valid, const float* __restrict__ we,
     const float* __restrict__ w_attn, const float* __restrict__ g, float* __restrict__ d_ef,
     float* __restrict__ da, float* __restrict__ ws_we, float* __restrict__ ws_wa,
-    int num_nodes, int c, int num_types, int node_chunk) {
-  extern __shared__ float smem[];
-  const Smem s(smem, c);
+    int num_nodes, int c, int num_types) {
+  extern __shared__ float4 smem4[];
+  const int rows = batch_rows(c);
+  const BwdSmem s(reinterpret_cast<float*>(smem4), rows);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t = blockIdx.y;
-  stage_weights(s, we, w_attn, t, num_types);
+  const Chunk ch(num_nodes, c, num_types, t);
+  const int nodes = ch.nodes;
+  const long long we_row = static_cast<long long>(num_types) * kWidth;
+  for (int i = tid; i < kWidth * kWidth / 4; i += kThreads) {  // We_t: waited for with the ef rows
+    const int k = i / (kWidth / 4), q = i % (kWidth / 4);
+    cp_async16(s.we + k * kLdR + 4 * q, we + k * we_row + t * kWidth + 4 * q);
+  }
+  if (tid < kWidth) s.wat[tid] = w_attn[tid];
+  list_rows(s, types, valid, d_ef, ch);
+  // the nodes' a and g rows to L2, for the products' and softmax steps' loads
+  for (int i = tid; i < 4 * nodes; i += kThreads)
+    prefetch_l2(((i & 2) ? g : a) + ch.row(i >> 2) * kWidth + 32 * (i & 1));
 
-  // this thread's share of the dwe_t partial: row kk, columns oo + 4j
-  const int kk = tid >> 2, oo = tid & 3;
-  float acc[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
-  float wacc = 0.f;  // dwa[tid] partial, tid < kWidth
+  // this thread's share of the dwe_t partial: rows k0..k0 + 3, columns
+  // o0..o0 + 3; and of dwa: entry tid % 64 over the rows tid / 64 mod 4
+  const int k0 = 4 * (tid >> 4), o0 = 4 * (tid & 15);
+  float dwe[4][4] = {};
+  float dwa = 0.f;
 
-  const int n0 = blockIdx.x * node_chunk;
-  const int n1 = min(n0 + node_chunk, num_nodes);
-  for (int n = n0; n < n1; ++n) {
-    const long long row = (static_cast<long long>(n) * num_types + t) * kWidth;
-    const int cnt = group_forward(s, ef, a, types, valid, n, c, t, num_types, true);
-    if (cnt == 0) {
-      if (tid < kWidth) da[row + tid] = 0.f;
-      continue;
+  for (int j0 = 0; j0 < nodes;) {
+    // the batch: nodes j0..j1 - 1, as many as fit in `rows` rows (one always does)
+    const int b0 = s.seg[j0];
+    int j1 = j0 + 1;
+    for (int hi = nodes; j1 < hi;) {
+      const int mid = (j1 + hi + 1) >> 1;
+      if (s.seg[mid] - b0 <= rows) j1 = mid;
+      else hi = mid - 1;
     }
-    const float den = s.scal[1];
-    if (tid < kWidth) {
-      const float gv = g[row + tid];
-      const float ov = pemp::sum_partials(s.red, tid) / den;
-      s.vec[kWidth + tid] = gv;
-      const float prod = warp_sum(gv * ov);
-      if (lane == 0) s.scal[2 + warp] = prod;
-    }
-    __syncthreads();
-    const float q = (s.scal[2] + s.scal[3]) / den;
-    const float gh0 = s.vec[kWidth + lane] / den;
-    const float gh1 = s.vec[kWidth + lane + 32] / den;
+    const int nr = s.seg[j1] - b0;
 
-    float da0 = 0.f, da1 = 0.f;
-    const long long slot0 = static_cast<long long>(n) * c;
-    for (int r = warp; r < cnt; r += kWarps) {
-      const float ev = s.e[r];
-      const float p0 = s.pre[r * kWidth + lane];
-      const float p1 = s.pre[r * kWidth + lane + 32];
-      const float dm0 = ev * gh0, dm1 = ev * gh1;
-      const float dp0 = p0 > 0.f ? dm0 : 0.f;
-      const float dp1 = p1 > 0.f ? dm1 : 0.f;
-      const float dl = warp_sum(dm0 * fmaxf(p0, 0.f) + dm1 * fmaxf(p1, 0.f)) - ev * q;
-      s.pre[r * kWidth + lane] = dp0;
-      s.pre[r * kWidth + lane + 32] = dp1;
-      if (lane == 0) s.logit[r] = dl;
-      da0 += dp0;
-      da1 += dp1;
-      __syncwarp();
-      // d_ef[s] = dpre @ We_t^T + dlogit * w_attn, lanes on k = lane, lane + 32
-      float d0 = dl * s.wat[lane], d1 = dl * s.wat[lane + 32];
-      const float* dr = s.pre + r * kWidth;
-#pragma unroll 8
-      for (int o = 0; o < kWidth; ++o) {
-        const float dp = dr[o];
-        d0 += dp * s.we[lane * kLd + o];
-        d1 += dp * s.we[(lane + 32) * kLd + o];
+    if (nr > 0) {
+      for (int i = tid; i < nr * (kWidth / 4); i += kThreads) {
+        const int r = i / (kWidth / 4), q = i % (kWidth / 4);
+        cp_async16(s.ef + r * kLdR + 4 * q, ef + ch.slot(s.list[b0 + r]) * kWidth + 4 * q);
       }
-      float* dst = d_ef + (slot0 + s.list[r]) * kWidth;
-      dst[lane] = d0;
-      dst[lane + 32] = d1;
+      for (int r = tid; r < nr; r += kThreads) s.row_node[r] = s.list[b0 + r] / c;
     }
-    s.red[warp * kWidth + lane] = da0;
-    s.red[warp * kWidth + lane + 32] = da1;
+    cp_async_wait_all();
     __syncthreads();
-    if (tid < kWidth) da[row + tid] = pemp::sum_partials(s.red, tid);
-    for (int r = 0; r < cnt; ++r) {
-      const float x = s.ef[r * kLd + kk];
-      const float* dr = s.pre + r * kWidth + oo;
+    if (nr > 0) {
+      for (int r = warp; r < nr; r += kWarps) {
+        const float* er = s.ef + r * kLdR;
+        const float v = warp_sum(er[lane] * s.wat[lane] + er[lane + 32] * s.wat[lane + 32]);
+        if (lane == 0) s.logit[r] = v;
+      }
+      PEMP_ROW_PASSES(project_pass, a, base, nr, ch)
+      __syncthreads();
+    }
+
+    // softmax backward in eight-lane groups (four a warp), a lane on columns
+    // c0..c0 + 3 and c1..c1 + 3; every sum over a group's rows in slot order.
+    // A group per node: the softmax, out and q.
+    const int grp = 4 * warp + (lane >> 3), sub = lane & 7, c0 = 4 * sub, c1 = 32 + 4 * sub;
+    const unsigned gmask = 0xffu << (lane & 24);
+    for (int j = j0 + grp; j < j1; j += kGroups) {
+      const int r0 = s.seg[j] - b0, r1 = s.seg[j + 1] - b0;
+      if (r1 == r0) continue;
+      const long long row = ch.row(j) * kWidth;
+      const float4 g0 = __ldg(reinterpret_cast<const float4*>(g + row + c0));
+      const float4 g1 = __ldg(reinterpret_cast<const float4*>(g + row + c1));
+      float mx = __int_as_float(0xff800000);  // -inf
+      for (int r = r0 + sub; r < r1; r += 8) mx = fmaxf(mx, s.logit[r]);
+      mx = group_max(mx, gmask);
+      float sum = 0.f;
+      for (int r = r0 + sub; r < r1; r += 8) {
+        const float ev = expf(s.logit[r] - mx);
+        s.e[r] = ev;
+        sum += ev;
+      }
+      const float den = fmaxf(group_sum(sum, gmask), 1e-16f);
+      __syncwarp(gmask);
+      float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
+      for (int r = r0; r < r1; ++r) {
+        const float ev = s.e[r];
+        const float4 p0 = ld4(s.p + r * kLdR + c0), p1 = ld4(s.p + r * kLdR + c1);
+        o0 = make_float4(o0.x + ev * fmaxf(p0.x, 0.f), o0.y + ev * fmaxf(p0.y, 0.f),
+                         o0.z + ev * fmaxf(p0.z, 0.f), o0.w + ev * fmaxf(p0.w, 0.f));
+        o1 = make_float4(o1.x + ev * fmaxf(p1.x, 0.f), o1.y + ev * fmaxf(p1.y, 0.f),
+                         o1.z + ev * fmaxf(p1.z, 0.f), o1.w + ev * fmaxf(p1.w, 0.f));
+      }
+      const float part = g0.x * (o0.x / den) + g0.y * (o0.y / den) + g0.z * (o0.z / den) +
+                         g0.w * (o0.w / den) + g1.x * (o1.x / den) + g1.y * (o1.y / den) +
+                         g1.z * (o1.z / den) + g1.w * (o1.w / den);
+      const float q = group_sum(part, gmask) / den;
+      if (sub == 0) {
+        s.node_den[j] = den;
+        s.node_q[j] = q;
+      }
+    }
+    __syncthreads();
+
+    // a group per row: dpre = e * g / den * 1[pre > 0] in place of pre, and
+    // dlogit = <e * g / den, relu(pre)> - e * q
+    for (int r = grp; r < nr; r += kGroups) {
+      const int j = s.row_node[r];
+      const float den = s.node_den[j], eq = s.e[r] * s.node_q[j], scale = s.e[r] / den;
+      const long long row = ch.row(j) * kWidth;
+      const float4 g0 = __ldg(reinterpret_cast<const float4*>(g + row + c0));
+      const float4 g1 = __ldg(reinterpret_cast<const float4*>(g + row + c1));
+      float4* pr0 = reinterpret_cast<float4*>(s.p + r * kLdR + c0);
+      float4* pr1 = reinterpret_cast<float4*>(s.p + r * kLdR + c1);
+      const float4 p0 = *pr0, p1 = *pr1;
+      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float dp[8], dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] += x * dr[4 * j];
+      for (int i = 0; i < 8; ++i) {
+        const float dm = scale * gv[i];
+        dp[i] = pv[i] > 0.f ? dm : 0.f;
+        dot += dm * fmaxf(pv[i], 0.f);
+      }
+      const float dl = group_sum(dot, gmask) - eq;
+      *pr0 = make_float4(dp[0], dp[1], dp[2], dp[3]);
+      *pr1 = make_float4(dp[4], dp[5], dp[6], dp[7]);
+      if (sub == 0) s.dlogit[r] = dl;
     }
-    if (tid < kWidth) {
-      for (int r = 0; r < cnt; ++r) wacc += s.ef[r * kLd + tid] * s.logit[r];
+    __syncthreads();
+
+    // a group per node: da = the sum of its rows' dpre (0 for an empty group)
+    for (int j = j0 + grp; j < j1; j += kGroups) {
+      const int r0 = s.seg[j] - b0, r1 = s.seg[j + 1] - b0;
+      float4 da0 = make_float4(0.f, 0.f, 0.f, 0.f), da1 = da0;
+      for (int r = r0; r < r1; ++r) {
+        const float4 p0 = ld4(s.p + r * kLdR + c0), p1 = ld4(s.p + r * kLdR + c1);
+        da0 = make_float4(da0.x + p0.x, da0.y + p0.y, da0.z + p0.z, da0.w + p0.w);
+        da1 = make_float4(da1.x + p1.x, da1.y + p1.y, da1.z + p1.z, da1.w + p1.w);
+      }
+      const long long row = ch.row(j) * kWidth;
+      *reinterpret_cast<float4*>(da + row + c0) = da0;
+      *reinterpret_cast<float4*>(da + row + c1) = da1;
     }
+    if (nr > 0) {
+      PEMP_ROW_PASSES(backproject_pass, d_ef, base, nr, b0, ch)
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float4 x = ld4(s.ef + r * kLdR + k0);
+        const float4 y = ld4(s.p + r * kLdR + o0);
+        fma4(dwe[0], x.x, y);
+        fma4(dwe[1], x.y, y);
+        fma4(dwe[2], x.z, y);
+        fma4(dwe[3], x.w, y);
+      }
+      for (int r = tid >> 6; r < nr; r += kThreads / kWidth)
+        dwa = fmaf(s.ef[r * kLdR + (tid & 63)], s.dlogit[r], dwa);
+    }
+    __syncthreads();
+    j0 = j1;
   }
 
   const long long part = static_cast<long long>(blockIdx.x) * num_types + t;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) ws_we[(part * kWidth + kk) * kWidth + oo + 4 * j] = acc[j];
-  if (tid < kWidth) ws_wa[part * kWidth + tid] = wacc;
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(ws_we + (part * kWidth + k0 + i) * kWidth + o0) =
+        make_float4(dwe[i][0], dwe[i][1], dwe[i][2], dwe[i][3]);
+  s.red[tid] = dwa;
+  __syncthreads();
+  if (tid < kWidth)
+    ws_wa[part * kWidth + tid] =
+        s.red[tid] + s.red[tid + kWidth] + s.red[tid + 2 * kWidth] + s.red[tid + 3 * kWidth];
 }
 
-// dwe[k, t*D + o] = sum over chunks of ws_we[chunk, t, k, o]; dwa[k] = sum
-// over chunks and types of ws_wa[chunk, t, k]; both in a fixed order.
+#undef PEMP_ROW_PASSES
+
+// dwe[k, t*D + o] = sum over chunks of ws_we[chunk, t, k, o], a thread per
+// output; dwa[k] = sum over chunks and types of ws_wa[chunk, t, k], a warp
+// per output (the last kWidth / kWarps blocks): lane l adds the (chunk, type)
+// partials l, l + 32, ... in turn, then the lanes' sums meet in a fixed tree.
+// Both in a fixed order.
 __global__ void __launch_bounds__(kThreads) typed_message_bwd_reduce(
     const float* __restrict__ ws_we, const float* __restrict__ ws_wa, float* __restrict__ dwe,
     float* __restrict__ dwa, int num_types, int chunks) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
   const int per_type = kWidth * kWidth;
-  if (i < num_types * per_type) {
+  const int dwe_blocks = (num_types * per_type + kThreads - 1) / kThreads;
+  if (static_cast<int>(blockIdx.x) < dwe_blocks) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i >= num_types * per_type) return;
     const int t = i / per_type, k = (i / kWidth) % kWidth, o = i % kWidth;
     float v = 0.f;
     for (int ch = 0; ch < chunks; ++ch)
       v += ws_we[((static_cast<long long>(ch) * num_types + t) * kWidth + k) * kWidth + o];
     dwe[static_cast<long long>(k) * num_types * kWidth + t * kWidth + o] = v;
+    return;
   }
-  if (i < kWidth) {
-    float v = 0.f;
-    for (int ch = 0; ch < chunks; ++ch)
-      for (int t = 0; t < num_types; ++t)
-        v += ws_wa[(static_cast<long long>(ch) * num_types + t) * kWidth + i];
-    dwa[i] = v;
-  }
+  const int lane = threadIdx.x & 31;
+  const int k = (blockIdx.x - dwe_blocks) * kWarps + (threadIdx.x >> 5);
+  const int parts = chunks * num_types;
+  float v = 0.f;
+  for (int p = lane; p < parts; p += 32) v += ws_wa[static_cast<long long>(p) * kWidth + k];
+  v = warp_sum(v);
+  if (lane == 0) dwa[k] = v;
 }
 
 int set_smem(const void* kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -319,27 +708,34 @@ extern "C" int pemp_typed_message_fwd(const float* ef, const float* a, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward (K2b): d_ef must be zeroed by the caller (slots no group owns,
-// the invalid ones, keep 0); ws_we holds chunks * T * kWidth * kWidth
-// floats and ws_wa chunks * T * kWidth, chunks = ceil(N / node_chunk).
+// Backward (K2b): writes every row of d_ef (the invalid slots' with zeros);
+// ws_we holds chunks * T * kWidth * kWidth
+// floats and ws_wa chunks * T * kWidth, chunks = ceil(N / node_chunk),
+// node_chunk <= kChunkNodes. ef, a, we, g, d_ef, da and ws_we must be 16-byte aligned
+// (they are read and written in 16-byte pieces). Returns a cudaError_t, or
+// -2 for unsupported sizes or alignment.
 extern "C" int pemp_typed_message_bwd(const float* ef, const float* a, const int* types,
                                       const int* valid, const float* we, const float* w_attn,
                                       const float* g, float* d_ef, float* da, float* dwe,
                                       float* dwa, float* ws_we, float* ws_wa, int num_nodes,
                                       int c, int num_types, int node_chunk, void* stream) {
-  if (c < 1 || c > kMaxSlots || num_types < 1 || num_nodes < 1 || node_chunk < 1) return -2;
+  if (c < 1 || c > kMaxSlots || num_types < 1 || num_nodes < 1 || node_chunk < 1 ||
+      node_chunk > kChunkNodes)
+    return -2;
+  if (!(aligned16(ef) && aligned16(a) && aligned16(we) && aligned16(g) && aligned16(d_ef) &&
+        aligned16(da) && aligned16(ws_we)))
+    return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(c);
+  const size_t smem = bwd_smem_bytes(c, node_chunk);
   int err = set_smem(reinterpret_cast<const void*>(typed_message_bwd), smem);
   if (err != 0) return err;
   const int chunks = (num_nodes + node_chunk - 1) / node_chunk;
   typed_message_bwd<<<dim3(chunks, num_types), kThreads, smem, st>>>(
-      ef, a, types, valid, we, w_attn, g, d_ef, da, ws_we, ws_wa, num_nodes, c, num_types,
-      node_chunk);
+      ef, a, types, valid, we, w_attn, g, d_ef, da, ws_we, ws_wa, num_nodes, c, num_types);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int outputs = num_types * kWidth * kWidth;
-  typed_message_bwd_reduce<<<(outputs + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      ws_we, ws_wa, dwe, dwa, num_types, chunks);
+  typed_message_bwd_reduce<<<(outputs + kThreads - 1) / kThreads + kWidth / kWarps, kThreads, 0,
+                             st>>>(ws_we, ws_wa, dwe, dwa, num_types, chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ LAUNCHES_BWD = 0
 
 _WIDTH = 64                 # the kernels' one row width (kWidth in the source)
 _MAX_SLOTS = 256            # C: one thread per slot in the type scan
-_CHUNK = 64                 # nodes per block of K2b (kChunk in the source)
+_CHUNK = 64                 # most nodes per block of K2b (kChunkNodes in the source)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -126,7 +126,7 @@ def _launch_backward(ef, a, types, valid, we, w_attn, g, num_nodes, num_types):
     fn = _fn("pemp_typed_message_bwd", _BWD_ARGTYPES)
     chunks = -(-num_nodes // _CHUNK)
     dev = ef.device
-    d_ef = torch.zeros((e, _WIDTH), dtype=torch.float32, device=dev)  # invalid slots stay 0
+    d_ef = torch.empty((e, _WIDTH), dtype=torch.float32, device=dev)  # K2b zeroes invalid slots
     da = torch.empty_like(a)
     dwe = torch.empty_like(we)
     dwa = torch.empty_like(w_attn)

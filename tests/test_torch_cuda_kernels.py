@@ -88,7 +88,7 @@ def test_kernel_rejects_what_it_does_not_take():
         fused_step.fused_mpn_step(*tens, n, t, n_img)
 
 
-def _k2_inputs(seed=3, n=40, c=80, t=17, w=64):
+def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None):
     rng = np.random.RandomState(seed)
     e = n * c
     f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
@@ -96,20 +96,40 @@ def _k2_inputs(seed=3, n=40, c=80, t=17, w=64):
     types[: 2 * c] = 0            # nodes 0-1 see one type only: empty groups
     valid = (rng.rand(e) > 0.3).astype(np.int32)
     valid[3 * c: 4 * c] = 0       # node 3 has no valid slot at all
+    if full_node is not None:     # every slot valid and of type 1: a group of C rows
+        types[full_node * c: (full_node + 1) * c] = 1
+        valid[full_node * c: (full_node + 1) * c] = 1
     args = (f(e, w), f(n, t, w), types, valid, f(w, t * w) * 0.2, f(w, 1) * 0.3)
     return [torch.from_numpy(a).cuda() for a in args], f(n, t, w), n, t
 
 
+K2_CASES = {
+    # the flagship widths
+    "c80": dict(),
+    # K2b's batching at its edges: C = 77 is no multiple of 16 (nor of 4:
+    # the scan's scalar loads), 150 nodes are no multiple of its 64-node
+    # chunks (three blocks of 50 a type), and node 5's group holds all 77
+    # slots, the most a batch of whole nodes must take at once
+    "c77_ragged": dict(seed=8, n=150, c=77, full_node=5),
+    # C > 128: batches of 256 rows, two register-tiled passes each; node 2's
+    # group of 256 rows fills a whole batch
+    "c256_full_batch": dict(seed=9, n=70, c=256, t=5, full_node=2),
+}
+
+
 @pytest.mark.cuda
-def test_typed_message_kernels_match_plain_on_card():
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_typed_message_kernels_match_plain_on_card(case):
     # K2 against the plain version, and K2b against autograd through it;
-    # f32 sums in another order (1e-4, the JAX package's kernel tolerance)
+    # f32 sums in another order (1e-4, the JAX package's kernel tolerance,
+    # of each output's own largest value)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    (ef, a, types, valid, we, wa), g, n, t = _k2_inputs()
+    (ef, a, types, valid, we, wa), g, n, t = _k2_inputs(**K2_CASES[case])
     g = torch.from_numpy(g).cuda()
     leaves = [x.clone().requires_grad_() for x in (ef, a, we, wa)]
+    before = typed_message.LAUNCHES_BWD
     out_k = typed_message.fused_typed_message_aggregate(
         leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t)
     grads_k = torch.autograd.grad((out_k * g).sum(), leaves)
@@ -118,10 +138,15 @@ def test_typed_message_kernels_match_plain_on_card():
         plain[0], plain[1], types, valid, plain[2], plain[3], n, t)
     grads_p = torch.autograd.grad((out_p * g).sum(), plain)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=1e-4)
-    for name, gk, gp in zip(("ef", "a", "we", "w_attn"), grads_k, grads_p):
-        torch.testing.assert_close(gk, gp, atol=1e-4, rtol=1e-4, msg=name)
+    assert typed_message.LAUNCHES_BWD == before + 1
+    for name, got, want in zip(("out", "ef", "a", "we", "w_attn"), (out_k, *grads_k),
+                               (out_p, *grads_p)):
+        if case == "c80":
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=name)
+        assert bool(torch.isfinite(got).all()), name
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
     assert bool((grads_k[0][valid == 0] == 0).all())
+    assert bool((grads_k[1][3] == 0).all())       # node 3: no group, no gradient
     # the sums across blocks are in a fixed order: the same bits again
     again = torch.autograd.grad((typed_message.fused_typed_message_aggregate(
         leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t) * g).sum(), leaves)

@@ -32,7 +32,13 @@ def _make(seed, n=8, c=10, t=4, d=8, de=6, attn_scale=1.0, all_valid=False):
     return (ef, a, types, valid, we, wa), g, n, t
 
 
-GRAD_CASES = {"seed0": dict(seed=0), "seed1": dict(seed=1), "seed2": dict(seed=2)}
+GRAD_CASES = {
+    "seed0": dict(seed=0), "seed1": dict(seed=1), "seed2": dict(seed=2),
+    # the CUDA kernels' widths (d = de = 64, T = 17, C = 80) over two of the
+    # JAX kernel's 8-node tiles: the plain version, the card tests' oracle
+    # for K2b, against the custom VJP at the shapes K2b runs
+    "kernel_widths": dict(seed=4, n=16, c=80, t=17, d=64, de=64),
+}
 CASES = {
     **GRAD_CASES,
     # attention logits spanning far more than f32 exp's range: the per-row
