@@ -32,10 +32,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    model_58_4 training path feeds at MPN steps 0 and 9; out, d_ef, da, dwe
    and dwa each within 1e-4 of its own largest value. Prints errors,
    kernel and plain ms (CUDA events, median of 25; the backward alone on a
-   kept graph) and the bounds; at step 0 also the device ms of each of
-   K2b's two launches (main pass, reduction) and of any other kernel of
-   the backward, by kernel name from ``torch.profiler``, and how the
-   valid slots fall into (node, type) groups and K2b's blocks.
+   kept graph) and the bounds; at step 0 also the device ms of K2's launch,
+   of each of K2b's two launches (main pass, reduction) and of any other
+   kernel of the forward or backward, by kernel name from
+   ``torch.profiler``, and how the valid slots fall into (node, type)
+   groups and the two kernels' blocks.
 7. small training step, CPU against card: ``small_train()`` with the same
    seeded weights and synthetic batch; labels exact, loss parts, every
    parameter's gradient and the MPN's running statistics.
@@ -288,12 +289,12 @@ def check_k2(label, args, g, dims, typed_message):
     return numbers
 
 
-def k2b_launch_ms(args, g, dims, typed_message, n=10):
-    """Device ms per backward call of each of K2b's two launches (the
-    main pass and the fixed-order reduction of dwe and dwa) and of the rest
-    (any other kernel the backward runs), by kernel name from
-    ``torch.profiler`` over ``n`` backward calls on a kept graph; with the
-    other kernels' names."""
+def k2_launch_ms(args, g, dims, typed_message, n=10):
+    """Device ms per call of K2's launch (the forward), of each of K2b's
+    two (the main pass and the fixed-order reduction of dwe and dwa) and of
+    the rest (any other kernel the forward or backward runs), by kernel name
+    from ``torch.profiler`` over ``n`` forward calls and ``n`` backward
+    calls on a kept graph; with the other kernels' names."""
     leaves = [args[i].clone().requires_grad_() for i in (0, 1, 4, 5)]
     out = typed_message.fused_typed_message_aggregate(leaves[0], leaves[1], args[2], args[3],
                                                       leaves[2], leaves[3], *dims)
@@ -301,9 +302,10 @@ def k2b_launch_ms(args, g, dims, typed_message, n=10):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            typed_message.fused_typed_message_aggregate(*args, *dims)
             torch.autograd.grad(out, leaves, g, retain_graph=True)
         torch.cuda.synchronize()
-    parts = {"main": 0.0, "reduce": 0.0, "rest": 0.0}
+    parts = {"fwd": 0.0, "main": 0.0, "reduce": 0.0, "rest": 0.0}
     rest = []
     for ev in prof.key_averages():
         ms = ev.self_device_time_total / n / 1e3
@@ -313,6 +315,8 @@ def k2b_launch_ms(args, g, dims, typed_message, n=10):
             parts["reduce"] += ms
         elif "typed_message_bwd" in ev.key:
             parts["main"] += ms
+        elif "typed_message_fwd" in ev.key:
+            parts["fwd"] += ms
         else:
             parts["rest"] += ms
             rest.append(ev.key[:60])
@@ -320,9 +324,9 @@ def k2b_launch_ms(args, g, dims, typed_message, n=10):
 
 
 def k2_group_stats(args, dims, chunk):
-    """How the valid slots fall into (node, type) groups and into K2b's
-    blocks of one type and up to ``chunk`` nodes, every chunks-th node
-    (``csrc/typed_message.cu``, ``Chunk``): the groups that hold a slot,
+    """How the valid slots fall into (node, type) groups and into the
+    blocks of K2 and K2b, of one type and up to ``chunk`` nodes, every
+    chunks-th node (``csrc/typed_message.cu``, ``Chunk``): the groups that hold a slot,
     their mean and largest size, and the rows per block (mean, largest,
     blocks with any)."""
     types, valid = args[2], args[3]
@@ -825,13 +829,13 @@ def main() -> int:
             k2_errs[way].append(numbers[way][0])
         if step == 0:
             k2_numbers = numbers
-            parts, rest = k2b_launch_ms(args[:6], g, args[6:], typed_message)
-            if not (parts["main"] > 0 and parts["reduce"] > 0):
-                raise SystemExit(f"K2b launches: the profiler saw no device time ({parts})")
-            log(f"K2b launches, train path step 0 (torch.profiler, device ms per backward): "
-                f"main {parts['main']:.4f}, reduce {parts['reduce']:.4f}, rest "
-                f"{parts['rest']:.4f} ({'; '.join(rest)})")
-            log(f"K2b groups, train path step 0: "
+            parts, rest = k2_launch_ms(args[:6], g, args[6:], typed_message)
+            if not (parts["fwd"] > 0 and parts["main"] > 0 and parts["reduce"] > 0):
+                raise SystemExit(f"K2/K2b launches: the profiler saw no device time ({parts})")
+            log(f"K2 and K2b launches, train path step 0 (torch.profiler, device ms per call): "
+                f"K2 {parts['fwd']:.4f}; K2b main {parts['main']:.4f}, reduce "
+                f"{parts['reduce']:.4f}; rest {parts['rest']:.4f} ({'; '.join(rest)})")
+            log(f"K2/K2b groups and blocks, train path step 0: "
                 f"{k2_group_stats(args, args[6:], typed_message._CHUNK)}")
     del captured, args, g
     torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 // Device functions shared by the port's per-(node, type) aggregation
-// kernels: K2 and K2b (typed_message.cu), K3 and K3b (attn_aggregate.cu)
-// and K4 (blocked_attn.cu). Each keeps here its one definition of the
-// group's slot selection (one ballot per warp), the softmax shifted by the
-// group's largest logit, and the 1e-16 clamp of the softmax denominator
-// (the TPU kernels' jnp.maximum(den, 1e-16)).
+// kernels: K3 and K3b (attn_aggregate.cu) and K4 (blocked_attn.cu) keep
+// here their one definition of the group's slot selection (one ballot per
+// warp), the softmax shifted by the group's largest logit, and the 1e-16
+// clamp of the softmax denominator (the TPU kernels' jnp.maximum(den,
+// 1e-16)); K2 and K2b (typed_message.cu) batch many groups at once and take
+// from here the block shape, the row width and warp_sum.
 //
 // Every one of those kernels runs blocks of kThreads threads; a block owns
 // one source type t and walks a chunk of target nodes. The group of node n

@@ -29,27 +29,34 @@
 //
 // What the design does about it: everything happens per (node, type)
 // group, and each group needs only its own type's 64x64 slice of `we`. A
-// block owns one type t and a chunk of nodes and stages We_t once in shared
+// block owns one type t and up to 64 nodes and stages We_t once in shared
 // memory; it projects only its type's slots, and onto We_t alone (the TPU
 // form projects every slot onto all 17 types and selects with one-hot
 // matmuls, because Mosaic has no gather). Each ef row is read by exactly one
 // block and each d_ef, out and da row written by exactly one.
 //
-// K2 walks its chunk node by node (select_group, a warp per row). The groups
-// are small (at the first training step 29,337 of the 92,480 hold a slot,
-// 10.3 rows on average), so K2b instead takes all of its type's groups in
-// its nodes at once: one pass over their index columns lists the type-t
-// slots in slot order with each node's first row (and zeroes d_ef of some
-// invalid slots), and the block works through that list in batches of whole
-// nodes, up to kBatchRows rows, five barriers a batch. In each batch
-// cp.async brings the ef rows; the logits and pre = a + ef @ We_t (a register tile of 8 rows x 4 columns a
-// thread, We_t from shared memory) fill the batch; eight-lane groups take
-// each node's softmax, out and q, then each row's dpre and dlogit, then
-// each node's da; last, d_ef = dpre @ We_t^T + dlogit * w_attn in the same
-// tiles, and the dwe_t (4 x 4 a thread) and dwa partials, kept in registers
-// across batches. A block's nodes are every chunks-th node (Chunk), which
-// keeps the blocks' row counts close when some types cluster in the node
-// order.
+// The groups are small (at the first training step 29,337 of the 92,480
+// hold a slot, 10.3 rows on average), so a block takes all of its type's
+// groups in its nodes at once. A block's nodes are every chunks-th node
+// (Chunk), which keeps the blocks' row counts close when some types cluster
+// in the node order. One pass over their index columns (list_rows) lists
+// the type-t slots in slot order with each node's first row, and the block
+// works through that list in batches of whole nodes, up to 128 rows (256
+// when C > 128). In each batch cp.async brings the ef rows; pre = a +
+// ef @ We_t is a register tile of 8 rows x 4 columns a thread, We_t from
+// shared memory (project_pass); eight-lane groups take each node's softmax
+// and output sum, in slot order (node_softmax_sum).
+//
+// K2 keeps no pre buffer: a batch's pre overwrites its ef rows in place (a
+// thread's rows are read only by its own warp), which leaves room for three
+// blocks per SM to hide each other's scans and copies; three barriers a
+// batch. (A second ef buffer, filled with the next batch's rows while one
+// computes, fits two blocks per SM and measured slower.) K2b keeps pre (then
+// dpre) beside ef, since dwe needs both: five barriers a batch, in which
+// each row's dpre and dlogit, each node's da, then d_ef = dpre @ We_t^T +
+// dlogit * w_attn in the same tiles, and the dwe_t (4 x 4 a thread) and dwa
+// partials, kept in registers across batches; its scan also zeroes the d_ef
+// rows of some invalid slots.
 //
 // The cross-block sums dwe (278 KB in f32, more than a block's shared
 // memory) and dwa are deterministic: each block writes its type's 64x64
@@ -71,131 +78,10 @@ using pemp::kWarps;
 using pemp::kWidth;
 using pemp::warp_sum;
 
-constexpr int kLd = kWidth + 1;     // padded row stride: column reads hit distinct banks
-constexpr int kFwdChunk = 64;       // nodes per block of the forward
-
-// ---------------------------------------------------------------- K2
-
-// Shared memory of one forward block, carved from the dynamic allocation.
-struct Smem {
-  float* we;      // kWidth x kLd: We_t[k][o] at k * kLd + o
-  float* wat;     // kWidth: w_attn
-  float* ef;      // C x kLd: the group's ef rows
-  float* red;     // kWarps x kWidth: per-warp partial sums
-  float* logit;   // C: logits
-  float* e;       // C: exp(logit - max)
-  float* vec;     // kWidth: a[n, t]
-  float* scal;    // 8: max, den
-  int* list;      // C: the group's slots, in slot order
-  int* warp_cnt;  // kWarps: group members per warp of the scan
-
-  __device__ Smem(float* base, int c) {
-    we = base;
-    wat = we + kWidth * kLd;
-    ef = wat + kWidth;
-    red = ef + c * kLd;
-    logit = red + kWarps * kWidth;
-    e = logit + c;
-    vec = e + c;
-    scal = vec + kWidth;
-    list = reinterpret_cast<int*>(scal + 8);
-    warp_cnt = list + c;
-  }
-};
-
-size_t smem_bytes(int c) {
-  return sizeof(float) * (kWidth * kLd + kWidth + c * kLd + kWarps * kWidth + 2 * c + kWidth +
-                          8) +
-         sizeof(int) * (c + kWarps);
-}
-
-// Stages We_t and w_attn for the block's type t.
-__device__ void stage_weights(const Smem& s, const float* __restrict__ we,
-                              const float* __restrict__ w_attn, int t, int num_types) {
-  const long long row = static_cast<long long>(num_types) * kWidth;
-  for (int i = threadIdx.x; i < kWidth * kWidth; i += kThreads) {
-    const int k = i / kWidth, o = i % kWidth;
-    s.we[k * kLd + o] = we[k * row + t * kWidth + o];
-  }
-  for (int i = threadIdx.x; i < kWidth; i += kThreads) s.wat[i] = w_attn[i];
-}
-
-// The forward of group (n, t): collects the group's slots, its ef rows,
-// logits, softmax weights and pre-activations; leaves the unnormalised
-// output sum over warps in s.red. Returns the group size (0: nothing else
-// was done). Starts and ends with a block-wide barrier.
-__device__ int group_forward(const Smem& s, const float* __restrict__ ef,
-                             const float* __restrict__ a, const int* __restrict__ types,
-                             const int* __restrict__ valid, int n, int c, int t, int num_types) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long slot0 = static_cast<long long>(n) * c;
-  const int cnt = pemp::select_group(s.list, s.warp_cnt, types, valid, slot0, c, t);
-  if (cnt == 0) return 0;
-
-  for (int i = tid; i < cnt * kWidth; i += kThreads) {
-    const int r = i / kWidth, k = i % kWidth;
-    s.ef[r * kLd + k] = ef[(slot0 + s.list[r]) * kWidth + k];
-  }
-  if (tid < kWidth) s.vec[tid] = a[(static_cast<long long>(n) * num_types + t) * kWidth + tid];
-  __syncthreads();
-
-  for (int r = warp; r < cnt; r += kWarps) {
-    const float* er = s.ef + r * kLd;
-    const float v = warp_sum(er[lane] * s.wat[lane] + er[lane + 32] * s.wat[lane + 32]);
-    if (lane == 0) s.logit[r] = v;
-  }
-  __syncthreads();
-  pemp::group_softmax(s.logit, s.e, s.scal, cnt);
-
-  // pre = a + ef @ We_t: a warp per row, lanes on output columns lane, lane + 32
-  float acc0 = 0.f, acc1 = 0.f;
-  for (int r = warp; r < cnt; r += kWarps) {
-    const float* er = s.ef + r * kLd;
-    float p0 = 0.f, p1 = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kWidth; ++k) {
-      const float x = er[k];
-      p0 += x * s.we[k * kLd + lane];
-      p1 += x * s.we[k * kLd + lane + 32];
-    }
-    p0 += s.vec[lane];
-    p1 += s.vec[lane + 32];
-    const float ev = s.e[r];
-    acc0 += ev * fmaxf(p0, 0.f);
-    acc1 += ev * fmaxf(p1, 0.f);
-  }
-  s.red[warp * kWidth + lane] = acc0;
-  s.red[warp * kWidth + lane + 32] = acc1;
-  __syncthreads();
-  return cnt;
-}
-
-__global__ void __launch_bounds__(kThreads) typed_message_fwd(
-    const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
-    const int* __restrict__ valid, const float* __restrict__ we,
-    const float* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
-    int num_types) {
-  extern __shared__ float smem[];
-  const Smem s(smem, c);
-  const int t = blockIdx.y;
-  stage_weights(s, we, w_attn, t, num_types);
-  const int n0 = blockIdx.x * kFwdChunk;
-  const int n1 = min(n0 + kFwdChunk, num_nodes);
-  for (int n = n0; n < n1; ++n) {
-    const int cnt = group_forward(s, ef, a, types, valid, n, c, t, num_types);
-    if (threadIdx.x < kWidth) {
-      const long long o = (static_cast<long long>(n) * num_types + t) * kWidth + threadIdx.x;
-      out[o] = cnt == 0 ? 0.f : pemp::sum_partials(s.red, threadIdx.x) / s.scal[1];
-    }
-  }
-}
-
-// ---------------------------------------------------------------- K2b
-
-constexpr int kChunkNodes = 64;     // most nodes a backward block owns (the wrapper's _CHUNK)
+constexpr int kChunkNodes = 64;     // most nodes a block owns (the wrapper's _CHUNK)
 constexpr int kBatchRows = 128;     // rows of a batch; 2x when C > 128, so a group always fits
 constexpr int kPassRows = 128;      // rows of one register-tiled pass: 16 row groups x 8
-constexpr int kGroups = kThreads / 8;  // eight-lane groups of the softmax backward
+constexpr int kGroups = kThreads / 8;  // eight-lane groups of the per-node steps
 constexpr int kLdR = kWidth + 4;    // row stride of We_t, ef and pre: 16-byte rows, and rows
                                     // r, r + 1, ... read by one quarter-warp fall in
                                     // distinct banks
@@ -205,50 +91,6 @@ static_assert(kChunkNodes * kMaxSlots <= 65536, "slot offsets fit 16 bits");
 
 __host__ __device__ constexpr int batch_rows(int c) {
   return c <= kBatchRows ? kBatchRows : 2 * kBatchRows;
-}
-
-// Shared memory of one backward block, carved from the dynamic allocation;
-// the float4-read arrays come first, at 16-byte offsets.
-struct BwdSmem {
-  float* we;        // kWidth x kLdR: We_t[k][o] at k * kLdR + o
-  float* ef;        // rows x kLdR: the batch's ef rows
-  float* p;         // rows x kLdR: pre, then dpre in place
-  float* wat;       // kWidth: w_attn
-  float* logit;     // rows
-  float* e;         // rows: exp(logit - the group's max)
-  float* dlogit;    // rows
-  float* red;       // kThreads: dwa partials
-  float* node_den;  // kChunkNodes: each node's softmax denominator
-  float* node_q;    // kChunkNodes: each node's <g, out> / den
-  int* warp_tot;    // kWarps: rows found per warp of the scan
-  int* row_node;    // rows: each batch row's node, from the chunk's first
-  int* seg;         // kChunkNodes + 1: each node's first row in list; seg[nodes] = count
-  uint16_t* list;   // node_chunk * C: the chunk's type-t slots as local offsets j * C + slot
-
-  __device__ BwdSmem(float* base, int rows) {
-    we = base;
-    ef = we + kWidth * kLdR;
-    p = ef + rows * kLdR;
-    wat = p + rows * kLdR;
-    logit = wat + kWidth;
-    e = logit + rows;
-    dlogit = e + rows;
-    red = dlogit + rows;
-    node_den = red + kThreads;
-    node_q = node_den + kChunkNodes;
-    warp_tot = reinterpret_cast<int*>(node_q + kChunkNodes);
-    row_node = warp_tot + kWarps;
-    seg = row_node + rows;
-    list = reinterpret_cast<uint16_t*>(seg + kChunkNodes + 1);
-  }
-};
-
-size_t bwd_smem_bytes(int c, int node_chunk) {
-  const int rows = batch_rows(c);
-  return sizeof(float) *
-             (kWidth * kLdR + 2 * rows * kLdR + kWidth + 3 * rows + kThreads + 2 * kChunkNodes) +
-         sizeof(int) * (kWarps + rows + kChunkNodes + 1) +
-         sizeof(uint16_t) * static_cast<size_t>(node_chunk) * c;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -294,8 +136,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The nodes of a backward block: its local node j is node first + j * stride,
-// every chunks-th node (the blocks of one type together own each node once).
+// The nodes of a block: its local node j is node first + j * stride, every
+// chunks-th node (the blocks of one type together own each node once).
 // Spread so, a block's nodes come from every image and many node types, and
 // its rows of one source type do not depend on which node types lie near each
 // other in the node order (the training graph links many nodes to nodes of
@@ -314,20 +156,32 @@ struct Chunk {
     const int j = loc / c;
     return node(j) * c + (loc - j * c);
   }
-  // local node j's row of a, g and da for the block's type
+  // local node j's row of a, out, g and da for the block's type
   __device__ long long row(int j) const { return node(j) * num_types + t; }
 };
 
+// Copies We_t (we's columns t * kWidth onwards) to dst at row stride kLdR
+// by cp.async; waited for with the first batch's ef rows.
+__device__ void stage_we(float* dst, const float* __restrict__ we, int t, int num_types) {
+  const long long we_row = static_cast<long long>(num_types) * kWidth;
+  for (int i = threadIdx.x; i < kWidth * kWidth / 4; i += kThreads) {
+    const int k = i / (kWidth / 4), q = i % (kWidth / 4);
+    cp_async16(dst + k * kLdR + 4 * q, we + k * we_row + t * kWidth + 4 * q);
+  }
+}
+
 // Lists the chunk's type-t valid slots in slot order, as local offsets, in
-// s.list; s.seg[j] gets local node j's first row, s.seg[nodes] the count.
-// Each thread tests a run of up to 64 consecutive slots (16-byte loads
-// where C allows) into a bit mask; a prefix sum over the runs' counts
-// places them. Also writes zeros to the d_ef rows of the chunk's invalid
-// slots at offsets i with i % T == t, so that the chunk's blocks together
-// cover each once. Ends with a block-wide barrier.
-__device__ void list_rows(const BwdSmem& s, const int* __restrict__ types,
-                          const int* __restrict__ valid, float* __restrict__ d_ef,
-                          const Chunk& ch) {
+// list; seg[j] gets local node j's first row, seg[nodes] the count.
+// warp_tot holds kWarps ints. Each thread tests a run of up to 64
+// consecutive slots (16-byte loads where C allows) into a bit mask; a prefix
+// sum over the runs' counts places them. With kZeroInvalid, also writes
+// zeros to the d_ef rows of the chunk's invalid slots at offsets i with
+// i % T == t, so that the chunk's blocks together cover each once. Ends with
+// a block-wide barrier.
+template <bool kZeroInvalid>
+__device__ void list_rows(int* warp_tot, uint16_t* list, int* seg,
+                          const int* __restrict__ types, const int* __restrict__ valid,
+                          float* __restrict__ d_ef, const Chunk& ch) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = ch.c, t = ch.t;
   const int num_slots = ch.nodes * c;
@@ -338,7 +192,7 @@ __device__ void list_rows(const BwdSmem& s, const int* __restrict__ types,
   auto take = [&](int i, int type, int ok) {
     const unsigned long long bit = 1ull << (i - first);
     if (ok != 0 && type == t) mask |= bit;
-    if (ok == 0 && i % ch.num_types == t) zero |= bit;
+    if (kZeroInvalid && ok == 0 && i % ch.num_types == t) zero |= bit;
   };
   if (c % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(types) | reinterpret_cast<uintptr_t>(valid)) & 15) == 0) {
@@ -370,7 +224,7 @@ __device__ void list_rows(const BwdSmem& s, const int* __restrict__ types,
     const int v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
-  if (lane == 31) s.warp_tot[warp] = incl;
+  if (lane == 31) warp_tot[warp] = incl;
   for (; zero; zero &= zero - 1) {
     float4* dst = reinterpret_cast<float4*>(d_ef + ch.slot(first + __ffsll(zero) - 1) * kWidth);
 #pragma unroll
@@ -380,57 +234,279 @@ __device__ void list_rows(const BwdSmem& s, const int* __restrict__ types,
   int pos = incl - mine, total = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    const int v = s.warp_tot[w];
+    const int v = warp_tot[w];
     pos += w < warp ? v : 0;
     total += v;
   }
-  for (; mask; mask &= mask - 1) s.list[pos++] = static_cast<uint16_t>(first + __ffsll(mask) - 1);
+  for (; mask; mask &= mask - 1) list[pos++] = static_cast<uint16_t>(first + __ffsll(mask) - 1);
   __syncthreads();
   if (tid <= ch.nodes) {  // first row at or after node tid's first slot
     const int key = tid * c;
     int lo = 0, hi = total;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (s.list[mid] < key) lo = mid + 1;
+      if (list[mid] < key) lo = mid + 1;
       else hi = mid;
     }
-    s.seg[tid] = lo;
+    seg[tid] = lo;
   }
   __syncthreads();
 }
 
+// The batch from local node j0: nodes j0..j1 - 1, as many as fit in `rows`
+// rows (one always does); returns j1.
+__device__ int batch_end(const int* seg, int j0, int nodes, int rows) {
+  const int b0 = seg[j0];
+  int j1 = j0 + 1;
+  for (int hi = nodes; j1 < hi;) {
+    const int mid = (j1 + hi + 1) >> 1;
+    if (seg[mid] - b0 <= rows) j1 = mid;
+    else hi = mid - 1;
+  }
+  return j1;
+}
+
+// Starts the cp.async copy of the ef rows of list entries b0..b0 + nr - 1 to
+// dst (stride kLdR) and writes each row's local node to row_node.
+__device__ void load_rows(float* dst, int* row_node, const float* __restrict__ ef,
+                          const uint16_t* list, int b0, int nr, const Chunk& ch) {
+  for (int i = threadIdx.x; i < nr * (kWidth / 4); i += kThreads) {
+    const int r = i / (kWidth / 4), q = i % (kWidth / 4);
+    cp_async16(dst + r * kLdR + 4 * q, ef + ch.slot(list[b0 + r]) * kWidth + 4 * q);
+  }
+  for (int r = threadIdx.x; r < nr; r += kThreads) row_node[r] = list[b0 + r] / ch.c;
+}
+
 // pre = a[n, t] + ef @ We_t for rows base + rg + 16 i (i < RT) of the
-// batch, columns c0..c0 + 3; rows at or past nr are computed on whatever the
-// buffer holds and not stored.
+// batch, columns c0..c0 + 3, stored to p; rows at or past nr are computed on
+// whatever the buffer holds and not stored. Only the 16 threads of row group
+// rg, all in one warp, read or write these rows here, so p may be ef.
 template <int RT>
-__device__ void project_pass(const BwdSmem& s, const float* __restrict__ a, int base, int nr,
-                             const Chunk& ch) {
+__device__ void project_pass(const float* we_t, const float* ef, float* p, const int* row_node,
+                             const float* __restrict__ a, int base, int nr, const Chunk& ch) {
   const int rg = threadIdx.x >> 4, c0 = 4 * (threadIdx.x & 15);
   float acc[RT][4] = {};
 #pragma unroll 2
   for (int k = 0; k < kWidth; k += 4) {
     float4 w[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) w[j] = ld4(s.we + (k + j) * kLdR + c0);
+    for (int j = 0; j < 4; ++j) w[j] = ld4(we_t + (k + j) * kLdR + c0);
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const float4 x = ld4(s.ef + (base + rg + 16 * i) * kLdR + k);
+      const float4 x = ld4(ef + (base + rg + 16 * i) * kLdR + k);
       fma4(acc[i], x.x, w[0]);
       fma4(acc[i], x.y, w[1]);
       fma4(acc[i], x.z, w[2]);
       fma4(acc[i], x.w, w[3]);
     }
   }
+  __syncwarp();  // the row group's reads of ef are done before pre may overwrite it
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int r = base + rg + 16 * i;
     if (r < nr) {
       const float4 av =
-          __ldg(reinterpret_cast<const float4*>(a + ch.row(s.row_node[r]) * kWidth + c0));
-      *reinterpret_cast<float4*>(s.p + r * kLdR + c0) =
+          __ldg(reinterpret_cast<const float4*>(a + ch.row(row_node[r]) * kWidth + c0));
+      *reinterpret_cast<float4*>(p + r * kLdR + c0) =
           make_float4(acc[i][0] + av.x, acc[i][1] + av.y, acc[i][2] + av.z, acc[i][3] + av.w);
     }
   }
+}
+
+// The softmax of a node's rows r0..r1 - 1 (r1 > r0) and their output sum,
+// by the eight lanes of gmask, lane sub on columns c0..c0 + 3 and c1..c1 + 3:
+// writes e[r] = exp(logit[r] - the node's max), leaves sum_r e[r] relu(p[r])
+// (in slot order) in o0, o1 and returns den = max(sum_r e[r], 1e-16).
+__device__ __forceinline__ float node_softmax_sum(const float* logit, float* e, const float* p,
+                                                  int r0, int r1, int sub, int c0, int c1,
+                                                  unsigned gmask, float4& o0, float4& o1) {
+  float mx = __int_as_float(0xff800000);  // -inf
+  for (int r = r0 + sub; r < r1; r += 8) mx = fmaxf(mx, logit[r]);
+  mx = group_max(mx, gmask);
+  float sum = 0.f;
+  for (int r = r0 + sub; r < r1; r += 8) {
+    const float ev = expf(logit[r] - mx);
+    e[r] = ev;
+    sum += ev;
+  }
+  const float den = fmaxf(group_sum(sum, gmask), 1e-16f);
+  __syncwarp(gmask);
+  o0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  o1 = o0;
+  for (int r = r0; r < r1; ++r) {
+    const float ev = e[r];
+    const float4 p0 = ld4(p + r * kLdR + c0), p1 = ld4(p + r * kLdR + c1);
+    o0 = make_float4(o0.x + ev * fmaxf(p0.x, 0.f), o0.y + ev * fmaxf(p0.y, 0.f),
+                     o0.z + ev * fmaxf(p0.z, 0.f), o0.w + ev * fmaxf(p0.w, 0.f));
+    o1 = make_float4(o1.x + ev * fmaxf(p1.x, 0.f), o1.y + ev * fmaxf(p1.y, 0.f),
+                     o1.z + ev * fmaxf(p1.z, 0.f), o1.w + ev * fmaxf(p1.w, 0.f));
+  }
+  return den;
+}
+
+// Runs pass<RT> over the batch's nr rows in passes of kPassRows, with RT the
+// fewest rows a thread needs for the pass (the same on every thread).
+#define PEMP_ROW_PASSES(pass, ...)                                              \
+  for (int base = 0; base < nr; base += kPassRows) {                            \
+    switch ((min(nr - base, kPassRows) + 15) >> 4) {                            \
+      case 1: pass<1>(__VA_ARGS__); break;                                      \
+      case 2: pass<2>(__VA_ARGS__); break;                                      \
+      case 3: pass<3>(__VA_ARGS__); break;                                      \
+      case 4: pass<4>(__VA_ARGS__); break;                                      \
+      case 5: pass<5>(__VA_ARGS__); break;                                      \
+      case 6: pass<6>(__VA_ARGS__); break;                                      \
+      case 7: pass<7>(__VA_ARGS__); break;                                      \
+      default: pass<8>(__VA_ARGS__); break;                                     \
+    }                                                                           \
+  }
+
+// ---------------------------------------------------------------- K2
+
+// Shared memory of one forward block, carved from the dynamic allocation;
+// the float4-read arrays come first, at 16-byte offsets.
+struct FwdSmem {
+  float* we;        // kWidth x kLdR: We_t[k][o] at k * kLdR + o
+  float* buf;       // rows x kLdR: a batch's ef rows, then its pre
+  float* wat;       // kWidth: w_attn
+  float* logit;     // rows
+  float* e;         // rows: exp(logit - the group's max)
+  int* warp_tot;    // kWarps: rows found per warp of the scan
+  int* row_node;    // rows: each batch row's node, from the chunk's first
+  int* seg;         // kChunkNodes + 1: each node's first row in list; seg[nodes] = count
+  uint16_t* list;   // kChunkNodes * C: the chunk's type-t slots as local offsets j * C + slot
+
+  __device__ FwdSmem(float* base, int rows) {
+    we = base;
+    buf = we + kWidth * kLdR;
+    wat = buf + rows * kLdR;
+    logit = wat + kWidth;
+    e = logit + rows;
+    warp_tot = reinterpret_cast<int*>(e + rows);
+    row_node = warp_tot + kWarps;
+    seg = row_node + rows;
+    list = reinterpret_cast<uint16_t*>(seg + kChunkNodes + 1);
+  }
+};
+
+size_t fwd_smem_bytes(int c) {
+  const int rows = batch_rows(c);
+  return sizeof(float) * (kWidth * kLdR + rows * kLdR + kWidth + 2 * rows) +
+         sizeof(int) * (kWarps + rows + kChunkNodes + 1) +
+         sizeof(uint16_t) * static_cast<size_t>(kChunkNodes) * c;
+}
+
+// Three blocks per SM: the shared memory of one block allows three.
+__global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
+    const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
+    const int* __restrict__ valid, const float* __restrict__ we,
+    const float* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
+    int num_types) {
+  extern __shared__ float4 smem4[];
+  const int rows = batch_rows(c);
+  const FwdSmem s(reinterpret_cast<float*>(smem4), rows);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Chunk ch(num_nodes, c, num_types, blockIdx.y);
+  const int nodes = ch.nodes;
+  stage_we(s.we, we, ch.t, num_types);
+  if (tid < kWidth) s.wat[tid] = w_attn[tid];
+  list_rows<false>(s.warp_tot, s.list, s.seg, types, valid, nullptr, ch);
+  for (int i = tid; i < 2 * nodes; i += kThreads)  // the nodes' a rows to L2
+    prefetch_l2(a + ch.row(i >> 1) * kWidth + 32 * (i & 1));
+
+  // the logits: half a warp per row, on the row groups of project_pass
+  const int rg = tid >> 4, cq = 4 * (tid & 15);
+  const float4 wq = ld4(s.wat + cq);
+  // the per-node step: eight-lane groups, a lane on columns c0.. and c1..
+  const int grp = 4 * warp + (lane >> 3), sub = lane & 7, c0 = 4 * sub, c1 = 32 + 4 * sub;
+  const unsigned gmask = 0xffu << (lane & 24);
+
+  int j0 = 0, j1 = batch_end(s.seg, 0, nodes, rows);
+  load_rows(s.buf, s.row_node, ef, s.list, 0, s.seg[j1], ch);
+  float* const p = s.buf;
+  while (j0 < nodes) {
+    const int b0 = s.seg[j0], nr = s.seg[j1] - b0;
+    const int j2 = j1 < nodes ? batch_end(s.seg, j1, nodes, rows) : j1;
+    cp_async_wait_all();
+    __syncthreads();  // this batch's rows are in
+    if (nr > 0) {
+      // a warp reads here only the rows it projects next, so pre overwrites
+      // ef in place (p is both)
+      for (int r0 = 0; r0 < nr; r0 += 16) {
+        const int r = r0 + rg;
+        float v = dot4(0.f, ld4(p + r * kLdR + cq), wq);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (r < nr && cq == 0) s.logit[r] = v;
+      }
+      PEMP_ROW_PASSES(project_pass, s.we, p, p, s.row_node, a, base, nr, ch)
+    }
+    __syncthreads();  // pre and the logits are complete
+
+    // a group per node: out = sum e relu(pre) / den, 0 for an empty group
+    for (int j = j0 + grp; j < j1; j += kGroups) {
+      const int r0 = s.seg[j] - b0, r1 = s.seg[j + 1] - b0;
+      float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
+      float den = 1.f;
+      if (r1 > r0) den = node_softmax_sum(s.logit, s.e, p, r0, r1, sub, c0, c1, gmask, o0, o1);
+      float* dst = out + ch.row(j) * kWidth;
+      *reinterpret_cast<float4*>(dst + c0) =
+          make_float4(o0.x / den, o0.y / den, o0.z / den, o0.w / den);
+      *reinterpret_cast<float4*>(dst + c1) =
+          make_float4(o1.x / den, o1.y / den, o1.z / den, o1.w / den);
+    }
+    if (j1 < nodes) {
+      __syncthreads();  // the buffer is read
+      load_rows(s.buf, s.row_node, ef, s.list, s.seg[j1], s.seg[j2] - s.seg[j1], ch);
+    }
+    j0 = j1;
+    j1 = j2;
+  }
+}
+
+// ---------------------------------------------------------------- K2b
+
+// Shared memory of one backward block, carved from the dynamic allocation;
+// the float4-read arrays come first, at 16-byte offsets.
+struct BwdSmem {
+  float* we;        // kWidth x kLdR: We_t[k][o] at k * kLdR + o
+  float* ef;        // rows x kLdR: the batch's ef rows
+  float* p;         // rows x kLdR: pre, then dpre in place
+  float* wat;       // kWidth: w_attn
+  float* logit;     // rows
+  float* e;         // rows: exp(logit - the group's max)
+  float* dlogit;    // rows
+  float* red;       // kThreads: dwa partials
+  float* node_den;  // kChunkNodes: each node's softmax denominator
+  float* node_q;    // kChunkNodes: each node's <g, out> / den
+  int* warp_tot;    // kWarps: rows found per warp of the scan
+  int* row_node;    // rows: each batch row's node, from the chunk's first
+  int* seg;         // kChunkNodes + 1: each node's first row in list; seg[nodes] = count
+  uint16_t* list;   // node_chunk * C: the chunk's type-t slots as local offsets j * C + slot
+
+  __device__ BwdSmem(float* base, int rows) {
+    we = base;
+    ef = we + kWidth * kLdR;
+    p = ef + rows * kLdR;
+    wat = p + rows * kLdR;
+    logit = wat + kWidth;
+    e = logit + rows;
+    dlogit = e + rows;
+    red = dlogit + rows;
+    node_den = red + kThreads;
+    node_q = node_den + kChunkNodes;
+    warp_tot = reinterpret_cast<int*>(node_q + kChunkNodes);
+    row_node = warp_tot + kWarps;
+    seg = row_node + rows;
+    list = reinterpret_cast<uint16_t*>(seg + kChunkNodes + 1);
+  }
+};
+
+size_t bwd_smem_bytes(int c, int node_chunk) {
+  const int rows = batch_rows(c);
+  return sizeof(float) *
+             (kWidth * kLdR + 2 * rows * kLdR + kWidth + 3 * rows + kThreads + 2 * kChunkNodes) +
+         sizeof(int) * (kWarps + rows + kChunkNodes + 1) +
+         sizeof(uint16_t) * static_cast<size_t>(node_chunk) * c;
 }
 
 // d_ef = dpre @ We_t^T + dlogit * w_attn for rows base + rg + 16 i (i < RT)
@@ -464,22 +540,6 @@ __device__ void backproject_pass(const BwdSmem& s, float* __restrict__ d_ef, int
   }
 }
 
-// Runs pass<RT> over the batch's nr rows in passes of kPassRows, with RT the
-// fewest rows a thread needs for the pass (the same on every thread).
-#define PEMP_ROW_PASSES(pass, ...)                                              \
-  for (int base = 0; base < nr; base += kPassRows) {                            \
-    switch ((min(nr - base, kPassRows) + 15) >> 4) {                            \
-      case 1: pass<1>(s, __VA_ARGS__); break;                                   \
-      case 2: pass<2>(s, __VA_ARGS__); break;                                   \
-      case 3: pass<3>(s, __VA_ARGS__); break;                                   \
-      case 4: pass<4>(s, __VA_ARGS__); break;                                   \
-      case 5: pass<5>(s, __VA_ARGS__); break;                                   \
-      case 6: pass<6>(s, __VA_ARGS__); break;                                   \
-      case 7: pass<7>(s, __VA_ARGS__); break;                                   \
-      default: pass<8>(s, __VA_ARGS__); break;                                  \
-    }                                                                           \
-  }
-
 __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
     const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
     const int* __restrict__ valid, const float* __restrict__ we,
@@ -493,13 +553,9 @@ __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
   const int t = blockIdx.y;
   const Chunk ch(num_nodes, c, num_types, t);
   const int nodes = ch.nodes;
-  const long long we_row = static_cast<long long>(num_types) * kWidth;
-  for (int i = tid; i < kWidth * kWidth / 4; i += kThreads) {  // We_t: waited for with the ef rows
-    const int k = i / (kWidth / 4), q = i % (kWidth / 4);
-    cp_async16(s.we + k * kLdR + 4 * q, we + k * we_row + t * kWidth + 4 * q);
-  }
+  stage_we(s.we, we, t, num_types);
   if (tid < kWidth) s.wat[tid] = w_attn[tid];
-  list_rows(s, types, valid, d_ef, ch);
+  list_rows<true>(s.warp_tot, s.list, s.seg, types, valid, d_ef, ch);
   // the nodes' a and g rows to L2, for the products' and softmax steps' loads
   for (int i = tid; i < 4 * nodes; i += kThreads)
     prefetch_l2(((i & 2) ? g : a) + ch.row(i >> 2) * kWidth + 32 * (i & 1));
@@ -511,23 +567,11 @@ __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
   float dwa = 0.f;
 
   for (int j0 = 0; j0 < nodes;) {
-    // the batch: nodes j0..j1 - 1, as many as fit in `rows` rows (one always does)
     const int b0 = s.seg[j0];
-    int j1 = j0 + 1;
-    for (int hi = nodes; j1 < hi;) {
-      const int mid = (j1 + hi + 1) >> 1;
-      if (s.seg[mid] - b0 <= rows) j1 = mid;
-      else hi = mid - 1;
-    }
+    const int j1 = batch_end(s.seg, j0, nodes, rows);
     const int nr = s.seg[j1] - b0;
 
-    if (nr > 0) {
-      for (int i = tid; i < nr * (kWidth / 4); i += kThreads) {
-        const int r = i / (kWidth / 4), q = i % (kWidth / 4);
-        cp_async16(s.ef + r * kLdR + 4 * q, ef + ch.slot(s.list[b0 + r]) * kWidth + 4 * q);
-      }
-      for (int r = tid; r < nr; r += kThreads) s.row_node[r] = s.list[b0 + r] / c;
-    }
+    load_rows(s.ef, s.row_node, ef, s.list, b0, nr, ch);
     cp_async_wait_all();
     __syncthreads();
     if (nr > 0) {
@@ -536,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
         const float v = warp_sum(er[lane] * s.wat[lane] + er[lane + 32] * s.wat[lane + 32]);
         if (lane == 0) s.logit[r] = v;
       }
-      PEMP_ROW_PASSES(project_pass, a, base, nr, ch)
+      PEMP_ROW_PASSES(project_pass, s.we, s.ef, s.p, s.row_node, a, base, nr, ch)
       __syncthreads();
     }
 
@@ -551,26 +595,8 @@ __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
       const long long row = ch.row(j) * kWidth;
       const float4 g0 = __ldg(reinterpret_cast<const float4*>(g + row + c0));
       const float4 g1 = __ldg(reinterpret_cast<const float4*>(g + row + c1));
-      float mx = __int_as_float(0xff800000);  // -inf
-      for (int r = r0 + sub; r < r1; r += 8) mx = fmaxf(mx, s.logit[r]);
-      mx = group_max(mx, gmask);
-      float sum = 0.f;
-      for (int r = r0 + sub; r < r1; r += 8) {
-        const float ev = expf(s.logit[r] - mx);
-        s.e[r] = ev;
-        sum += ev;
-      }
-      const float den = fmaxf(group_sum(sum, gmask), 1e-16f);
-      __syncwarp(gmask);
-      float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
-      for (int r = r0; r < r1; ++r) {
-        const float ev = s.e[r];
-        const float4 p0 = ld4(s.p + r * kLdR + c0), p1 = ld4(s.p + r * kLdR + c1);
-        o0 = make_float4(o0.x + ev * fmaxf(p0.x, 0.f), o0.y + ev * fmaxf(p0.y, 0.f),
-                         o0.z + ev * fmaxf(p0.z, 0.f), o0.w + ev * fmaxf(p0.w, 0.f));
-        o1 = make_float4(o1.x + ev * fmaxf(p1.x, 0.f), o1.y + ev * fmaxf(p1.y, 0.f),
-                         o1.z + ev * fmaxf(p1.z, 0.f), o1.w + ev * fmaxf(p1.w, 0.f));
-      }
+      float4 o0, o1;
+      const float den = node_softmax_sum(s.logit, s.e, s.p, r0, r1, sub, c0, c1, gmask, o0, o1);
       const float part = g0.x * (o0.x / den) + g0.y * (o0.y / den) + g0.z * (o0.z / den) +
                          g0.w * (o0.w / den) + g1.x * (o1.x / den) + g1.y * (o1.y / den) +
                          g1.z * (o1.z / den) + g1.w * (o1.w / den);
@@ -623,7 +649,7 @@ __global__ void __launch_bounds__(kThreads, 2) typed_message_bwd(
       *reinterpret_cast<float4*>(da + row + c1) = da1;
     }
     if (nr > 0) {
-      PEMP_ROW_PASSES(backproject_pass, d_ef, base, nr, b0, ch)
+      PEMP_ROW_PASSES(backproject_pass, s, d_ef, base, nr, b0, ch)
 #pragma unroll 4
       for (int r = 0; r < nr; ++r) {
         const float4 x = ld4(s.ef + r * kLdR + k0);
@@ -693,16 +719,19 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // Forward (K2). Pointers are f32 except types and valid (int32); rows are
-// kWidth wide. Returns a cudaError_t, or -2 for unsupported sizes.
+// kWidth wide; ef, a, we and out must be 16-byte aligned (they are read and
+// written in 16-byte pieces). Blocks own kChunkNodes nodes at most. Returns a
+// cudaError_t, or -2 for unsupported sizes or alignment.
 extern "C" int pemp_typed_message_fwd(const float* ef, const float* a, const int* types,
                                       const int* valid, const float* we, const float* w_attn,
                                       float* out, int num_nodes, int c, int num_types,
                                       void* stream) {
   if (c < 1 || c > kMaxSlots || num_types < 1 || num_nodes < 1) return -2;
-  const size_t smem = smem_bytes(c);
+  if (!(aligned16(ef) && aligned16(a) && aligned16(we) && aligned16(out))) return -2;
+  const size_t smem = fwd_smem_bytes(c);
   int err = set_smem(reinterpret_cast<const void*>(typed_message_fwd), smem);
   if (err != 0) return err;
-  const dim3 grid((num_nodes + kFwdChunk - 1) / kFwdChunk, num_types);
+  const dim3 grid((num_nodes + kChunkNodes - 1) / kChunkNodes, num_types);
   typed_message_fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       ef, a, types, valid, we, w_attn, out, num_nodes, c, num_types);
   return static_cast<int>(cudaGetLastError());

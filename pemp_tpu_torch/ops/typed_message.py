@@ -20,6 +20,14 @@ Per slot s of target node n = s // C with source type t_s:
 with an empty (n, t) group giving 0 and the softmax denominator clamped at
 1e-16. Invalid slots contribute nothing, to any output or gradient.
 
+Both kernels share one design (see the kernel source): a block owns one
+type t and up to ``_CHUNK`` nodes, every ceil(N / _CHUNK)-th node; one
+scan lists its type-t slots, and it works through them in batches of whole
+nodes (up to 128 rows, 256 when C > 128) with register-tiled f32 products
+on the CUDA cores. K2 writes each batch's pre over its ef rows, which
+leaves room for three blocks per SM; K2b also takes the backward's steps
+in each batch. Neither uses float atomics: two calls give the same bits.
+
 Bound on an H100 (reckoned from the shapes, see the kernel source): at the
 model_58_4 training shapes (B = 8: N = 5440, C = 80, T = 17, widths 64,
 f32) with about 70 % of the slots valid, K2 moves ~128 MB and does ~2.6
@@ -43,7 +51,7 @@ LAUNCHES_BWD = 0
 
 _WIDTH = 64                 # the kernels' one row width (kWidth in the source)
 _MAX_SLOTS = 256            # C: one thread per slot in the type scan
-_CHUNK = 64                 # most nodes per block of K2b (kChunkNodes in the source)
+_CHUNK = 64                 # most nodes per block (kChunkNodes in the source)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 

@@ -88,17 +88,19 @@ def test_kernel_rejects_what_it_does_not_take():
         fused_step.fused_mpn_step(*tens, n, t, n_img)
 
 
-def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None):
+def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None, empty_type=None):
     rng = np.random.RandomState(seed)
     e = n * c
     f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
     types = rng.randint(0, t, e).astype(np.int32)
     types[: 2 * c] = 0            # nodes 0-1 see one type only: empty groups
     valid = (rng.rand(e) > 0.3).astype(np.int32)
-    valid[3 * c: 4 * c] = 0       # node 3 has no valid slot at all
+    valid[3 * c: 4 * c] = 0       # node 3 (where there is one) has no valid slot at all
     if full_node is not None:     # every slot valid and of type 1: a group of C rows
         types[full_node * c: (full_node + 1) * c] = 1
         valid[full_node * c: (full_node + 1) * c] = 1
+    if empty_type is not None:    # no valid slot of this type anywhere
+        valid[types == empty_type] = 0
     args = (f(e, w), f(n, t, w), types, valid, f(w, t * w) * 0.2, f(w, 1) * 0.3)
     return [torch.from_numpy(a).cuda() for a in args], f(n, t, w), n, t
 
@@ -114,6 +116,11 @@ K2_CASES = {
     # C > 128: batches of 256 rows, two register-tiled passes each; node 2's
     # group of 256 rows fills a whole batch
     "c256_full_batch": dict(seed=9, n=70, c=256, t=5, full_node=2),
+    # type 4 has no valid slot: its three blocks (150 nodes, chunks of 50)
+    # list zero rows and write only zeros
+    "empty_type": dict(seed=10, n=150, empty_type=4),
+    # fewer nodes than one chunk: one block a type, of 3 nodes
+    "n3_one_chunk": dict(seed=11, n=3),
 }
 
 
@@ -128,8 +135,12 @@ def test_typed_message_kernels_match_plain_on_card(case):
     torch.backends.cuda.matmul.allow_tf32 = False
     (ef, a, types, valid, we, wa), g, n, t = _k2_inputs(**K2_CASES[case])
     g = torch.from_numpy(g).cuda()
+    c = types.numel() // n
+    node = torch.arange(types.numel(), device="cuda") // c
+    sizes = torch.bincount((node * t + types.long())[valid != 0], minlength=n * t)
+    empty = (sizes == 0).view(n, t)
     leaves = [x.clone().requires_grad_() for x in (ef, a, we, wa)]
-    before = typed_message.LAUNCHES_BWD
+    before = (typed_message.LAUNCHES_FWD, typed_message.LAUNCHES_BWD)
     out_k = typed_message.fused_typed_message_aggregate(
         leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t)
     grads_k = torch.autograd.grad((out_k * g).sum(), leaves)
@@ -138,7 +149,8 @@ def test_typed_message_kernels_match_plain_on_card(case):
         plain[0], plain[1], types, valid, plain[2], plain[3], n, t)
     grads_p = torch.autograd.grad((out_p * g).sum(), plain)
     torch.cuda.synchronize()
-    assert typed_message.LAUNCHES_BWD == before + 1
+    assert (typed_message.LAUNCHES_FWD, typed_message.LAUNCHES_BWD) == (before[0] + 1,
+                                                                       before[1] + 1)
     for name, got, want in zip(("out", "ef", "a", "we", "w_attn"), (out_k, *grads_k),
                                (out_p, *grads_p)):
         if case == "c80":
@@ -146,10 +158,14 @@ def test_typed_message_kernels_match_plain_on_card(case):
         assert bool(torch.isfinite(got).all()), name
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
     assert bool((grads_k[0][valid == 0] == 0).all())
-    assert bool((grads_k[1][3] == 0).all())       # node 3: no group, no gradient
-    # the sums across blocks are in a fixed order: the same bits again
-    again = torch.autograd.grad((typed_message.fused_typed_message_aggregate(
-        leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t) * g).sum(), leaves)
+    assert bool(empty.any())
+    # an empty (node, type) group: out and da exactly 0 (node 3: no group at all)
+    assert bool((out_k[empty] == 0).all()) and bool((grads_k[1][empty] == 0).all())
+    # no float atomics, the sums across blocks in a fixed order: the same bits again
+    out_2 = typed_message.fused_typed_message_aggregate(
+        leaves[0], leaves[1], types, valid, leaves[2], leaves[3], n, t)
+    again = torch.autograd.grad((out_2 * g).sum(), leaves)
+    assert torch.equal(out_k, out_2)
     for first, second in zip(grads_k, again):
         assert torch.equal(first, second)
 
