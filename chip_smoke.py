@@ -53,7 +53,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within 1e-4 of its own largest value), and forward in bf16 on the hybrid
    w48/640 eval path's step-0 inputs (2e-2 of its largest). Prints errors,
    kernel and plain ms (median of 25; the backward alone on a kept graph)
-   and the bounds.
+   and the bounds; at the training path's step 0 also the device ms of
+   K3's and K3b's launches and of any other kernel of the forward or
+   backward, by kernel name from ``torch.profiler``, and the graph's valid
+   rows per node and largest group.
 10. K4 (the einsum path's blocked aggregate) against its plain version on
    the einsum w48/640 eval path's step-0 inputs (bf16, 2e-2) and on random
    f32 inputs (1e-4); K4 on relu(a_sel + b) equals K3 on (b, a).
@@ -289,36 +292,32 @@ def check_k2(label, args, g, dims, typed_message):
     return numbers
 
 
-def k2_launch_ms(args, g, dims, typed_message, n=10):
-    """Device ms per call of K2's launch (the forward), of each of K2b's
-    two (the main pass and the fixed-order reduction of dwe and dwa) and of
-    the rest (any other kernel the forward or backward runs), by kernel name
+def launch_ms(fn, args, leaf_ids, g, dims, names, n=10):
+    """Device ms per call of each kernel launch of the wrapper ``fn`` and of
+    the rest (any other kernel its forward or backward runs), by kernel name
     from ``torch.profiler`` over ``n`` forward calls and ``n`` backward
-    calls on a kept graph; with the other kernels' names."""
-    leaves = [args[i].clone().requires_grad_() for i in (0, 1, 4, 5)]
-    out = typed_message.fused_typed_message_aggregate(leaves[0], leaves[1], args[2], args[3],
-                                                      leaves[2], leaves[3], *dims)
-    torch.autograd.grad(out, leaves, g, retain_graph=True)
+    calls on a kept graph, differentiating ``args[i]`` for i in
+    ``leaf_ids``. ``names`` maps each part to a substring of its kernel's
+    name; the first that matches wins. Returns the parts and the other
+    kernels' names."""
+    leaves = {i: args[i].clone().requires_grad_() for i in leaf_ids}
+    out = fn(*(leaves.get(i, x) for i, x in enumerate(args)), *dims)
+    torch.autograd.grad(out, list(leaves.values()), g, retain_graph=True)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            typed_message.fused_typed_message_aggregate(*args, *dims)
-            torch.autograd.grad(out, leaves, g, retain_graph=True)
+            fn(*args, *dims)
+            torch.autograd.grad(out, list(leaves.values()), g, retain_graph=True)
         torch.cuda.synchronize()
-    parts = {"fwd": 0.0, "main": 0.0, "reduce": 0.0, "rest": 0.0}
+    parts = dict.fromkeys([*names, "rest"], 0.0)
     rest = []
     for ev in prof.key_averages():
         ms = ev.self_device_time_total / n / 1e3
         if ms <= 0:
             continue
-        if "typed_message_bwd_reduce" in ev.key:
-            parts["reduce"] += ms
-        elif "typed_message_bwd" in ev.key:
-            parts["main"] += ms
-        elif "typed_message_fwd" in ev.key:
-            parts["fwd"] += ms
-        else:
-            parts["rest"] += ms
+        part = next((k for k, key in names.items() if key in ev.key), "rest")
+        parts[part] += ms
+        if part == "rest":
             rest.append(ev.key[:60])
     return parts, rest
 
@@ -421,6 +420,23 @@ def check_k3(label, args, g, dims, tol, attn_aggregate):
             f"{int(args[3].sum())}/{args[3].numel()})")
         numbers[kind] = (max(e for _, e, _ in parts), ms, plain_ms, bound, bound_by)
     return numbers
+
+
+def k3_group_stats(args, dims):
+    """The valid rows per node (what a warp of K3 and K3b reads: mean, least,
+    most) and the (node, type) groups: how many hold a slot, their mean and
+    largest size."""
+    types, valid = args[2], args[3]
+    n, t = dims
+    c = types.numel() // n
+    ok = valid.view(n, c) != 0
+    rows = ok.sum(1).float()
+    node = torch.arange(types.numel(), device=types.device) // c
+    groups = torch.bincount((node * t + types.long())[valid != 0], minlength=n * t)
+    held = groups[groups > 0].float()
+    return (f"valid rows per node {rows.mean().item():.2f} on average, {int(rows.min())} to "
+            f"{int(rows.max())} of C = {c}; {held.numel()} groups of {n * t} hold a slot, "
+            f"{held.mean().item():.2f} rows on average, {int(groups.max())} at most")
 
 
 def k4_bound_ms(m, attn, types, valid, num_nodes, num_types):
@@ -829,7 +845,11 @@ def main() -> int:
             k2_errs[way].append(numbers[way][0])
         if step == 0:
             k2_numbers = numbers
-            parts, rest = k2_launch_ms(args[:6], g, args[6:], typed_message)
+            # K2b's reduction launch first: its name extends the main pass's
+            parts, rest = launch_ms(typed_message.fused_typed_message_aggregate, args[:6],
+                                    (0, 1, 4, 5), g, args[6:],
+                                    {"reduce": "typed_message_bwd_reduce",
+                                     "main": "typed_message_bwd", "fwd": "typed_message_fwd"})
             if not (parts["fwd"] > 0 and parts["main"] > 0 and parts["reduce"] > 0):
                 raise SystemExit(f"K2/K2b launches: the profiler saw no device time ({parts})")
             log(f"K2 and K2b launches, train path step 0 (torch.profiler, device ms per call): "
@@ -873,6 +893,16 @@ def main() -> int:
             k3_errs[way].append(numbers[way][0])
         if step == 0:
             k3_numbers = numbers
+            parts, rest = launch_ms(attn_aggregate.fused_attn_aggregate, args[:5], (0, 1, 4), g,
+                                    args[5:], {"bwd": "attn_aggregate_bwd",
+                                               "fwd": "attn_aggregate_fwd"})
+            if not (parts["fwd"] > 0 and parts["bwd"] > 0):
+                raise SystemExit(f"K3/K3b launches: the profiler saw no device time ({parts})")
+            log(f"K3 and K3b launches, hybrid train path step 0 (torch.profiler, device ms per "
+                f"call): K3 {parts['fwd']:.4f}; K3b {parts['bwd']:.4f}; rest "
+                f"{parts['rest']:.4f} ({'; '.join(rest)})")
+            log(f"K3/K3b rows and groups, hybrid train path step 0: "
+                f"{k3_group_stats(args, args[5:])}")
     del captured, args, g, trainer
     torch.cuda.empty_cache()
     eval_cfgs = {}

@@ -5,223 +5,434 @@
 // _attn_kernel (via _attn_forward's pl.pallas_call, body _attn_tile) and
 // ::_attn_bwd_kernel (via _attn_bwd_rule's pl.pallas_call). The typed edge
 // projection b is computed outside, by the reverse-permutation batched
-// matmul; per slot s of target node n = s / C with source type t_s, for
-// the valid slots only:
+// matmul. Per slot s of target node n = s / C with source type t_s, for the
+// valid slots only (a slot of no group contributes nothing):
 //
+//   w[s]      = exp(logit[s] - max over n's valid type-t_s slots) / den[n, t_s]
+//   den[n, t] = max(sum of those exps, 1e-16)
 //   pre[s]    = a[n, t_s] + b[s]
-//   m[s]      = relu(pre[s])
-//   e[s]      = exp(logit[s] - max over n's valid type-t_s slots)
-//   out[n, t] = sum_s e[s] m[s] / max(sum_s e[s], 1e-16)   (0 for an empty group)
+//   out[n, t] = sum_s w[s] relu(pre[s])                  (0 for an empty group)
 //
-// and its backward from the cotangent g (N, T, D), per group (no sums
-// across groups, so no workspace and a single launch, unlike K2b):
-// ghat = g / den, q = <g, out> / den, dm = e * ghat, dpre = dm * 1[pre > 0],
-// db[s] = dpre[s], da[n, t] = sum_s dpre[s], dlogit[s] = <dm, m> - e * q.
+// and its backward from the cotangent g (N, T, D), in one pass over the b
+// rows once the scalars w are known: db[s] = w[s] g[n, t_s] 1[pre[s] > 0],
+// u[s] = <g[n, t_s], relu(pre[s])>, da[n, t] = sum_s db[s] (slot order),
+// q[n, t] = sum_s w[s] u[s], dlogit[s] = w[s] (u[s] - q[n, t_s]). This is
+// _attn_bwd_kernel's <dm, m> - e <g, out> / den reordered: <g, out[n, t]>
+// = q[n, t], so neither out nor pre is kept.
+//
+// Who writes what: a warp owns one node n for all its types. It writes
+// out[n] (K3) or da[n] (K3b) whole, T contiguous rows, each once (zeros for
+// an empty group), and K3b writes db and dlogit of all of n's C slots
+// (zeros for the slots of no group). The caller allocates the outputs
+// uninitialised.
 //
 // What bounds them on an H100: memory. At the model_58_4 training shapes
 // (B = 8: N = 5440 nodes, C = 80 slots, E = 435,200, T = 17, width 64, f32)
-// with about 70 % of the slots valid, K3 must read the valid slots' b rows
-// (~77 MB), a (24 MB), the index and logit columns (~5 MB) and write out
-// (24 MB): ~130 MB, ~0.039 ms at 3.35 TB/s; K3b adds g and writes every db
-// row, da and dlogit: ~265 MB, ~0.079 ms. A few flops per byte: bound by
-// bytes.
+// with about 70 % of the slots valid, K3 reads the valid slots' b rows
+// (~77 MB), a (24 MB) and the index and logit columns (~5 MB) and writes out
+// (24 MB): ~130 MB, ~0.039 ms at 3.35 TB/s; K3b also reads g and writes
+// every db row, da and dlogit: ~266 MB, ~0.080 ms. A few flops per byte.
 //
-// What the design does about it: as K2, a block owns one source type t and
-// a chunk of nodes, finds each node's type-t group with one ballot per warp
-// (group_softmax.cuh) and loads only the group's b rows, a warp per row;
-// a[n, t] is one row shared by the whole group, so nothing is gathered for
-// it. Each b, db and out row is touched by exactly one block. Invalid slots
-// belong to no group: the caller zeroes db and dlogit. This first version
-// is simple CUDA-core code (no TMA or pipelining); a block spends a few
-// barriers per group of ~3 rows.
+// What the design does about it. A node's C slots and T rows of a (and g)
+// are contiguous, and every node carries C slots, so a warp per node gives
+// every warp the same work whatever the graph does to types. The warp reads
+// the node's types, valid and logits columns once (coalesced, 128 B a load)
+// and computes every scalar from the logits alone: the types present as one
+// OR over the warp, then per present type a warp max and a warp sum (lane t
+// keeps type t's max, den and q: T <= 32), and a stable counting sort of the
+// valid slots by type (ballots). Meanwhile cp.async stages a[n] (and g[n])
+// in the warp's shared memory. The b rows are then read once, in that
+// sorted order (invalid rows are never read), 8 rows in flight per warp,
+// straight into registers; out or da accumulates in registers in slot order
+// within each group and is written when the group ends. K3b reduces the 8
+// rows' u partials over the warp in 9 shuffles. No block barrier, no float
+// atomics, fixed summation orders: two calls give the same bits. Shared
+// memory per warp is T x 256 B for a (x 128 B in bf16), as much again for g
+// (K3b), and 12 to 16 B per slot; it is what bounds the warps per SM (about
+// 20 for K3b at T = 17, C = 80). f32 on the CUDA cores: there is no product
+// for the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "group_softmax.cuh"
 
 namespace {
 
 using pemp::kMaxSlots;
-using pemp::kThreads;
-using pemp::kWarps;
 using pemp::kWidth;
+using pemp::warp_max;
+using pemp::warp_sum;
 
-constexpr int kNodeChunk = 64;  // nodes per block
+constexpr int kNodeWarps = 4;    // warps of a block, one node each
+constexpr int kMaxTypes = 32;    // lane t keeps type t's scalars
+constexpr int kRows = 8;         // b rows a warp has in flight
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kWidth == 64, "a lane owns two columns of a row");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Shared state of one block for the current group.
-struct Group {
-  int list[kMaxSlots];        // the group's slot offsets within the node
-  int warp_cnt[kWarps];
-  float logit[kMaxSlots];     // the group's logits
-  float e[kMaxSlots];         // exp(logit - max)
-  float red[kWarps * kWidth]; // per-warp partial sums
-  float arow[kWidth];         // a[n, t]
-  float grow[kWidth];         // g[n, t] (backward)
-  float scal[4];              // max, den, two halves of <g, out>
-};
-
-// Loads the group's logits and a[n, t], then its softmax weights. cnt > 0.
-template <typename T>
-__device__ __forceinline__ void load_group(Group& s, const T* __restrict__ a,
-                                           const float* __restrict__ logits, long long slot0,
-                                           long long row, int cnt) {
-  for (int r = threadIdx.x; r < cnt; r += kThreads) s.logit[r] = logits[slot0 + s.list[r]];
-  if (threadIdx.x < kWidth) s.arow[threadIdx.x] = to_f32(a[row + threadIdx.x]);
-  __syncthreads();
-  pemp::group_softmax(s.logit, s.e, s.scal, cnt);
+__device__ __forceinline__ float2 load_row2(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load_row2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldcs(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ float2 smem2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 smem2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 
+// Starts the cp.async copy of `bytes` (a multiple of 16) from src to dst, by
+// the warp; stage_wait() waits for it.
+__device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane * 16; i < bytes; i += 32 * 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(static_cast<char*>(dst) + i))),
+                 "l"(static_cast<const char*>(src) + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Bytes of shared memory a warp uses: a's rows (elem_bytes each value),
+// g's rows (K3b), and per slot key, w, ord (and u, K3b); 16-byte multiple.
+__host__ __device__ constexpr int warp_bytes(int c, int num_types, int elem_bytes,
+                                             bool backward) {
+  return (num_types * kWidth * (elem_bytes + (backward ? 4 : 0)) + c * 4 * (backward ? 4 : 3) +
+          15) & ~15;
+}
+
+// The warp's shared memory: a[n] (and g[n]) rows, then per slot offset s
+// key[s] (t_s, or -1 for a slot of no group) and w[s] (the logit, then the
+// softmax weight), per sorted position p ord[p] (the p-th valid slot by type,
+// then slot), and u[s] (K3b).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_aggregate_fwd(
+struct NodeSmem {
+  T* a;
+  float* g;
+  int* key;
+  float* w;
+  int* ord;
+  float* u;
+
+  __device__ NodeSmem(unsigned char* smem, int c, int num_types, bool backward) {
+    const int warp = threadIdx.x >> 5;
+    unsigned char* p = smem + warp * warp_bytes(c, num_types, sizeof(T), backward);
+    a = reinterpret_cast<T*>(p);
+    p += num_types * kWidth * sizeof(T);
+    g = reinterpret_cast<float*>(p);
+    if (backward) p += num_types * kWidth * 4;
+    key = reinterpret_cast<int*>(p);
+    w = reinterpret_cast<float*>(key + c);
+    ord = reinterpret_cast<int*>(w + c);
+    u = reinterpret_cast<float*>(ord + c);
+  }
+};
+
+struct Scalars {
+  unsigned present;  // bit t: type t has a valid slot in the node
+  int count;         // valid slots, the length of ord
+};
+
+// The node's scalars, by one warp: key, the softmax weights w and the sorted
+// order ord in shared memory (complete on return), the types present and
+// the valid count. Lane t computes type t's max and den; the sums run in a
+// fixed order.
+template <typename T>
+__device__ __forceinline__ Scalars node_scalars(const NodeSmem<T>& sm,
+                                                const int* __restrict__ types,
+                                                const int* __restrict__ valid,
+                                                const float* __restrict__ logits,
+                                                long long slot0, int c, int num_types) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned mask = 0;
+  for (int s = lane; s < c; s += 32) {
+    const int t = types[slot0 + s];
+    const int k = valid[slot0 + s] != 0 && t >= 0 && t < num_types ? t : -1;
+    sm.key[s] = k;
+    sm.w[s] = logits[slot0 + s];
+    if (k >= 0) mask |= 1u << k;
+  }
+  const unsigned present = __reduce_or_sync(kFull, mask);
+
+  // per present type, in order: the group's max (lane t keeps it) and its
+  // slots' places in ord, in slot order. A lane reads only its own slots'
+  // key and w here.
+  float gmax = 0.f;
+  int count = 0;
+  for (unsigned rest = present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int s0 = 0; s0 < c; s0 += 32) {
+      const int s = s0 + lane;
+      const bool hit = s < c && sm.key[s] == t;
+      if (hit) m = fmaxf(m, sm.w[s]);
+      const unsigned bal = __ballot_sync(kFull, hit);
+      if (hit) sm.ord[count + __popc(bal & below)] = s;
+      count += __popc(bal);
+    }
+    m = warp_max(m);
+    if (lane == t) gmax = m;
+  }
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float mx = __shfl_sync(kFull, gmax, k & 31);
+    if (s < c) sm.w[s] = k >= 0 ? expf(sm.w[s] - mx) : 0.f;
+  }
+  float den = 1.f;
+  for (unsigned rest = present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    float sum = 0.f;
+    for (int s = lane; s < c; s += 32) sum += sm.key[s] == t ? sm.w[s] : 0.f;
+    sum = warp_sum(sum);
+    if (lane == t) den = fmaxf(sum, 1e-16f);
+  }
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float d = __shfl_sync(kFull, den, k & 31);
+    if (k >= 0) sm.w[s] = sm.w[s] / d;
+  }
+  __syncwarp();
+  return {present, count};
+}
+
+// Writes a zero row (n, t) of `rows` for every type t < num_types that is
+// not in `present`: the empty groups.
+__device__ __forceinline__ void zero_empty_rows(float* __restrict__ rows, unsigned present,
+                                                int num_types) {
+  const int lane = threadIdx.x & 31;
+  const unsigned all = num_types == 32 ? kFull : (1u << num_types) - 1u;
+  for (unsigned rest = all & ~present; rest; rest &= rest - 1)
+    store2(rows + (__ffs(rest) - 1) * kWidth + 2 * lane, make_float2(0.f, 0.f));
+}
+
+// Sums v[r] over the warp's lanes for each of the 8 rows r at once, in 9
+// shuffles (each exchange halves the rows a lane carries); lanes 4r to
+// 4r + 3 return row r's sum.
+__device__ __forceinline__ float rows_sum8(const float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  float v4[4], v2[2];
+  const bool h4 = lane & 16, h2 = lane & 8, h1 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v4[i] = (h4 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, h4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    v2[i] = (h2 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(kFull, h2 ? v4[i] : v4[i + 2], 8);
+  float v1 = (h1 ? v2[1] : v2[0]) + __shfl_xor_sync(kFull, h1 ? v2[0] : v2[1], 4);
+  v1 += __shfl_xor_sync(kFull, v1, 2);
+  v1 += __shfl_xor_sync(kFull, v1, 1);
+  return v1;
+}
+static_assert(kRows == 8, "rows_sum8 reduces 8 rows");
+
+template <typename T>
+__global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_fwd(
     const T* __restrict__ b, const T* __restrict__ a, const int* __restrict__ types,
     const int* __restrict__ valid, const float* __restrict__ logits, float* __restrict__ out,
     int num_nodes, int c, int num_types) {
-  __shared__ Group s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = blockIdx.y;
-  const int n0 = blockIdx.x * kNodeChunk;
-  const int n1 = min(n0 + kNodeChunk, num_nodes);
-  for (int n = n0; n < n1; ++n) {
-    const long long slot0 = static_cast<long long>(n) * c;
-    const long long row = (static_cast<long long>(n) * num_types + t) * kWidth;
-    const int cnt = pemp::select_group(s.list, s.warp_cnt, types, valid, slot0, c, t);
-    if (cnt == 0) {
-      if (tid < kWidth) out[row + tid] = 0.f;
-      continue;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kNodeWarps + (threadIdx.x >> 5);
+  if (n >= num_nodes) return;  // a whole warp; the kernel has no block barrier
+  const NodeSmem<T> sm(smem, c, num_types, false);
+  const long long slot0 = static_cast<long long>(n) * c;
+  const long long row0 = static_cast<long long>(n) * num_types * kWidth;
+  stage(sm.a, a + row0, num_types * kWidth * static_cast<int>(sizeof(T)));
+  const Scalars sc = node_scalars(sm, types, valid, logits, slot0, c, num_types);
+  float* outn = out + row0;
+  zero_empty_rows(outn, sc.present, num_types);
+  stage_wait();
+
+  int cur = -1;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int p0 = 0; p0 < sc.count; p0 += kRows) {
+    float2 bv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      bv[r] = make_float2(0.f, 0.f);
+      if (p0 + r < sc.count) bv[r] = load_row2(b + (slot0 + sm.ord[p0 + r]) * kWidth + 2 * lane);
     }
-    load_group(s, a, logits, slot0, row, cnt);
-    float acc0 = 0.f, acc1 = 0.f;
-    for (int r = warp; r < cnt; r += kWarps) {
-      const T* br = b + (slot0 + s.list[r]) * kWidth;
-      const float ev = s.e[r];
-      acc0 += ev * fmaxf(s.arow[lane] + to_f32(br[lane]), 0.f);
-      acc1 += ev * fmaxf(s.arow[lane + 32] + to_f32(br[lane + 32]), 0.f);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (p0 + r >= sc.count) break;
+      const int s = sm.ord[p0 + r];
+      const int t = sm.key[s];
+      if (t != cur) {  // the group of cur ends: its row is complete
+        if (cur >= 0) store2(outn + cur * kWidth + 2 * lane, acc);
+        cur = t;
+        acc = make_float2(0.f, 0.f);
+      }
+      const float ws = sm.w[s];
+      const float2 av = smem2(sm.a + t * kWidth + 2 * lane);
+      acc.x = fmaf(ws, fmaxf(av.x + bv[r].x, 0.f), acc.x);
+      acc.y = fmaf(ws, fmaxf(av.y + bv[r].y, 0.f), acc.y);
     }
-    s.red[warp * kWidth + lane] = acc0;
-    s.red[warp * kWidth + lane + 32] = acc1;
-    __syncthreads();
-    if (tid < kWidth) out[row + tid] = pemp::sum_partials(s.red, tid) / s.scal[1];
   }
+  if (cur >= 0) store2(outn + cur * kWidth + 2 * lane, acc);
 }
 
-__global__ void __launch_bounds__(kThreads) attn_aggregate_bwd(
+__global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
     const float* __restrict__ b, const float* __restrict__ a, const int* __restrict__ types,
     const int* __restrict__ valid, const float* __restrict__ logits,
     const float* __restrict__ g, float* __restrict__ db, float* __restrict__ da,
     float* __restrict__ dlogit, int num_nodes, int c, int num_types) {
-  __shared__ Group s;
-  extern __shared__ float pre[];  // C x kWidth: the group's pre-activations
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = blockIdx.y;
-  const int n0 = blockIdx.x * kNodeChunk;
-  const int n1 = min(n0 + kNodeChunk, num_nodes);
-  for (int n = n0; n < n1; ++n) {
-    const long long slot0 = static_cast<long long>(n) * c;
-    const long long row = (static_cast<long long>(n) * num_types + t) * kWidth;
-    const int cnt = pemp::select_group(s.list, s.warp_cnt, types, valid, slot0, c, t);
-    if (cnt == 0) {
-      if (tid < kWidth) da[row + tid] = 0.f;
-      continue;
-    }
-    if (tid < kWidth) s.grow[tid] = g[row + tid];
-    load_group(s, a, logits, slot0, row, cnt);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kNodeWarps + (threadIdx.x >> 5);
+  if (n >= num_nodes) return;
+  const NodeSmem<float> sm(smem, c, num_types, true);
+  const long long slot0 = static_cast<long long>(n) * c;
+  const long long row0 = static_cast<long long>(n) * num_types * kWidth;
+  stage(sm.a, a + row0, num_types * kWidth * 4);
+  stage(sm.g, g + row0, num_types * kWidth * 4);
+  const Scalars sc = node_scalars(sm, types, valid, logits, slot0, c, num_types);
+  float* dan = da + row0;
+  zero_empty_rows(dan, sc.present, num_types);
+  // the slots of no group: db rows and dlogit 0
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const bool none = s < c && sm.key[s] < 0;
+    if (none) dlogit[slot0 + s] = 0.f;
+    for (unsigned bal = __ballot_sync(kFull, none); bal; bal &= bal - 1)
+      __stcs(reinterpret_cast<float2*>(db + (slot0 + s0 + __ffs(bal) - 1) * kWidth + 2 * lane),
+             make_float2(0.f, 0.f));
+  }
+  stage_wait();
 
-    // the forward again: pre kept per row, out's per-warp partials
-    float acc0 = 0.f, acc1 = 0.f;
-    for (int r = warp; r < cnt; r += kWarps) {
-      const float* br = b + (slot0 + s.list[r]) * kWidth;
-      const float p0 = s.arow[lane] + br[lane];
-      const float p1 = s.arow[lane + 32] + br[lane + 32];
-      pre[r * kWidth + lane] = p0;
-      pre[r * kWidth + lane + 32] = p1;
-      const float ev = s.e[r];
-      acc0 += ev * fmaxf(p0, 0.f);
-      acc1 += ev * fmaxf(p1, 0.f);
+  int cur = -1;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int p0 = 0; p0 < sc.count; p0 += kRows) {
+    float2 bv[kRows], dbv[kRows];
+    float up[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      bv[r] = make_float2(0.f, 0.f);
+      if (p0 + r < sc.count) bv[r] = load_row2(b + (slot0 + sm.ord[p0 + r]) * kWidth + 2 * lane);
     }
-    s.red[warp * kWidth + lane] = acc0;
-    s.red[warp * kWidth + lane + 32] = acc1;
-    __syncthreads();
-    const float den = s.scal[1];
-    if (tid < kWidth) {  // warps 0 and 1: <g, out>, a half each
-      const float prod = pemp::warp_sum(s.grow[tid] * (pemp::sum_partials(s.red, tid) / den));
-      if (lane == 0) s.scal[2 + warp] = prod;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      dbv[r] = make_float2(0.f, 0.f);
+      up[r] = 0.f;
+      if (p0 + r < sc.count) {
+        const int s = sm.ord[p0 + r];
+        const int t = sm.key[s];
+        const float ws = sm.w[s];
+        const float2 av = smem2(sm.a + t * kWidth + 2 * lane);
+        const float2 gv = smem2(sm.g + t * kWidth + 2 * lane);
+        const float px = av.x + bv[r].x, py = av.y + bv[r].y;
+        dbv[r] = make_float2(px > 0.f ? ws * gv.x : 0.f, py > 0.f ? ws * gv.y : 0.f);
+        __stcs(reinterpret_cast<float2*>(db + (slot0 + s) * kWidth + 2 * lane), dbv[r]);
+        up[r] = fmaf(gv.y, fmaxf(py, 0.f), gv.x * fmaxf(px, 0.f));
+      }
     }
-    __syncthreads();
-    const float q = (s.scal[2] + s.scal[3]) / den;
-    const float gh0 = s.grow[lane] / den, gh1 = s.grow[lane + 32] / den;
+    const float u = rows_sum8(up);  // row lane / 4's u
+    if ((lane & 3) == 0 && p0 + (lane >> 2) < sc.count) sm.u[sm.ord[p0 + (lane >> 2)]] = u;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (p0 + r >= sc.count) break;
+      const int t = sm.key[sm.ord[p0 + r]];
+      if (t != cur) {
+        if (cur >= 0) store2(dan + cur * kWidth + 2 * lane, acc);
+        cur = t;
+        acc = make_float2(0.f, 0.f);
+      }
+      acc.x += dbv[r].x;
+      acc.y += dbv[r].y;
+    }
+  }
+  if (cur >= 0) store2(dan + cur * kWidth + 2 * lane, acc);
+  __syncwarp();
 
-    float da0 = 0.f, da1 = 0.f;
-    for (int r = warp; r < cnt; r += kWarps) {
-      const float ev = s.e[r];
-      const float p0 = pre[r * kWidth + lane], p1 = pre[r * kWidth + lane + 32];
-      const float dm0 = ev * gh0, dm1 = ev * gh1;
-      const float dp0 = p0 > 0.f ? dm0 : 0.f;
-      const float dp1 = p1 > 0.f ? dm1 : 0.f;
-      const float dl = pemp::warp_sum(dm0 * fmaxf(p0, 0.f) + dm1 * fmaxf(p1, 0.f)) - ev * q;
-      const long long slot = slot0 + s.list[r];
-      db[slot * kWidth + lane] = dp0;
-      db[slot * kWidth + lane + 32] = dp1;
-      if (lane == 0) dlogit[slot] = dl;
-      da0 += dp0;
-      da1 += dp1;
-    }
-    s.red[warp * kWidth + lane] = da0;
-    s.red[warp * kWidth + lane + 32] = da1;
-    __syncthreads();
-    if (tid < kWidth) da[row + tid] = pemp::sum_partials(s.red, tid);
+  // q per present type (lane t keeps it), then every valid slot's dlogit
+  float q = 0.f;
+  for (unsigned rest = sc.present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    float sum = 0.f;
+    for (int s = lane; s < c; s += 32)
+      if (sm.key[s] == t) sum = fmaf(sm.w[s], sm.u[s], sum);
+    sum = warp_sum(sum);
+    if (lane == t) q = sum;
+  }
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float qk = __shfl_sync(kFull, q, k & 31);
+    if (k >= 0) dlogit[slot0 + s] = sm.w[s] * (sm.u[s] - qk);
   }
 }
 
 bool bad_sizes(int num_nodes, int c, int num_types) {
-  return c < 1 || c > kMaxSlots || num_types < 1 || num_types > 65535 || num_nodes < 1;
+  return c < 1 || c > kMaxSlots || num_types < 1 || num_types > kMaxTypes || num_nodes < 1;
 }
 
-dim3 grid_of(int num_nodes, int num_types) {
-  return dim3((num_nodes + kNodeChunk - 1) / kNodeChunk, num_types);
+bool misaligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+}
+
+// Launches `kernel` with the dynamic shared memory of `bytes` per warp.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int per_warp, int num_nodes, void* stream, Args... args) {
+  const int smem = per_warp * kNodeWarps;
+  int err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  kernel<<<(num_nodes + kNodeWarps - 1) / kNodeWarps, kNodeWarps * 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Forward (K3). b (E, kWidth) and a (N, T, kWidth) are both f32 (bf16 = 0)
 // or both bf16 (bf16 = 1); types and valid int32, logits f32 (E,); out
-// (N, T, kWidth) f32. Returns a cudaError_t, or -2 for unsupported sizes.
+// (N, T, kWidth) f32, written whole. a must be 16-byte aligned and b 8-byte
+// aligned. Returns a cudaError_t, or -2 for sizes or alignments it does not
+// take (C <= 256, T <= 32).
 extern "C" int pemp_attn_aggregate_fwd(const void* b, const void* a, const int* types,
                                        const int* valid, const float* logits, float* out,
                                        int num_nodes, int c, int num_types, int bf16,
                                        void* stream) {
-  if (bad_sizes(num_nodes, c, num_types)) return -2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_of(num_nodes, num_types);
+  if (bad_sizes(num_nodes, c, num_types) || misaligned(a, 16) || misaligned(b, 8) ||
+      misaligned(out, 8))
+    return -2;
   if (bf16) {
-    attn_aggregate_fwd<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(b), static_cast<const __nv_bfloat16*>(a), types,
-        valid, logits, out, num_nodes, c, num_types);
-  } else {
-    attn_aggregate_fwd<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(b), static_cast<const float*>(a), types, valid, logits, out,
-        num_nodes, c, num_types);
+    return launch(attn_aggregate_fwd<__nv_bfloat16>, warp_bytes(c, num_types, 2, false),
+                  num_nodes, stream, static_cast<const __nv_bfloat16*>(b),
+                  static_cast<const __nv_bfloat16*>(a), types, valid, logits, out, num_nodes, c,
+                  num_types);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(attn_aggregate_fwd<float>, warp_bytes(c, num_types, 4, false), num_nodes,
+                stream, static_cast<const float*>(b), static_cast<const float*>(a), types, valid,
+                logits, out, num_nodes, c, num_types);
 }
 
-// Backward (K3b), f32 only. db (E, kWidth) and dlogit (E,) must be zeroed
-// by the caller (slots no group owns, the invalid ones, keep 0); da
-// (N, T, kWidth) is written whole.
+// Backward (K3b), f32 only. Writes db (E, kWidth), da (N, T, kWidth) and
+// dlogit (E,) whole: zeros for the slots of no group and the empty groups.
+// a and g must be 16-byte aligned, b, db and da 8-byte aligned. Returns a
+// cudaError_t, or -2 as the forward.
 extern "C" int pemp_attn_aggregate_bwd(const float* b, const float* a, const int* types,
                                        const int* valid, const float* logits, const float* g,
                                        float* db, float* da, float* dlogit, int num_nodes,
                                        int c, int num_types, void* stream) {
-  if (bad_sizes(num_nodes, c, num_types)) return -2;
-  const size_t smem = sizeof(float) * static_cast<size_t>(c) * kWidth;
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      attn_aggregate_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-  if (err != 0) return err;
-  attn_aggregate_bwd<<<grid_of(num_nodes, num_types), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      b, a, types, valid, logits, g, db, da, dlogit, num_nodes, c, num_types);
-  return static_cast<int>(cudaGetLastError());
+  if (bad_sizes(num_nodes, c, num_types) || misaligned(a, 16) || misaligned(g, 16) ||
+      misaligned(b, 8) || misaligned(db, 8) || misaligned(da, 8))
+    return -2;
+  return launch(attn_aggregate_bwd, warp_bytes(c, num_types, 4, true), num_nodes, stream, b,
+                a, types, valid, logits, g, db, da, dlogit, num_nodes, c, num_types);
 }

@@ -1,15 +1,17 @@
 // Device functions shared by the port's per-(node, type) aggregation
-// kernels: K3 and K3b (attn_aggregate.cu) and K4 (blocked_attn.cu) keep
-// here their one definition of the group's slot selection (one ballot per
-// warp), the softmax shifted by the group's largest logit, and the 1e-16
-// clamp of the softmax denominator (the TPU kernels' jnp.maximum(den,
-// 1e-16)); K2 and K2b (typed_message.cu) batch many groups at once and take
-// from here the block shape, the row width and warp_sum.
+// kernels. K4 (blocked_attn.cu) keeps here its group's slot selection (one
+// ballot per warp), the softmax shifted by the group's largest logit, the
+// 1e-16 clamp of the softmax denominator (the TPU kernels' jnp.maximum(den,
+// 1e-16)) and the fixed-order sum of per-warp partials. K2 and K2b
+// (typed_message.cu) batch many groups at once and take from here the block
+// shape, the row width and warp_sum; K3 and K3b (attn_aggregate.cu) give
+// each node a warp and take the row width, the slot bound, warp_sum and
+// warp_max.
 //
-// Every one of those kernels runs blocks of kThreads threads; a block owns
-// one source type t and walks a chunk of target nodes. The group of node n
-// is n's valid slots of type t among its C slots [n*C, (n+1)*C), in slot
-// order; an empty group contributes 0 to every output.
+// K4 runs blocks of kThreads threads; a block owns one source type t and
+// walks a chunk of target nodes. The group of node n is n's valid slots of
+// type t among its C slots [n*C, (n+1)*C), in slot order; an empty group
+// contributes 0 to every output.
 
 #pragma once
 

@@ -20,13 +20,24 @@ with an empty (n, t) group giving 0 and the softmax denominator clamped at
 1e-16. The typed projection ``b`` and the logits come from the caller.
 Invalid slots contribute nothing, to any output or gradient.
 
+The kernels are node-major: a warp owns one node for all its types, takes
+the softmax weights w from the logits alone, then reads the node's valid b
+rows once. K3 writes out[n] whole (T rows, zeros for the empty groups). K3b
+writes da[n] whole and db and dlogit for all C slots of n (zeros for the
+slots of no group), from ``fused_attn_aggregate_bwd_plain``'s factored
+math, so the wrapper allocates all outputs with ``torch.empty`` and
+launches nothing else. Each warp stages the node's T rows of a (and g) in
+shared memory. T is at most 32 (lane t keeps type t's scalars) and C at
+most 256.
+
 Bound on an H100 (reckoned from the shapes, see the kernel source): at the
 model_58_4 training shapes (B = 8: N = 5440, C = 80, T = 17, width 64,
 f32) with about 70 % of the slots valid, K3 moves ~130 MB (~0.039 ms) and
-K3b ~265 MB (~0.079 ms); both are bound by bytes.
+K3b ~266 MB (~0.080 ms): the valid b rows, a, g and the index columns read
+once, every output written once. Both are bound by bytes.
 
 ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches (the plain
-version does not count).
+versions do not count).
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
 _WIDTH = 64                 # the kernels' one row width (kWidth in the source)
-_MAX_SLOTS = 256            # C: one thread per slot in the type scan
+_MAX_SLOTS = 256            # C (kMaxSlots in the source)
+_MAX_TYPES = 32             # T: lane t of a warp keeps type t's scalars
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -61,6 +73,38 @@ def fused_attn_aggregate_plain(b, a, types, valid, logits, num_nodes: int, num_t
                                                 num_types, valid)
 
 
+def fused_attn_aggregate_bwd_plain(b, a, types, valid, logits, g, num_nodes: int,
+                                   num_types: int):
+    """Plain PyTorch version of K3b's factored backward, without autograd:
+    the scalars from the logits alone (per-(node, type) max, e, den, w =
+    e / den), then per valid slot pre = a[n, t_s] + b[s], db = w g[n, t_s]
+    1[pre > 0], u = <g[n, t_s], relu(pre)>, da[n, t] = sum of db, q[n, t]
+    = sum of w u and dlogit = w (u - q[n, t_s]). The slots of no group get
+    zero db and dlogit, the empty groups zero da. Returns (db, da, dlogit)
+    in float32, shaped as b, a and logits."""
+    e, d = b.shape
+    c = e // num_nodes
+    ok = valid.reshape(-1) != 0
+    node = torch.arange(e, device=b.device) // c
+    key = torch.where(ok, node * num_types + types.reshape(-1).long(), 0)
+    groups = num_nodes * num_types
+    kv = key[ok]
+    lg = logits.reshape(-1).float()
+    mx = torch.full((groups,), float("-inf"), device=b.device).scatter_reduce(
+        0, kv, lg[ok], "amax")
+    ex = torch.where(ok, torch.exp(lg - mx[key]), 0.0)
+    den = torch.zeros(groups, device=b.device).index_add(0, kv, ex[ok]).clamp_min(1e-16)
+    w = ex / den[key]
+    pre = a.reshape(groups, d).float()[key] + b.float()
+    g_sel = g.reshape(groups, d).float()[key]
+    db = torch.where(ok[:, None] & (pre > 0), w[:, None] * g_sel, 0.0)
+    u = (g_sel * torch.relu(pre)).sum(1)
+    da = torch.zeros(groups, d, device=b.device).index_add(0, kv, db[ok])
+    q = torch.zeros(groups, device=b.device).index_add(0, kv, (w * u)[ok])
+    dlogit = torch.where(ok, w * (u - q[key]), 0.0)
+    return db, da.view(a.shape), dlogit.view(logits.shape)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"fused_attn_aggregate: {msg}")
@@ -78,12 +122,14 @@ def _checked(b, a, types, valid, logits, num_nodes, num_types):
     _check(w == _WIDTH, f"row width {w} (the kernels are built for {_WIDTH})")
     _check(num_nodes > 0 and e == num_nodes * c, "E must be N * C")
     _check(0 < c <= _MAX_SLOTS, f"C = {c} slots per node (1 to {_MAX_SLOTS})")
-    _check(num_types > 0, "at least one type")
+    _check(0 < num_types <= _MAX_TYPES, f"T = {num_types} types (1 to {_MAX_TYPES})")
     _check(tuple(a.shape) == (num_nodes, num_types, w),
            f"a has shape {tuple(a.shape)}, expected {(num_nodes, num_types, w)}")
     for name, t in dict(types=types, valid=valid).items():
         _check(t.dtype == torch.int32 and t.numel() == e, f"{name} must be E int32")
     _check(logits.dtype == torch.float32 and logits.numel() == e, "logits must be E float32")
+    _check(a.data_ptr() % 16 == 0 and b.data_ptr() % 8 == 0,
+           "a must be 16-byte and b 8-byte aligned (cp.async and paired loads)")
     return c
 
 
@@ -117,10 +163,11 @@ def _launch_backward(b, a, types, valid, logits, g, num_nodes, num_types):
     _check(b.dtype == torch.float32,
            f"the backward kernel runs in float32 only (b and a are {b.dtype})")
     _check(g.device == b.device and g.dtype == torch.float32 and g.is_contiguous()
-           and tuple(g.shape) == tuple(a.shape), "g must match a (contiguous f32)")
+           and tuple(g.shape) == tuple(a.shape) and g.data_ptr() % 16 == 0,
+           "g must match a (contiguous f32, 16-byte aligned)")
     fn = _fn("pemp_attn_aggregate_bwd", _BWD_ARGTYPES)
-    db = torch.zeros_like(b)                       # invalid slots stay 0
-    dlogit = torch.zeros_like(logits)
+    db = torch.empty_like(b)                       # all three written whole by K3b
+    dlogit = torch.empty_like(logits)
     da = torch.empty_like(a)
     stream = torch.cuda.current_stream(b.device).cuda_stream
     err = fn(_ptr(b), _ptr(a), _ptr(types), _ptr(valid), _ptr(logits), _ptr(g), _ptr(db),

@@ -16,9 +16,10 @@ from pemp_tpu_torch.ops import attn_aggregate, blocked_attn
 from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 
 
-def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False):
+def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False, full_node=None):
     """Random inputs with an empty (node, type) group and a node without a
-    valid slot; n * t and n * c multiples of 8 (the TPU kernels' tiling)."""
+    valid slot; n * t and n * c multiples of 8 (the TPU kernels' tiling).
+    ``full_node``: a node whose C slots are all valid and of type 1."""
     rng = np.random.RandomState(seed)
     b = rng.randn(n * c, d).astype(np.float32)
     a = rng.randn(n, t, d).astype(np.float32)
@@ -27,6 +28,9 @@ def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False):
     valid = np.ones(n * c, np.int32) if all_valid else (rng.rand(n * c) > 0.3).astype(np.int32)
     if not all_valid:
         valid[2 * c:3 * c] = 0          # node 2 has no valid slot
+    if full_node is not None:
+        types[full_node * c:(full_node + 1) * c] = 1
+        valid[full_node * c:(full_node + 1) * c] = 1
     logits = (rng.randn(n * c) * logit_scale).astype(np.float32)
     g = rng.randn(n, t, d).astype(np.float32)
     return (b, a, types, valid, logits), g, n, t
@@ -40,6 +44,11 @@ CASES = {
     # near one-hot softmax leaves the logit gradients as cancellation noise)
     "wide_logit_spread": dict(seed=7, logit_scale=200.0, all_valid=True),
 }
+
+
+# K3b's factored backward: GRAD_CASES and one case at the kernel's widths
+# (d = 64, T = 17, C = 80, 16 nodes; node 5's group fills all C slots)
+BWD_CASES = {**GRAD_CASES, "kernel_widths": dict(seed=4, n=16, c=80, t=17, d=64, full_node=5)}
 
 
 def _torch(args):
@@ -82,6 +91,42 @@ def test_k3_plain_gradients_match_jax_custom_vjp(case):
     # invalid slots get no gradient
     assert np.all(leaves[0].grad.numpy()[valid == 0] == 0.0)
     assert np.all(leaves[2].grad.numpy()[valid == 0] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k3b_factored_backward_matches_jax_custom_vjp_and_autograd(case):
+    """fused_attn_aggregate_bwd_plain (K3b's one-pass math: scalars, then
+    db, u, da, q, dlogit) against the JAX kernel's backward kernel and
+    against autograd through the plain forward."""
+    args, g, n, t = _make(**BWD_CASES[case])
+    b, a, types, valid, logits = args
+
+    def f_kernel(b, a, logits):
+        out = jax_attn_aggregate(b, a, jnp.asarray(types), jnp.asarray(valid), logits, n, t,
+                                 interpret=True)
+        return jnp.sum(out * g)
+
+    want = jax.grad(f_kernel, argnums=(0, 1, 2))(*map(jnp.asarray, (b, a, logits)))
+    got = attn_aggregate.fused_attn_aggregate_bwd_plain(*_torch(args), torch.from_numpy(g), n, t)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (b, a, logits)]
+    out = attn_aggregate.fused_attn_aggregate_plain(
+        leaves[0], leaves[1], torch.from_numpy(types), torch.from_numpy(valid), leaves[2], n, t)
+    autograd = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
+    # f32 on all sides, sums in other orders: 1e-5 of each output's largest
+    for name, x, jx, ax in zip(("db", "da", "dlogit"), got, want, autograd):
+        assert x.dtype == torch.float32 and x.shape == ax.shape, name
+        for ref in (np.asarray(jx), ax.numpy()):
+            err = np.abs(x.numpy() - ref).max()
+            assert err <= 1e-5 * np.abs(ref).max(), (name, err, np.abs(ref).max())
+    db, da, dlogit = (x.numpy() for x in got)
+    # the slots of no group and the empty groups give exactly 0
+    assert np.all(db[valid == 0] == 0.0) and np.all(dlogit[valid == 0] == 0.0)
+    c = b.shape[0] // n
+    sizes = np.bincount((np.arange(n * c) // c * t + types)[valid != 0],
+                        minlength=n * t).reshape(n, t)
+    assert (sizes == 0).any() and np.all(da[sizes == 0] == 0.0)
+    if case == "kernel_widths":
+        assert sizes.max() == c                     # a group holds all C slots
 
 
 @pytest.mark.parametrize("seed", range(3))

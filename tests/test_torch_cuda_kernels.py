@@ -170,9 +170,11 @@ def test_typed_message_kernels_match_plain_on_card(case):
         assert torch.equal(first, second)
 
 
-def _k3_inputs(dtype, seed=4, n=40, c=80, t=17, w=64):
-    """K3's inputs at the flagship widths, with empty groups and a node
-    without a valid slot; and a cotangent."""
+def _k3_inputs(dtype, seed=4, n=40, c=80, t=17, w=64, full_node=None, empty_type=None):
+    """K3's inputs, with empty groups and a node without a valid slot (node
+    3, where there is one); ``full_node``: a node whose C slots are all valid
+    and of type 1; ``empty_type``: a type with no valid slot. And a
+    cotangent."""
     rng = np.random.RandomState(seed)
     e = n * c
     f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()  # noqa: E731
@@ -180,42 +182,115 @@ def _k3_inputs(dtype, seed=4, n=40, c=80, t=17, w=64):
     types[: 2 * c] = 0
     valid = (rng.rand(e) > 0.3).astype(np.int32)
     valid[3 * c: 4 * c] = 0
+    if full_node is not None:
+        types[full_node * c: (full_node + 1) * c] = 1
+        valid[full_node * c: (full_node + 1) * c] = 1
+    if empty_type is not None:
+        valid[types == empty_type] = 0
     i = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
     return (f(e, w).to(dtype), f(n, t, w).to(dtype), i(types), i(valid), f(e)), f(n, t, w), n, t
 
 
+K3_CASES = {
+    # the flagship widths
+    "c80": dict(),
+    # C = 77 is no multiple of 32 (the scalars' slot chunks) nor of 8 (the
+    # rows in flight); node 5's group holds all 77 slots
+    "c77_ragged": dict(seed=8, n=150, c=77, full_node=5),
+    # C = 256, the most a warp takes: 8 slots a lane; node 2 is one group of
+    # 256 rows, 32 batches of rows
+    "c256_full_node": dict(seed=9, n=70, c=256, t=5, full_node=2),
+    # type 4 has no valid slot anywhere: its rows are zeros in every node
+    "empty_type": dict(seed=10, n=150, empty_type=4),
+    # fewer nodes than one block's warps
+    "n3": dict(seed=11, n=3),
+}
+
+
+def _nan_garbage(*like):
+    """Fills and frees tensors shaped as ``like`` with NaN, so that the
+    caching allocator hands that memory to the next torch.empty of the same
+    size: outputs the kernels leave unwritten would show as NaN."""
+    junk = [torch.full_like(x, float("nan")) for x in like]
+    torch.cuda.synchronize()
+    del junk
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-4)])
-def test_attn_aggregate_kernels_match_plain_on_card(dtype, tol):
-    # K3 against the plain version, both reading the same inputs and
-    # computing in f32 (sums in another order: 1e-4); in f32 also K3b
-    # against autograd through the plain version
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_attn_aggregate_kernels_match_plain_on_card(case):
+    # K3 (f32 and bf16) against the plain version, both computing in f32:
+    # f32 within 1e-4 of each output's largest (sums in another order), bf16
+    # within 2e-2 (the inputs are rounded to bf16 alike; 2e-2 as the other
+    # bf16 kernels); K3b against autograd through the plain version and
+    # against its factored plain form, 1e-4 of each largest. The slots of no
+    # group and the empty groups give exactly 0, over memory a NaN-filled
+    # tensor left behind; a second call gives the same bits.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
-    (b, a, types, valid, logits), g, n, t = _k3_inputs(dtype)
-    before = attn_aggregate.LAUNCHES_FWD
-    out_k = attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
-    out_p = attn_aggregate.fused_attn_aggregate_plain(b, a, types, valid, logits, n, t)
-    torch.cuda.synchronize()
-    assert attn_aggregate.LAUNCHES_FWD == before + 1
-    torch.testing.assert_close(out_k, out_p, atol=tol, rtol=tol)
-    if dtype != torch.float32:
-        leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
-        out = attn_aggregate.fused_attn_aggregate(leaves[0], leaves[1], types, valid,
-                                                  leaves[2], n, t)
-        with pytest.raises(ValueError, match="float32 only"):
-            out.sum().backward()
-        return
-    leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
-    grads_k = torch.autograd.grad((attn_aggregate.fused_attn_aggregate(
-        leaves[0], leaves[1], types, valid, leaves[2], n, t) * g).sum(), leaves)
-    plain = [x.clone().requires_grad_() for x in (b, a, logits)]
-    grads_p = torch.autograd.grad((attn_aggregate.fused_attn_aggregate_plain(
-        plain[0], plain[1], types, valid, plain[2], n, t) * g).sum(), plain)
-    torch.cuda.synchronize()
-    for name, gk, gp in zip(("db", "da", "dlogit"), grads_k, grads_p):
-        torch.testing.assert_close(gk, gp, atol=1e-4, rtol=1e-4, msg=name)
-    assert bool((grads_k[0][valid == 0] == 0).all() and (grads_k[2][valid == 0] == 0).all())
+    kw = K3_CASES[case]
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        (b, a, types, valid, logits), g, n, t = _k3_inputs(dtype, **kw)
+        c = types.numel() // n
+        node = torch.arange(types.numel(), device="cuda") // c
+        sizes = torch.bincount((node * t + types.long())[valid != 0], minlength=n * t)
+        empty = (sizes == 0).view(n, t)
+        assert bool(empty.any())
+        if "full_node" in kw:
+            assert int(sizes.max()) == c
+        before = (attn_aggregate.LAUNCHES_FWD, attn_aggregate.LAUNCHES_BWD)
+        _nan_garbage(a.float())                # out: (N, T, 64) float32
+        out_k = attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
+        out_p = attn_aggregate.fused_attn_aggregate_plain(b, a, types, valid, logits, n, t)
+        torch.cuda.synchronize()
+        assert attn_aggregate.LAUNCHES_FWD == before[0] + 1
+        assert bool(torch.isfinite(out_k).all())
+        assert (out_k - out_p).abs().max().item() <= tol * out_p.abs().max().item()
+        assert bool((out_k[empty] == 0).all())
+        assert torch.equal(out_k, attn_aggregate.fused_attn_aggregate(b, a, types, valid,
+                                                                      logits, n, t))
+        if dtype != torch.float32:
+            leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
+            out = attn_aggregate.fused_attn_aggregate(leaves[0], leaves[1], types, valid,
+                                                      leaves[2], n, t)
+            with pytest.raises(ValueError, match="float32 only"):
+                out.sum().backward()
+            continue
+
+        def kernel_grads():
+            leaves = [x.clone().requires_grad_() for x in (b, a, logits)]
+            out = attn_aggregate.fused_attn_aggregate(leaves[0], leaves[1], types, valid,
+                                                      leaves[2], n, t)
+            _nan_garbage(b, a, logits)
+            return torch.autograd.grad(out, leaves, g)
+
+        grads_k = kernel_grads()
+        plain = [x.clone().requires_grad_() for x in (b, a, logits)]
+        grads_p = torch.autograd.grad(attn_aggregate.fused_attn_aggregate_plain(
+            plain[0], plain[1], types, valid, plain[2], n, t), plain, g)
+        factored = attn_aggregate.fused_attn_aggregate_bwd_plain(b, a, types, valid, logits, g,
+                                                                 n, t)
+        torch.cuda.synchronize()
+        assert attn_aggregate.LAUNCHES_BWD == before[1] + 1
+        for name, gk, gp, gf in zip(("db", "da", "dlogit"), grads_k, grads_p, factored):
+            assert bool(torch.isfinite(gk).all()), name
+            for ref in (gp, gf):
+                assert (gk - ref).abs().max().item() <= 1e-4 * ref.abs().max().item(), name
+        db, da, dlogit = grads_k
+        assert bool((db[valid == 0] == 0).all() and (dlogit[valid == 0] == 0).all())
+        assert bool((da[empty] == 0).all())
+        for first, second in zip(grads_k, kernel_grads()):
+            assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_attn_aggregate_rejects_what_it_does_not_take():
+    # lane t of a warp keeps type t's scalars: T <= 32
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    (b, a, types, valid, logits), _, n, t = _k3_inputs(torch.float32, n=4, t=33)
+    with pytest.raises(ValueError, match="types"):
+        attn_aggregate.fused_attn_aggregate(b, a, types, valid, logits, n, t)
 
 
 @pytest.mark.cuda
