@@ -59,7 +59,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rows per node and largest group.
 10. K4 (the einsum path's blocked aggregate) against its plain version on
    the einsum w48/640 eval path's step-0 inputs (bf16, 2e-2) and on random
-   f32 inputs (1e-4); K4 on relu(a_sel + b) equals K3 on (b, a).
+   f32 inputs (1e-4), a second call bit-identical; K4 on relu(a_sel + b)
+   against K3 on (b, a) (1e-5 of its largest). Prints errors, kernel and
+   plain ms (median of 25) and the bounds; at the eval step 0 also K4's
+   device ms by kernel name from ``torch.profiler``, the graph's valid rows
+   per node and largest group, and the warps of K4 one SM holds.
 11. small slices on the reverse-permutation routes, CPU against card: a
    hybrid small training step as phase 7, and the hybrid and einsum small
    eval slices as phase 4.
@@ -297,17 +301,22 @@ def launch_ms(fn, args, leaf_ids, g, dims, names, n=10):
     the rest (any other kernel its forward or backward runs), by kernel name
     from ``torch.profiler`` over ``n`` forward calls and ``n`` backward
     calls on a kept graph, differentiating ``args[i]`` for i in
-    ``leaf_ids``. ``names`` maps each part to a substring of its kernel's
-    name; the first that matches wins. Returns the parts and the other
-    kernels' names."""
+    ``leaf_ids`` (forward calls alone where ``g`` is None). ``names`` maps
+    each part to a substring of its kernel's name; the first that matches
+    wins. Returns the parts and the other kernels' names."""
     leaves = {i: args[i].clone().requires_grad_() for i in leaf_ids}
     out = fn(*(leaves.get(i, x) for i, x in enumerate(args)), *dims)
-    torch.autograd.grad(out, list(leaves.values()), g, retain_graph=True)
+
+    def backward():
+        if g is not None:
+            torch.autograd.grad(out, list(leaves.values()), g, retain_graph=True)
+
+    backward()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn(*args, *dims)
-            torch.autograd.grad(out, list(leaves.values()), g, retain_graph=True)
+            backward()
         torch.cuda.synchronize()
     parts = dict.fromkeys([*names, "rest"], 0.0)
     rest = []
@@ -422,12 +431,10 @@ def check_k3(label, args, g, dims, tol, attn_aggregate):
     return numbers
 
 
-def k3_group_stats(args, dims):
-    """The valid rows per node (what a warp of K3 and K3b reads: mean, least,
-    most) and the (node, type) groups: how many hold a slot, their mean and
-    largest size."""
-    types, valid = args[2], args[3]
-    n, t = dims
+def group_stats(types, valid, n, t):
+    """The valid rows per node (what a warp of K3, K3b and K4 reads: mean,
+    least, most) and the (node, type) groups: how many hold a slot, their
+    mean and largest size."""
     c = types.numel() // n
     ok = valid.view(n, c) != 0
     rows = ok.sum(1).float()
@@ -456,7 +463,8 @@ def k4_bound_ms(m, attn, types, valid, num_nodes, num_types):
 def check_k4(label, args, tol, blocked_attn, segment):
     """K4 through its wrapper against the plain version on the same inputs
     (m, attn, types, num_nodes, num_types, valid), held to ``tol`` of the
-    plain output's largest value; times both. Returns the numbers."""
+    plain output's largest value, and against itself: a second call gives
+    the same bits. Times both. Returns the numbers."""
     with torch.no_grad():
         got = blocked_attn.blocked_attn_aggregate(*args)
         want = segment.blocked_per_type_attention_aggregate(*args)
@@ -466,6 +474,8 @@ def check_k4(label, args, tol, blocked_attn, segment):
         if not (got.dtype == args[0].dtype and np.isfinite(err) and err <= tol * scale):
             raise SystemExit(f"K4 {label}: max abs error {err} exceeds {tol} of its max "
                              f"|plain| {scale} (or the output is {got.dtype})")
+        if not torch.equal(got, blocked_attn.blocked_attn_aggregate(*args)):
+            raise SystemExit(f"K4 {label}: a second call gives other bits")
         ms = median_ms(lambda: blocked_attn.blocked_attn_aggregate(*args))
         plain_ms = median_ms(lambda: segment.blocked_per_type_attention_aggregate(*args))
     m, attn, types, n, t, valid = args
@@ -473,7 +483,7 @@ def check_k4(label, args, tol, blocked_attn, segment):
     log(f"K4 {label}: max abs err {err:.3e} of max {scale:.3e} (tol {tol} of the max) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; valid slots "
-        f"{int(valid.sum())}/{valid.numel()})")
+        f"{int(valid.sum())}/{valid.numel()}; a second call bit-identical)")
     return err, ms, plain_ms, bound, bound_by
 
 
@@ -902,7 +912,7 @@ def main() -> int:
                 f"call): K3 {parts['fwd']:.4f}; K3b {parts['bwd']:.4f}; rest "
                 f"{parts['rest']:.4f} ({'; '.join(rest)})")
             log(f"K3/K3b rows and groups, hybrid train path step 0: "
-                f"{k3_group_stats(args, args[5:])}")
+                f"{group_stats(args[2], args[3], *args[5:])}")
     del captured, args, g, trainer
     torch.cuda.empty_cache()
     eval_cfgs = {}
@@ -923,7 +933,18 @@ def main() -> int:
     args = capture_eval_inputs(pipe, images, "blocked_attn_aggregate", steps=(0,))[0]
     k4_numbers = check_k4("einsum eval path step 0 bf16", args, 2e-2, blocked_attn, segment)
     k4_errs = [k4_numbers[0]]
-    del pipe, args
+    parts, rest = launch_ms(blocked_attn.blocked_attn_aggregate, args, (), None, (),
+                            {"fwd": "blocked_attn_fwd"})
+    if not parts["fwd"] > 0:
+        raise SystemExit(f"K4 launch: the profiler saw no device time ({parts})")
+    log(f"K4 launch, einsum eval path step 0 (torch.profiler, device ms per call): K4 "
+        f"{parts['fwd']:.4f}; rest {parts['rest']:.4f} ({'; '.join(rest)})")
+    m, _, types, n, t, valid = args
+    log(f"K4 rows and groups, einsum eval path step 0: {group_stats(types, valid, n, t)}; "
+        f"resident warps per SM {blocked_attn.resident_warps(types.numel() // n, m.dtype)} "
+        f"(a warp a node, {n} nodes, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
+    del pipe, args, m, types, valid
     b, a, types, valid, logits = k3_random
     n, t = dims
     node = torch.arange(b.shape[0], device="cuda") // (b.shape[0] // n)
@@ -937,7 +958,7 @@ def main() -> int:
     if not err <= 1e-5 * scale:
         raise SystemExit(f"K4 on relu(a_sel + b) differs from K3 on (b, a) by {err}")
     log(f"K4 on relu(a_sel + b) against K3 on (b, a), random f32: max abs err {err:.3e} of "
-        f"max {scale:.3e}")
+        f"max {scale:.3e}; bit-identical {torch.equal(via_k4, via_k3)}")
     del k3_random, b, a, types, valid, logits, node, m, via_k4, via_k3
     torch.cuda.empty_cache()
 

@@ -50,42 +50,38 @@
 // memory per warp is T x 256 B for a (x 128 B in bf16), as much again for g
 // (K3b), and 12 to 16 B per slot; it is what bounds the warps per SM (about
 // 20 for K3b at T = 17, C = 80). f32 on the CUDA cores: there is no product
-// for the tensor cores.
+// for the tensor cores. The scalars, K3's row pass and the launch are shared
+// with K4 (group_softmax.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
 
 #include "group_softmax.cuh"
 
 namespace {
 
-using pemp::kMaxSlots;
+using pemp::bad_sizes;
+using pemp::kFull;
+using pemp::kNodeWarps;
+using pemp::kRows;
+using pemp::kSlotBytes;
 using pemp::kWidth;
-using pemp::warp_max;
+using pemp::launch;
+using pemp::load_row2;
+using pemp::misaligned;
+using pemp::node_scalars;
+using pemp::Scalars;
+using pemp::store2;
+using pemp::sum_sorted_rows;
+using pemp::warp_smem;
 using pemp::warp_sum;
+using pemp::zero_empty_rows;
 
-constexpr int kNodeWarps = 4;    // warps of a block, one node each
-constexpr int kMaxTypes = 32;    // lane t keeps type t's scalars
-constexpr int kRows = 8;         // b rows a warp has in flight
-constexpr unsigned kFull = 0xffffffffu;
-static_assert(kWidth == 64, "a lane owns two columns of a row");
-
-__device__ __forceinline__ float2 load_row2(const float* p) {
-  return __ldcs(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 load_row2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldcs(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
 __device__ __forceinline__ float2 smem2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 smem2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
 }
 
 // Starts the cp.async copy of `bytes` (a multiple of 16) from src to dst, by
@@ -107,119 +103,28 @@ __device__ __forceinline__ void stage_wait() {
 }
 
 // Bytes of shared memory a warp uses: a's rows (elem_bytes each value),
-// g's rows (K3b), and per slot key, w, ord (and u, K3b); 16-byte multiple.
+// g's rows (K3b), the per-slot scalars and u (K3b); 16-byte multiple.
 __host__ __device__ constexpr int warp_bytes(int c, int num_types, int elem_bytes,
                                              bool backward) {
-  return (num_types * kWidth * (elem_bytes + (backward ? 4 : 0)) + c * 4 * (backward ? 4 : 3) +
-          15) & ~15;
+  return (num_types * kWidth * (elem_bytes + (backward ? 4 : 0)) +
+          c * (kSlotBytes + (backward ? 4 : 0)) + 15) & ~15;
 }
 
-// The warp's shared memory: a[n] (and g[n]) rows, then per slot offset s
-// key[s] (t_s, or -1 for a slot of no group) and w[s] (the logit, then the
-// softmax weight), per sorted position p ord[p] (the p-th valid slot by type,
-// then slot), and u[s] (K3b).
+// The warp's shared memory: a[n] (and g[n]) rows, then the per-slot scalars
+// (pemp::NodeSmem) and u[s] (K3b) per slot offset s.
 template <typename T>
-struct NodeSmem {
+struct AttnSmem : pemp::NodeSmem {
   T* a;
   float* g;
-  int* key;
-  float* w;
-  int* ord;
   float* u;
 
-  __device__ NodeSmem(unsigned char* smem, int c, int num_types, bool backward) {
-    const int warp = threadIdx.x >> 5;
-    unsigned char* p = smem + warp * warp_bytes(c, num_types, sizeof(T), backward);
-    a = reinterpret_cast<T*>(p);
-    p += num_types * kWidth * sizeof(T);
-    g = reinterpret_cast<float*>(p);
-    if (backward) p += num_types * kWidth * 4;
-    key = reinterpret_cast<int*>(p);
-    w = reinterpret_cast<float*>(key + c);
-    ord = reinterpret_cast<int*>(w + c);
-    u = reinterpret_cast<float*>(ord + c);
-  }
+  // p: the warp's share (pemp::warp_smem)
+  __device__ AttnSmem(unsigned char* p, int c, int num_types, bool backward)
+      : NodeSmem(p + num_types * kWidth * (sizeof(T) + (backward ? 4 : 0)), c),
+        a(reinterpret_cast<T*>(p)),
+        g(reinterpret_cast<float*>(p + num_types * kWidth * sizeof(T))),
+        u(reinterpret_cast<float*>(ord + c)) {}
 };
-
-struct Scalars {
-  unsigned present;  // bit t: type t has a valid slot in the node
-  int count;         // valid slots, the length of ord
-};
-
-// The node's scalars, by one warp: key, the softmax weights w and the sorted
-// order ord in shared memory (complete on return), the types present and
-// the valid count. Lane t computes type t's max and den; the sums run in a
-// fixed order.
-template <typename T>
-__device__ __forceinline__ Scalars node_scalars(const NodeSmem<T>& sm,
-                                                const int* __restrict__ types,
-                                                const int* __restrict__ valid,
-                                                const float* __restrict__ logits,
-                                                long long slot0, int c, int num_types) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  unsigned mask = 0;
-  for (int s = lane; s < c; s += 32) {
-    const int t = types[slot0 + s];
-    const int k = valid[slot0 + s] != 0 && t >= 0 && t < num_types ? t : -1;
-    sm.key[s] = k;
-    sm.w[s] = logits[slot0 + s];
-    if (k >= 0) mask |= 1u << k;
-  }
-  const unsigned present = __reduce_or_sync(kFull, mask);
-
-  // per present type, in order: the group's max (lane t keeps it) and its
-  // slots' places in ord, in slot order. A lane reads only its own slots'
-  // key and w here.
-  float gmax = 0.f;
-  int count = 0;
-  for (unsigned rest = present; rest; rest &= rest - 1) {
-    const int t = __ffs(rest) - 1;
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int s0 = 0; s0 < c; s0 += 32) {
-      const int s = s0 + lane;
-      const bool hit = s < c && sm.key[s] == t;
-      if (hit) m = fmaxf(m, sm.w[s]);
-      const unsigned bal = __ballot_sync(kFull, hit);
-      if (hit) sm.ord[count + __popc(bal & below)] = s;
-      count += __popc(bal);
-    }
-    m = warp_max(m);
-    if (lane == t) gmax = m;
-  }
-  for (int s0 = 0; s0 < c; s0 += 32) {
-    const int s = s0 + lane;
-    const int k = s < c ? sm.key[s] : -1;
-    const float mx = __shfl_sync(kFull, gmax, k & 31);
-    if (s < c) sm.w[s] = k >= 0 ? expf(sm.w[s] - mx) : 0.f;
-  }
-  float den = 1.f;
-  for (unsigned rest = present; rest; rest &= rest - 1) {
-    const int t = __ffs(rest) - 1;
-    float sum = 0.f;
-    for (int s = lane; s < c; s += 32) sum += sm.key[s] == t ? sm.w[s] : 0.f;
-    sum = warp_sum(sum);
-    if (lane == t) den = fmaxf(sum, 1e-16f);
-  }
-  for (int s0 = 0; s0 < c; s0 += 32) {
-    const int s = s0 + lane;
-    const int k = s < c ? sm.key[s] : -1;
-    const float d = __shfl_sync(kFull, den, k & 31);
-    if (k >= 0) sm.w[s] = sm.w[s] / d;
-  }
-  __syncwarp();
-  return {present, count};
-}
-
-// Writes a zero row (n, t) of `rows` for every type t < num_types that is
-// not in `present`: the empty groups.
-__device__ __forceinline__ void zero_empty_rows(float* __restrict__ rows, unsigned present,
-                                                int num_types) {
-  const int lane = threadIdx.x & 31;
-  const unsigned all = num_types == 32 ? kFull : (1u << num_types) - 1u;
-  for (unsigned rest = all & ~present; rest; rest &= rest - 1)
-    store2(rows + (__ffs(rest) - 1) * kWidth + 2 * lane, make_float2(0.f, 0.f));
-}
 
 // Sums v[r] over the warp's lanes for each of the 8 rows r at once, in 9
 // shuffles (each exchange halves the rows a lane carries); lanes 4r to
@@ -250,7 +155,8 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_fwd(
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kNodeWarps + (threadIdx.x >> 5);
   if (n >= num_nodes) return;  // a whole warp; the kernel has no block barrier
-  const NodeSmem<T> sm(smem, c, num_types, false);
+  const AttnSmem<T> sm(warp_smem(smem, warp_bytes(c, num_types, sizeof(T), false)), c,
+                       num_types, false);
   const long long slot0 = static_cast<long long>(n) * c;
   const long long row0 = static_cast<long long>(n) * num_types * kWidth;
   stage(sm.a, a + row0, num_types * kWidth * static_cast<int>(sizeof(T)));
@@ -258,33 +164,10 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_fwd(
   float* outn = out + row0;
   zero_empty_rows(outn, sc.present, num_types);
   stage_wait();
-
-  int cur = -1;
-  float2 acc = make_float2(0.f, 0.f);
-  for (int p0 = 0; p0 < sc.count; p0 += kRows) {
-    float2 bv[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      bv[r] = make_float2(0.f, 0.f);
-      if (p0 + r < sc.count) bv[r] = load_row2(b + (slot0 + sm.ord[p0 + r]) * kWidth + 2 * lane);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (p0 + r >= sc.count) break;
-      const int s = sm.ord[p0 + r];
-      const int t = sm.key[s];
-      if (t != cur) {  // the group of cur ends: its row is complete
-        if (cur >= 0) store2(outn + cur * kWidth + 2 * lane, acc);
-        cur = t;
-        acc = make_float2(0.f, 0.f);
-      }
-      const float ws = sm.w[s];
-      const float2 av = smem2(sm.a + t * kWidth + 2 * lane);
-      acc.x = fmaf(ws, fmaxf(av.x + bv[r].x, 0.f), acc.x);
-      acc.y = fmaf(ws, fmaxf(av.y + bv[r].y, 0.f), acc.y);
-    }
-  }
-  if (cur >= 0) store2(outn + cur * kWidth + 2 * lane, acc);
+  sum_sorted_rows(sm, sc.count, b, slot0, outn, [&](int t, float2 bv) {
+    const float2 av = smem2(sm.a + t * kWidth + 2 * lane);
+    return make_float2(fmaxf(av.x + bv.x, 0.f), fmaxf(av.y + bv.y, 0.f));
+  });
 }
 
 __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
@@ -296,7 +179,8 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kNodeWarps + (threadIdx.x >> 5);
   if (n >= num_nodes) return;
-  const NodeSmem<float> sm(smem, c, num_types, true);
+  const AttnSmem<float> sm(warp_smem(smem, warp_bytes(c, num_types, 4, true)), c,
+                           num_types, true);
   const long long slot0 = static_cast<long long>(n) * c;
   const long long row0 = static_cast<long long>(n) * num_types * kWidth;
   stage(sm.a, a + row0, num_types * kWidth * 4);
@@ -375,26 +259,6 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
     const float qk = __shfl_sync(kFull, q, k & 31);
     if (k >= 0) dlogit[slot0 + s] = sm.w[s] * (sm.u[s] - qk);
   }
-}
-
-bool bad_sizes(int num_nodes, int c, int num_types) {
-  return c < 1 || c > kMaxSlots || num_types < 1 || num_types > kMaxTypes || num_nodes < 1;
-}
-
-bool misaligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
-}
-
-// Launches `kernel` with the dynamic shared memory of `bytes` per warp.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int per_warp, int num_nodes, void* stream, Args... args) {
-  const int smem = per_warp * kNodeWarps;
-  int err = static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (err != 0) return err;
-  kernel<<<(num_nodes + kNodeWarps - 1) / kNodeWarps, kNodeWarps * 32, smem,
-           static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

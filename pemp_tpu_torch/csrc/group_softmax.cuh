@@ -1,104 +1,225 @@
-// Device functions shared by the port's per-(node, type) aggregation
-// kernels. K4 (blocked_attn.cu) keeps here its group's slot selection (one
-// ballot per warp), the softmax shifted by the group's largest logit, the
-// 1e-16 clamp of the softmax denominator (the TPU kernels' jnp.maximum(den,
-// 1e-16)) and the fixed-order sum of per-warp partials. K2 and K2b
-// (typed_message.cu) batch many groups at once and take from here the block
-// shape, the row width and warp_sum; K3 and K3b (attn_aggregate.cu) give
-// each node a warp and take the row width, the slot bound, warp_sum and
-// warp_max.
+// Device code shared by the port's per-(node, type) aggregation kernels.
+// The group of (n, t) is target node n's valid slots of source type t among
+// its C slots [n*C, (n+1)*C), in slot order; an empty group contributes 0 to
+// every output. A group's softmax is shifted by its largest logit and its
+// denominator clamped at 1e-16 (the TPU kernels' jnp.maximum(den, 1e-16)).
 //
-// K4 runs blocks of kThreads threads; a block owns one source type t and
-// walks a chunk of target nodes. The group of node n is n's valid slots of
-// type t among its C slots [n*C, (n+1)*C), in slot order; an empty group
-// contributes 0 to every output.
+// K2 and K2b (typed_message.cu) batch many groups at once and take from here
+// the block shape, the row width, the slot bound and warp_sum. K3, K3b
+// (attn_aggregate.cu) and K4 (blocked_attn.cu) are node-major and take the
+// rest: a warp owns one node for all its types, kNodeWarps warps a block and
+// no block barrier. node_scalars reads the node's type, valid and logit
+// columns once, finds the softmax weights w from the logits alone (lane t
+// keeps type t's max and denominator, so T <= kMaxTypes) and sorts the
+// valid slots by type, stably; sum_sorted_rows then reads each valid row
+// once in that order and writes every group's output row once, summed in
+// slot order, so two calls give the same bits.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace pemp {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWidth = 64;           // every row the kernels read or write is 64 wide
-constexpr int kMaxSlots = kThreads;  // C <= kMaxSlots: one thread per slot in the scan
+constexpr int kWidth = 64;         // every row the kernels read or write is 64 wide
+constexpr int kMaxSlots = 256;     // C, the slots of a node, is at most this
+constexpr int kNodeWarps = 4;      // warps of a node-major block, one node each
+constexpr int kMaxTypes = 32;      // lane t keeps type t's scalars
+constexpr int kRows = 8;           // rows a node-major warp has in flight
+constexpr int kSlotBytes = 12;     // a node-major warp's shared memory per slot
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kWidth == 64, "a lane owns two columns of a row");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-// Collects the group (the valid type-t slots among the c slots from slot0)
-// into list[0..cnt) as slot offsets in slot order, and returns cnt, the same
-// on every thread. warp_cnt holds kWarps ints of shared memory. Starts with
-// a block-wide barrier (so the caller's buffers of the previous group are
-// free) and, when cnt > 0, ends with one (list is complete).
-__device__ __forceinline__ int select_group(int* list, int* warp_cnt,
-                                            const int* __restrict__ types,
-                                            const int* __restrict__ valid, long long slot0,
-                                            int c, int t) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();
-  int flag = 0;
-  if (tid < c) flag = valid[slot0 + tid] != 0 && types[slot0 + tid] == t;
-  const unsigned mask = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) warp_cnt[warp] = __popc(mask);
-  __syncthreads();
-  int before = 0, cnt = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int cw = warp_cnt[w];
-    before += w < warp ? cw : 0;
-    cnt += cw;
-  }
-  if (cnt == 0) return 0;
-  if (flag) list[before + __popc(mask & ((1u << lane) - 1u))] = tid;
-  __syncthreads();
-  return cnt;
+// A lane's two columns of a row (streamed: each row is read once), in f32.
+__device__ __forceinline__ float2 load_row2(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load_row2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldcs(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+// Stores a lane's two columns, rounded once to the output's type.
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
-// The group's softmax weights before normalisation: e[r] = exp(logit[r] -
-// max over the group) for r < cnt (cnt > 0), computed by warp 0; scal[0]
-// gets the max and scal[1] the denominator, sum of e clamped at 1e-16. Call
-// once logit[0..cnt) is complete in shared memory (after a barrier); ends
-// with a block-wide barrier.
-__device__ __forceinline__ void group_softmax(const float* logit, float* e, float* scal,
-                                              int cnt) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int r = lane; r < cnt; r += 32) mx = fmaxf(mx, logit[r]);
-    mx = warp_max(mx);
+// The calling warp's share of the block's dynamic shared memory, `bytes` a
+// warp.
+__device__ __forceinline__ unsigned char* warp_smem(unsigned char* smem, int bytes) {
+  return smem + (threadIdx.x >> 5) * bytes;
+}
+
+// A warp's per-slot scalars in shared memory (kSlotBytes a slot, from p):
+// per slot offset s, key[s] (t_s, or -1 for a slot of no group) and w[s] (the
+// logit, then the softmax weight); per sorted position p, ord[p] (the p-th
+// valid slot by type, then slot).
+struct NodeSmem {
+  int* key;
+  float* w;
+  int* ord;
+
+  __device__ NodeSmem(unsigned char* p, int c)
+      : key(reinterpret_cast<int*>(p)),
+        w(reinterpret_cast<float*>(p) + c),
+        ord(reinterpret_cast<int*>(p) + 2 * c) {}
+};
+
+struct Scalars {
+  unsigned present;  // bit t: type t has a valid slot in the node
+  int count;         // valid slots, the length of ord
+};
+
+// The node's scalars, by one warp: key, the softmax weights w and the sorted
+// order ord in shared memory (complete on return), the types present and
+// the valid count. Lane t computes type t's max and den; the sums run in a
+// fixed order.
+__device__ __forceinline__ Scalars node_scalars(const NodeSmem& sm,
+                                                const int* __restrict__ types,
+                                                const int* __restrict__ valid,
+                                                const float* __restrict__ logits,
+                                                long long slot0, int c, int num_types) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned mask = 0;
+  for (int s = lane; s < c; s += 32) {
+    const int t = types[slot0 + s];
+    const int k = valid[slot0 + s] != 0 && t >= 0 && t < num_types ? t : -1;
+    sm.key[s] = k;
+    sm.w[s] = logits[slot0 + s];
+    if (k >= 0) mask |= 1u << k;
+  }
+  const unsigned present = __reduce_or_sync(kFull, mask);
+
+  // per present type, in order: the group's max (lane t keeps it) and its
+  // slots' places in ord, in slot order. A lane reads only its own slots'
+  // key and w here.
+  float gmax = 0.f;
+  int count = 0;
+  for (unsigned rest = present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int s0 = 0; s0 < c; s0 += 32) {
+      const int s = s0 + lane;
+      const bool hit = s < c && sm.key[s] == t;
+      if (hit) m = fmaxf(m, sm.w[s]);
+      const unsigned bal = __ballot_sync(kFull, hit);
+      if (hit) sm.ord[count + __popc(bal & below)] = s;
+      count += __popc(bal);
+    }
+    m = warp_max(m);
+    if (lane == t) gmax = m;
+  }
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float mx = __shfl_sync(kFull, gmax, k & 31);
+    if (s < c) sm.w[s] = k >= 0 ? expf(sm.w[s] - mx) : 0.f;
+  }
+  float den = 1.f;
+  for (unsigned rest = present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
     float sum = 0.f;
-    for (int r = lane; r < cnt; r += 32) {
-      const float ev = expf(logit[r] - mx);
-      e[r] = ev;
-      sum += ev;
-    }
+    for (int s = lane; s < c; s += 32) sum += sm.key[s] == t ? sm.w[s] : 0.f;
     sum = warp_sum(sum);
-    if (lane == 0) {
-      scal[0] = mx;
-      scal[1] = fmaxf(sum, 1e-16f);
-    }
+    if (lane == t) den = fmaxf(sum, 1e-16f);
   }
-  __syncthreads();
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float d = __shfl_sync(kFull, den, k & 31);
+    if (k >= 0) sm.w[s] = sm.w[s] / d;
+  }
+  __syncwarp();
+  return {present, count};
 }
 
-// Sum over the kWarps per-warp partials red[w * kWidth + col], in a fixed
-// order (the same bits on every run).
-__device__ __forceinline__ float sum_partials(const float* red, int col) {
-  float v = 0.f;
+// Writes a zero row (n, t) of `rows` for every type t < num_types that is
+// not in `present`: the empty groups.
+template <typename T>
+__device__ __forceinline__ void zero_empty_rows(T* __restrict__ rows, unsigned present,
+                                                int num_types) {
+  const int lane = threadIdx.x & 31;
+  const unsigned all = num_types == 32 ? kFull : (1u << num_types) - 1u;
+  for (unsigned rest = all & ~present; rest; rest &= rest - 1)
+    store2(rows + (__ffs(rest) - 1) * kWidth + 2 * lane, make_float2(0.f, 0.f));
+}
+
+// One pass over the node's valid rows of `in` (E, kWidth) in sorted order,
+// kRows in flight: out[t] = sum over the type-t group's slots s, in slot
+// order, of w[s] f(t, the lane's two columns of row s), stored to
+// out + t * kWidth when the group ends. Writes only the non-empty groups.
+template <typename In, typename Out, typename F>
+__device__ __forceinline__ void sum_sorted_rows(const NodeSmem& sm, int count,
+                                                const In* __restrict__ in, long long slot0,
+                                                Out* __restrict__ out, F f) {
+  const int lane = threadIdx.x & 31;
+  int cur = -1;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int p0 = 0; p0 < count; p0 += kRows) {
+    float2 rows[kRows];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) v += red[w * kWidth + col];
-  return v;
+    for (int r = 0; r < kRows; ++r) {
+      rows[r] = make_float2(0.f, 0.f);
+      if (p0 + r < count) rows[r] = load_row2(in + (slot0 + sm.ord[p0 + r]) * kWidth + 2 * lane);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (p0 + r >= count) break;
+      const int s = sm.ord[p0 + r];
+      const int t = sm.key[s];
+      if (t != cur) {  // the group of cur ends: its row is complete
+        if (cur >= 0) store2(out + cur * kWidth + 2 * lane, acc);
+        cur = t;
+        acc = make_float2(0.f, 0.f);
+      }
+      const float ws = sm.w[s];
+      const float2 v = f(t, rows[r]);
+      acc.x = fmaf(ws, v.x, acc.x);
+      acc.y = fmaf(ws, v.y, acc.y);
+    }
+  }
+  if (cur >= 0) store2(out + cur * kWidth + 2 * lane, acc);
+}
+
+// The node-major kernels' limits: C <= kMaxSlots, T <= kMaxTypes.
+inline bool bad_sizes(int num_nodes, int c, int num_types) {
+  return c < 1 || c > kMaxSlots || num_types < 1 || num_types > kMaxTypes || num_nodes < 1;
+}
+
+inline bool misaligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+}
+
+// Launches a node-major `kernel`, a warp per node, with `per_warp` bytes of
+// dynamic shared memory a warp. Returns a cudaError_t.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int per_warp, int num_nodes, void* stream, Args... args) {
+  const int smem = per_warp * kNodeWarps;
+  int err = static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  kernel<<<(num_nodes + kNodeWarps - 1) / kNodeWarps, kNodeWarps * 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pemp

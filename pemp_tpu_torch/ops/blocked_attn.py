@@ -12,6 +12,16 @@ package trains the einsum path through its jnp aggregate, and the port's
 training path does not run this route (config.ROUTES), so a call that
 needs a gradient on the card raises.
 
+The kernel is node-major, on K3's design: a warp owns one node for all
+its types, takes the softmax weights from the logits alone, then reads the
+node's valid message rows once, sorted by type, and writes each (n, t) row
+once (zeros for an empty group), so the wrapper allocates the output with
+``torch.empty``. T is at most 32, since lane t of a warp keeps type t's
+scalars: the einsum path's types are the joint types
+(``models.mpn.layers.num_summary_types``: 17 on COCO, 14 on CrowdPose, or
+the 9 or 6 summary types), so no configuration of the repo needs more. C
+is at most 256.
+
 Bound on an H100 (see the kernel source): it reads the valid slots' message
 rows, the logit and index columns and writes (N, T, D); bound by bytes.
 
@@ -29,9 +39,11 @@ from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 LAUNCHES = 0
 
 _WIDTH = 64                 # the kernel's one row width (kWidth in the source)
-_MAX_SLOTS = 256            # C: one thread per slot in the type scan
+_MAX_SLOTS = 256            # C (kMaxSlots in the source)
+_MAX_TYPES = 32             # T: lane t of a warp keeps type t's scalars
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_WARPS_ARGTYPES = [ctypes.c_int] * 2
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -65,11 +77,13 @@ def blocked_attn_aggregate(m, attn, types, num_nodes: int, num_types: int, valid
     _check(w == _WIDTH, f"row width {w} (the kernel is built for {_WIDTH})")
     _check(num_nodes > 0 and e == num_nodes * c, "E must be N * C")
     _check(0 < c <= _MAX_SLOTS, f"C = {c} slots per node (1 to {_MAX_SLOTS})")
-    _check(num_types > 0, "at least one type")
+    _check(0 < num_types <= _MAX_TYPES, f"T = {num_types} types (1 to {_MAX_TYPES})")
     for name, t in dict(types=types, valid=valid, attn=attn).items():
         _check(t.numel() == e, f"{name} must have E elements")
     for name, t in dict(types=types, valid=valid).items():
         _check(t.dtype == torch.int32, f"{name} must be int32")
+    _check(m.data_ptr() % (2 * m.element_size()) == 0,
+           "m must be aligned to two of its values (a lane's paired loads)")
 
     from pemp_tpu_torch.ops import _build
 
@@ -82,3 +96,13 @@ def blocked_attn_aggregate(m, attn, types, num_nodes: int, num_types: int, valid
         raise RuntimeError(f"K4 (blocked attention aggregate) failed to launch: error {err}")
     LAUNCHES += 1
     return out
+
+
+def resident_warps(c: int, dtype) -> int:
+    """How many warps of K4 (one node each) one SM of the current card
+    holds at once at C slots per node, for m of ``dtype``; -1 if the card
+    does not say."""
+    from pemp_tpu_torch.ops import _build
+
+    fn = _build.function("blocked_attn", "pemp_blocked_attn_resident_warps", _WARPS_ARGTYPES)
+    return fn(c, _DTYPES[dtype])

@@ -16,10 +16,12 @@ from pemp_tpu_torch.ops import attn_aggregate, blocked_attn
 from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 
 
-def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False, full_node=None):
+def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False, full_node=None,
+          empty_type=None):
     """Random inputs with an empty (node, type) group and a node without a
     valid slot; n * t and n * c multiples of 8 (the TPU kernels' tiling).
-    ``full_node``: a node whose C slots are all valid and of type 1."""
+    ``full_node``: a node whose C slots are all valid and of type 1;
+    ``empty_type``: a type with no valid slot."""
     rng = np.random.RandomState(seed)
     b = rng.randn(n * c, d).astype(np.float32)
     a = rng.randn(n, t, d).astype(np.float32)
@@ -31,6 +33,8 @@ def _make(seed, n=16, c=10, t=4, d=8, logit_scale=1.0, all_valid=False, full_nod
     if full_node is not None:
         types[full_node * c:(full_node + 1) * c] = 1
         valid[full_node * c:(full_node + 1) * c] = 1
+    if empty_type is not None:
+        valid[types == empty_type] = 0
     logits = (rng.randn(n * c) * logit_scale).astype(np.float32)
     g = rng.randn(n, t, d).astype(np.float32)
     return (b, a, types, valid, logits), g, n, t
@@ -160,6 +164,34 @@ def test_k4_plain_matches_jax_kernel_bf16():
     kernel = np.asarray(blocked_per_type_attention_aggregate_pallas(*jargs, interpret=True),
                         np.float32)
     np.testing.assert_allclose(got.float().numpy(), kernel, rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_plain_matches_jax_kernel_at_kernel_widths(dtype):
+    """At K4's widths (T = 17, C = 80, D = 64; 16 nodes): node 5's group
+    holds all C slots and type 4 has no valid slot. f32: within 1e-5 (sums
+    in another order); bf16 messages: both compute in f32 and round the
+    output once, so they agree to one bf16 rounding, as
+    test_k4_plain_matches_jax_kernel_bf16."""
+    (m, _, types, valid, attn), _, n, t = _make(22, n=16, c=80, t=17, d=64, full_node=5,
+                                                empty_type=4)
+    c = m.shape[0] // n
+    sizes = np.bincount((np.arange(n * c) // c * t + types)[valid != 0],
+                        minlength=n * t).reshape(n, t)
+    assert sizes.max() == c and np.all(sizes[:, 4] == 0)
+    mt = torch.from_numpy(m).to(getattr(torch, dtype))
+    jm = jnp.asarray(mt.float().numpy()).astype(dtype)
+    got = blocked_per_type_attention_aggregate(mt, *_torch((attn, types)), n, t,
+                                               torch.from_numpy(valid))
+    assert got.dtype == mt.dtype
+    kernel = np.asarray(blocked_per_type_attention_aggregate_pallas(
+        jm, jnp.asarray(attn), jnp.asarray(types), n, t, jnp.asarray(valid), interpret=True),
+        np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), kernel, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), kernel, rtol=2 ** -8, atol=1e-6)
+    assert np.all(got.float().numpy()[sizes == 0] == 0.0)
 
 
 def test_wrappers_route_cpu_tensors_to_plain():
