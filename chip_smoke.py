@@ -42,8 +42,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    parameter's gradient and the MPN's running statistics.
 8. training at full width: model_58_4 (HigherHRNet-w32 at 512, batch 8,
    f32, synthetic batches, seeded random weights), one warm-up step, then
-   3 timed steps with the counts zeroed just before; K2 and K2b must launch
-   10 times each per step, the loss must be finite and no step skipped.
+   3 timed steps with the counts zeroed just before; K2, K2b and G1 (the
+   source gather's backward) must launch 10 times each per step, the loss
+   must be finite and no step skipped.
    Prints steps/s, img/s, peak memory and the graph and label counts.
 9. K3 and K3b (the hybrid path's attention aggregation) through their
    wrapper ``fused_attn_aggregate`` (forward, and ``torch.autograd.grad``
@@ -68,10 +69,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    hybrid small training step as phase 7, and the hybrid and einsum small
    eval slices as phase 4.
 12. full width per route, the counts zeroed just before each run and read
-   just after: 3 hybrid model_58_4 training steps (K3 and K3b 10 times
+   just after: 3 hybrid model_58_4 training steps (K3, K3b and G1 10 times
    each per step, no K2), 5 hybrid w48/640 forwards (K3 10 times per
    forward, no K1), 5 einsum w48/640 forwards (K4 10 times per forward, no
    K1 or K3). Prints steps/s or img/s and peak memory per route.
+13. K2's bf16 form (``fused_typed_message_aggregate`` on bf16 inputs)
+   against its plain version on the pallas w48/640 eval path's step-0
+   inputs: out within 1e-4 of its largest, a second call and the f32 form
+   on the widened inputs bit-identical. Prints errors, kernel and plain ms
+   (median of 25), the bound and K2's device ms from ``torch.profiler``.
+14. K4b (the blocked aggregate's backward, through K4's autograd Function)
+   against its factored plain form and against autograd through the plain
+   version, on the einsum model_58_4 training path's step-0 inputs and
+   cotangent and on random f32 inputs: dm and dlogit each within 1e-4 of
+   its largest, exact zeros on the slots of no group, a second backward
+   bit-identical. Prints errors, ms (the backward alone on a kept graph),
+   the bound, K4's and K4b's device ms and the graph's rows and groups.
+15. G1 (``gather_rows_bwd``) against its plain version on the pallas
+   model_58_4 training path's first source gather (its plan and
+   cotangent), and on the dots path's two projection selections at step 0:
+   within 1e-5 of the largest, a second call bit-identical; prints whether
+   it equals the CPU plain version bit for bit, its ms, the plain
+   version's, and those of ``index_add_`` and autograd's ``x[j]``
+   backward on the same rows (the library calls), and the bound.
+16. small slices on pallas and dots (eval) and small training steps on
+   einsum and dots, CPU against card, as phases 4 and 7.
+17. full width on the new routes, the counts zeroed just before each run
+   and read just after: 5 pallas w48/640 forwards (K2's bf16 form 10 times
+   per forward, no K2b), 5 dots forwards (K4 10 times), 3 einsum and 3 dots
+   model_58_4 training steps (K4 and K4b 10 times each per step, G1 20
+   times on einsum and 30 on dots: the source gather and the projection's
+   selections).
 
 Phases 5 and 8 check the counts the same way: every kernel not named
 launches 0 times.
@@ -130,11 +158,18 @@ def median_ms(fn, n=TIMED_LAUNCHES) -> float:
 
 def counters():
     """Each kernel's launch counter: {name: (module, attribute)}."""
-    from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, typed_message
+    from pemp_tpu_torch.ops import (
+        attn_aggregate,
+        blocked_attn,
+        fused_step,
+        gather_mm,
+        typed_message,
+    )
 
     return {"K1": (fused_step, "LAUNCHES"), "K2": (typed_message, "LAUNCHES_FWD"),
             "K2b": (typed_message, "LAUNCHES_BWD"), "K3": (attn_aggregate, "LAUNCHES_FWD"),
-            "K3b": (attn_aggregate, "LAUNCHES_BWD"), "K4": (blocked_attn, "LAUNCHES")}
+            "K3b": (attn_aggregate, "LAUNCHES_BWD"), "K4": (blocked_attn, "LAUNCHES"),
+            "K4b": (blocked_attn, "LAUNCHES_BWD"), "G1": (gather_mm, "LAUNCHES")}
 
 
 def zero_counts():
@@ -215,11 +250,12 @@ def check_k1(label, args, dims, tol, fused_step):
 def k2_bound_ms(args, backward: bool):
     """Least time for K2's (or K2b's) work on these inputs: inputs read once
     and outputs written once at the memory rate, against the arithmetic
-    the valid slots need at the f32 rate (K2: the typed projection and the
-    logit; K2b: the projection again, d_ef and dwe, and the logit terms);
-    the larger. Only the valid slots' ef rows are needed (no output
-    depends on the others); every row of d_ef is an output (the invalid
-    ones are zeros) and is written."""
+    the valid slots need at the peak rate of ef's type (K2: the typed
+    projection and the logit; K2b: the projection again, d_ef and dwe,
+    and the logit terms; the bf16 form's products are of bf16 values, as
+    in the TPU branch it ports); the larger. Only the valid slots' ef rows
+    are needed (no output depends on the others); every row of d_ef is an
+    output (the invalid ones are zeros) and is written."""
     ef, a, valid, we, w_attn = args[0], args[1], args[3], args[4], args[5]
     e, de = ef.shape
     d = a.shape[-1]
@@ -232,7 +268,7 @@ def k2_bound_ms(args, backward: bool):
     else:
         nbytes = ins + a.numel() * 4
         flops = n_valid * (2 * de * d + 2 * de + 3 * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[ef.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
@@ -485,6 +521,146 @@ def check_k4(label, args, tol, blocked_attn, segment):
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; valid slots "
         f"{int(valid.sum())}/{valid.numel()}; a second call bit-identical)")
     return err, ms, plain_ms, bound, bound_by
+
+
+def check_k2_bf16(label, args, dims, typed_message):
+    """K2's bf16 form through the wrapper against the plain version on the
+    same bf16 inputs (ef, a, types, valid, we, w_attn), each computing in
+    f32 on the widened values: out within 1e-4 of its largest plain value;
+    a second call gives the same bits, and so does the f32 form on the
+    widened inputs (the bf16 form runs the f32 code). Times both sides.
+    Returns the numbers."""
+    wide = [x.float() if x.is_floating_point() else x for x in args]
+    with torch.no_grad():
+        got = typed_message.fused_typed_message_aggregate(*args, *dims)
+        again = typed_message.fused_typed_message_aggregate(*args, *dims)
+        as_f32 = typed_message.fused_typed_message_aggregate(*wide, *dims)
+        want = typed_message.fused_typed_message_plain(*args, *dims)
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not (np.isfinite(err) and err <= 1e-4 * scale):
+            raise SystemExit(f"K2 bf16 {label}: max abs error {err} exceeds 1e-4 of its max "
+                             f"|plain| {scale}")
+        if not (torch.equal(got, again) and torch.equal(got, as_f32)):
+            raise SystemExit(f"K2 bf16 {label}: a second call, or the f32 form on the widened "
+                             f"inputs, gives other bits")
+        ms = median_ms(lambda: typed_message.fused_typed_message_aggregate(*args, *dims))
+        plain_ms = median_ms(lambda: typed_message.fused_typed_message_plain(*args, *dims))
+    bound, bound_by, nbytes, flops = k2_bound_ms(args, False)
+    log(f"K2 bf16 {label}: max abs err {err:.3e} of max {scale:.3e} (tol 1e-4 of the max); "
+        f"repeat and the f32 form on the widened inputs bit-identical; kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP; valid slots {int(args[3].sum())}/{args[3].numel()})")
+    return err, ms, plain_ms, bound, bound_by
+
+
+def k4b_bound_ms(m, attn, types, valid, num_nodes, num_types):
+    """Least time for K4b's work on these inputs: the valid slots' message
+    rows, g and the logit and index columns read once, every dm row and
+    dlogit written once, at the memory rate, against dm, u and dlogit for
+    each valid element at the f32 rate; the larger."""
+    e, d = m.shape
+    n_valid = int(valid.sum())
+    nbytes = (n_valid * d * 4 + (attn.numel() + types.numel() + valid.numel()) * 4
+              + num_nodes * num_types * d * 4 + (e * d + e) * 4)
+    flops = n_valid * 3 * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def check_k4b(label, args, g, blocked_attn, segment):
+    """K4b through K4's autograd Function (args m, attn, types, num_nodes,
+    num_types, valid; cotangent ``g``) against its factored plain form and
+    against autograd through the plain version: dm and dlogit each within
+    1e-4 of its largest plain value, exact zeros for the slots of no group,
+    a second backward bit-identical. Times the backward alone on a kept
+    graph on both sides. Returns the numbers."""
+    m, attn, types, n, t, valid = args
+
+    def run(fn):
+        leaves = [m.clone().requires_grad_(), attn.clone().requires_grad_()]
+        out = fn(leaves[0], leaves[1], types, n, t, valid)
+        return out, leaves, torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    got_out, got_leaves, got = run(blocked_attn.blocked_attn_aggregate)
+    again = torch.autograd.grad(got_out, got_leaves, g, retain_graph=True)
+    want_out, want_leaves, want = run(segment.blocked_per_type_attention_aggregate)
+    factored = blocked_attn.blocked_attn_aggregate_bwd_plain(m, attn, types, valid, g, n, t)
+    torch.cuda.synchronize()
+    parts = []
+    for name, x, y, z, x2 in zip(("dm", "dlogit"), got, want, factored, again):
+        for ref in (y, z):
+            err, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+            if not (np.isfinite(err) and err <= 1e-4 * scale):
+                raise SystemExit(f"K4b {label}: {name} max abs error {err} exceeds 1e-4 of its "
+                                 f"max |plain| {scale}")
+        if not torch.equal(x, x2):
+            raise SystemExit(f"K4b {label}: {name} differs on a second backward")
+        if not bool((x[valid == 0] == 0).all()):
+            raise SystemExit(f"K4b {label}: {name} is not 0 on the slots of no group")
+        parts.append((name, (x - y).abs().max().item(), y.abs().max().item()))
+    ms = median_ms(lambda: torch.autograd.grad(got_out, got_leaves, g, retain_graph=True))
+    plain_ms = median_ms(lambda: torch.autograd.grad(want_out, want_leaves, g, retain_graph=True))
+    bound, bound_by, nbytes, flops = k4b_bound_ms(m, attn, types, valid, n, t)
+    errs = ", ".join(f"{k} {e:.3e} of max {s:.3e}" for k, e, s in parts)
+    log(f"K4b {label}: max abs err {errs} (tol 1e-4 of each max, also against the factored "
+        f"form); zeros on the slots of no group; repeat bit-identical; kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP; valid slots {int(valid.sum())}/{valid.numel()})")
+    return max(e for _, e, _ in parts), ms, plain_ms, bound, bound_by
+
+
+def g1_bound_ms(g, plan, num_rows):
+    """Least time for G1's work on these inputs: g and the plan's order,
+    piece bounds and row pieces read once, dx written once, at the memory
+    rate, against an add per element of g at the f32 rate; the larger."""
+    e, d = g.shape
+    nbytes = (g.numel() * g.element_size() + sum(
+        plan[k].numel() * 4 for k in ("order", "bounds", "row_pieces"))
+        + num_rows * d * g.element_size())
+    flops = e * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def check_g1(label, x, j, plan, g, gather_mm):
+    """G1 through ``gather_rows_bwd`` against its plain version on the card
+    (index_add_ by the plan's pieces): within 1e-5 of the largest plain
+    value, a second call bit-identical; whether it equals the plain version
+    on the CPU bit for bit (the same sums in the same order) is printed.
+    Times G1, the plain version and, as the library calls that compute the
+    same function, ``index_add_`` of g by j and autograd's backward of
+    ``x[j]``. Returns the numbers and the library ms (index_add_)."""
+    n, d = x.shape
+    got = gather_mm.gather_rows_bwd(g, plan, n, x.dtype)
+    again = gather_mm.gather_rows_bwd(g, plan, n, x.dtype)
+    want = gather_mm.gather_rows_bwd_plain(g, plan, n, x.dtype)
+    cpu = gather_mm.gather_rows_bwd_plain(g.cpu(), {k: v.cpu() for k, v in plan.items()}, n,
+                                          x.dtype)
+    torch.cuda.synchronize()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not (np.isfinite(err) and err <= 1e-5 * scale):
+        raise SystemExit(f"G1 {label}: max abs error {err} exceeds 1e-5 of its max |plain| "
+                         f"{scale}")
+    if not torch.equal(got, again):
+        raise SystemExit(f"G1 {label}: a second call gives other bits")
+    ms = median_ms(lambda: gather_mm.gather_rows_bwd(g, plan, n, x.dtype))
+    plain_ms = median_ms(lambda: gather_mm.gather_rows_bwd_plain(g, plan, n, x.dtype))
+    target = torch.zeros_like(want)
+    library_ms = median_ms(lambda: target.index_add_(0, j, g))
+    leaf = x.detach().clone().requires_grad_()
+    out = leaf[j]
+    index_bwd_ms = median_ms(lambda: torch.autograd.grad(out, leaf, g, retain_graph=True))
+    bound, bound_by, nbytes, flops = g1_bound_ms(g, plan, n)
+    pieces = plan["bounds"].numel() - 1
+    per_row = plan["row_pieces"][1:] - plan["row_pieces"][:-1]
+    log(f"G1 {label}: max abs err {err:.3e} of max {scale:.3e} (tol 1e-5 of the max); repeat "
+        f"bit-identical; the CPU plain version's bits {torch.equal(got.cpu(), cpu)}; "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} index_add_ms={library_ms:.4f} "
+        f"index_backward_ms={index_bwd_ms:.4f} bound_ms={bound:.4f} by {bound_by} "
+        f"({nbytes / 1e6:.1f} MB; {g.shape[0]} slots onto {n} rows in {pieces} pieces, at most "
+        f"{int(per_row.max())} a row)")
+    return (err, ms, plain_ms, bound, bound_by), library_ms
 
 
 def drive_eval(label, pipe, images, iters, want, card):
@@ -874,8 +1050,9 @@ def main() -> int:
     phase_small_train()
 
     # 8. training at full width
-    counts = drive_train("training", trainer, batches[1:], {"K2": steps, "K2b": steps}, card)
-    k2_fwd, k2_bwd = counts["K2"], counts["K2b"]
+    counts = drive_train("training", trainer, batches[1:],
+                         {"K2": steps, "K2b": steps, "G1": steps}, card)
+    k2_fwd, k2_bwd, g1_launches = counts["K2"], counts["K2b"], counts["G1"]
     del trainer
     torch.cuda.empty_cache()
     log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
@@ -970,8 +1147,9 @@ def main() -> int:
     # 12. full width per route
     trainer = build_trainer(train_cfg, device="cuda", seed=0)
     counts_train = drive_train("hybrid training", trainer, batches[1:],
-                               {"K3": steps, "K3b": steps}, card)
-    del trainer, batches
+                               {"K3": steps, "K3b": steps, "G1": steps}, card)
+    g1_launches += counts_train["G1"]
+    del trainer
     torch.cuda.empty_cache()
     counts_eval = {}
     for route, kernel in (("hybrid", "K3"), ("einsum", "K4")):
@@ -980,6 +1158,111 @@ def main() -> int:
         counts_eval[route] = drive_eval(f"{route} eval", pipe, images, 5, {kernel: steps}, card)
         del pipe
         torch.cuda.empty_cache()
+
+    log(f"chip_smoke: phases 1-12 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 13. K2's bf16 form against its plain version at the pallas eval path's step 0
+    from pemp_tpu_torch.ops import gather_mm
+
+    for route in ("pallas", "dots"):
+        eval_cfgs[route] = w48_640()
+        eval_cfgs[route].TPU.MSG_PASS = route
+    pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
+                          cfg=eval_cfgs["pallas"], seed=0)
+    args = capture_eval_inputs(pipe, images, "fused_typed_message_aggregate", steps=(0,))[0]
+    if not all(x.dtype == torch.bfloat16 for x in (args[0], args[1], args[4], args[5])):
+        raise SystemExit("pallas eval path: K2's inputs are not bf16")
+    k2_bf16_numbers = check_k2_bf16("pallas eval path step 0", args[:6], args[6:],
+                                    typed_message)
+    parts, rest = launch_ms(typed_message.fused_typed_message_aggregate, args[:6], (), None,
+                            args[6:], {"fwd": "typed_message_fwd"})
+    if not parts["fwd"] > 0:
+        raise SystemExit(f"K2 bf16 launch: the profiler saw no device time ({parts})")
+    log(f"K2 bf16 launch, pallas eval path step 0 (torch.profiler, device ms per call): K2 "
+        f"{parts['fwd']:.4f}; rest {parts['rest']:.4f} ({'; '.join(rest)})")
+    del pipe, args
+    torch.cuda.empty_cache()
+
+    # 14. K4b against its plain versions at the einsum train path's step 0
+    # and on random f32 inputs
+    route_cfgs = {}
+    for route in ("einsum", "dots"):
+        route_cfgs[route] = w32_512_train()
+        route_cfgs[route].TPU.MSG_PASS = route
+    trainer = build_trainer(route_cfgs["einsum"], device="cuda", seed=0)
+    args, g = capture_train_inputs(trainer, batches[0], "blocked_attn_aggregate", steps=(0,))[0]
+    if args[0].dtype != torch.float32:
+        raise SystemExit("einsum train path: K4's messages are not float32")
+    k4b_numbers = check_k4b("einsum train path step 0", args, g, blocked_attn, segment)
+    k4b_errs = [k4b_numbers[0]]
+    parts, rest = launch_ms(blocked_attn.blocked_attn_aggregate, args, (0, 1), g, (),
+                            {"bwd": "blocked_attn_bwd", "fwd": "blocked_attn_fwd"})
+    if not (parts["fwd"] > 0 and parts["bwd"] > 0):
+        raise SystemExit(f"K4/K4b launches: the profiler saw no device time ({parts})")
+    log(f"K4 and K4b launches, einsum train path step 0 (torch.profiler, device ms per call): "
+        f"K4 {parts['fwd']:.4f}; K4b {parts['bwd']:.4f}; rest {parts['rest']:.4f} "
+        f"({'; '.join(rest)})")
+    log(f"K4b rows and groups, einsum train path step 0: "
+        f"{group_stats(args[2], args[5], args[3], args[4])}")
+    del args, g, trainer
+    torch.cuda.empty_cache()
+    (b, a, types, valid, logits), g, (n, t) = random_k3_inputs(seed=8)
+    node = torch.arange(b.shape[0], device="cuda") // (b.shape[0] // n)
+    m = torch.relu(a[node, types.long()] + b)
+    k4b_errs.append(check_k4b("random f32", (m, logits, types, n, t, valid), g, blocked_attn,
+                              segment)[0])
+    del b, a, types, valid, logits, g, node, m
+    torch.cuda.empty_cache()
+
+    # 15. G1 against its plain version at the pallas train path's first gather
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    (x, j, _, plan), g = capture_train_inputs(trainer, batches[0], "gather_rows_mm_or_plain",
+                                              steps=(0,))[0]
+    if plan is None or x.dtype != torch.float32:
+        raise SystemExit("pallas train path: the source gather has no plan or is not float32")
+    g1_numbers, g1_library_ms = check_g1("pallas train path step 0", x, j, plan, g, gather_mm)
+    g1_errs = [g1_numbers[0]]
+    del x, j, plan, g, trainer
+    torch.cuda.empty_cache()
+    # and at the dots train path's step 0: the source gather, then the
+    # projection's two selections, (node, type) rows of a and (slot, type)
+    # rows of the all-types projection
+    trainer = build_trainer(route_cfgs["dots"], device="cuda", seed=0)
+    captured = capture_train_inputs(trainer, batches[0], "gather_rows_mm_or_plain",
+                                    steps=(1, 2))
+    for call, what in ((1, "a rows"), (2, "all-types rows")):
+        (x, j, _, plan), g = captured[call]
+        g1_errs.append(check_g1(f"dots train path step 0, {what}", x, j, plan, g,
+                                gather_mm)[0][0])
+    del captured, x, j, plan, g, trainer
+    torch.cuda.empty_cache()
+
+    # 16. small slices on pallas and dots at eval, small training steps on
+    # einsum and dots, CPU against card
+    phase_small_slice("pallas")
+    phase_small_slice("dots")
+    phase_small_train("einsum")
+    phase_small_train("dots")
+
+    # 17. full width on the new routes, the counts zeroed just before each
+    # run and read just after
+    for route, kernel in (("pallas", "K2"), ("dots", "K4")):
+        pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
+                              cfg=eval_cfgs[route], seed=0)
+        counts_eval[route] = drive_eval(f"{route} eval", pipe, images, 5, {kernel: steps}, card)
+        del pipe
+        torch.cuda.empty_cache()
+    counts_fit = {}
+    for route, gathers in (("einsum", 2), ("dots", 3)):
+        # G1: the source gather, the (node, type) selection and on dots the
+        # all-types selection, each once a step
+        trainer = build_trainer(route_cfgs[route], device="cuda", seed=0)
+        counts_fit[route] = drive_train(f"{route} training", trainer, batches[1:],
+                                        {"K4": steps, "K4b": steps, "G1": gathers * steps}, card)
+        g1_launches += counts_fit[route]["G1"]
+        del trainer
+        torch.cuda.empty_cache()
+    del batches
 
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
@@ -991,26 +1274,34 @@ def main() -> int:
         "library_ms": None,
     }]
     rows = (
-        ("fused_typed_message_aggregate", "typed_message.cu", "fused_typed_message.py:412",
-         k2_fwd, max(k2_errs["fwd"]), k2_numbers["fwd"]),
-        ("fused_typed_message_aggregate_bwd", "typed_message.cu", "fused_typed_message.py:352",
-         k2_bwd, max(k2_errs["bwd"]), k2_numbers["bwd"]),
-        ("fused_attn_aggregate", "attn_aggregate.cu", "fused_typed_message.py:596",
+        ("fused_typed_message_aggregate", "typed_message.cu",
+         "pallas/fused_typed_message.py:412", k2_fwd, max(k2_errs["fwd"]), k2_numbers["fwd"]),
+        ("fused_typed_message_aggregate_bwd", "typed_message.cu",
+         "pallas/fused_typed_message.py:352", k2_bwd, max(k2_errs["bwd"]), k2_numbers["bwd"]),
+        ("fused_attn_aggregate", "attn_aggregate.cu", "pallas/fused_typed_message.py:596",
          counts_train["K3"] + counts_eval["hybrid"]["K3"], max(k3_errs["fwd"]),
          k3_numbers["fwd"]),
-        ("fused_attn_aggregate_bwd", "attn_aggregate.cu", "fused_typed_message.py:630",
+        ("fused_attn_aggregate_bwd", "attn_aggregate.cu", "pallas/fused_typed_message.py:630",
          counts_train["K3b"], max(k3_errs["bwd"]), k3_numbers["bwd"]),
-        ("blocked_attn_aggregate", "blocked_attn.cu", "blocked_attn.py:68",
-         counts_eval["einsum"]["K4"], max(k4_errs), k4_numbers),
+        ("blocked_attn_aggregate", "blocked_attn.cu", "pallas/blocked_attn.py:68",
+         counts_eval["einsum"]["K4"] + counts_eval["dots"]["K4"] + counts_fit["einsum"]["K4"]
+         + counts_fit["dots"]["K4"], max(k4_errs), k4_numbers),
+        ("fused_typed_message_aggregate_bf16", "typed_message.cu",
+         "pallas/fused_typed_message.py:412", counts_eval["pallas"]["K2"], k2_bf16_numbers[0],
+         k2_bf16_numbers),
+        ("blocked_attn_aggregate_bwd", "blocked_attn.cu", "segment.py:172",
+         counts_fit["einsum"]["K4b"] + counts_fit["dots"]["K4b"], max(k4b_errs), k4b_numbers),
+        ("gather_rows_bwd", "gather_rows.cu", "gather_mm.py:79", g1_launches, max(g1_errs),
+         g1_numbers),
     )
     for name, source, replaces, count, err, (_, k_ms, k_plain, k_bound, k_by) in rows:
         kernels.append({
             "name": name, "route": "cuda", "source": f"pemp_tpu_torch/csrc/{source}",
-            "replaces": f"pemp_tpu/ops/pallas/{replaces}", "launches": count,
+            "replaces": f"pemp_tpu/ops/{replaces}", "launches": count,
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
-            "bound_by": k_by, "library_ms": None,
+            "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-12 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-17 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

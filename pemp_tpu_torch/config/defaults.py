@@ -162,15 +162,17 @@ FIXED = {
     "MODEL.GC.USE_GT": (False,),
     "TPU.TARGET_MAJOR": (True,),
     "TPU.COLLECT_AUX": (False,),
-    "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum"),
+    "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum", "dots"),
 }
 
 # The message-passing forms each path runs (pemp_tpu/models/mpn/layers.py):
-# the fused step (K1), the typed message kernel (K2, backward K2b), and on
-# the symmetric kNN layout with the reverse-edge permutation the slim
-# attention aggregation (K3, backward K3b) or the blocked aggregate (K4,
-# which has no backward).
-ROUTES = {"eval": ("fused_step", "hybrid", "einsum"), "train": ("pallas", "hybrid")}
+# the fused step (K1, eval only), the typed message kernel (K2, backward
+# K2b), on the symmetric kNN layout with the reverse-edge permutation the
+# slim attention aggregation (K3, backward K3b) or the blocked aggregate
+# (K4, backward K4b), and on the asymmetric layout the all-types projection
+# followed by the blocked aggregate (``dots``).
+ROUTES = {"eval": ("fused_step", "pallas", "hybrid", "einsum", "dots"),
+          "train": ("pallas", "hybrid", "einsum", "dots")}
 
 # The eval path is bench.py's: weights from the caller, threshold grouping
 # with fill, refine and quarter adjust, one scale, no flip, the standard
@@ -286,8 +288,8 @@ def msg_pass_route(msg_pass: str, train: bool) -> str:
         route = "pallas" if train else "fused_step"
     path = "train" if train else "eval"
     if route not in ROUTES[path]:
-        why = ("; the blocked aggregate (K4) has no backward kernel"
-               if route == "einsum" and train else "")
+        why = ("; the JAX package's backward for the fused step (K1) is a jnp "
+               "recompute, not a kernel" if route == "fused_step" and train else "")
         raise NotImplementedError(
             f"TPU.MSG_PASS={msg_pass!r}: the port's {path} path runs only "
             f"{ROUTES[path]}{why}")

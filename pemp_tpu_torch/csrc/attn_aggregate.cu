@@ -61,7 +61,6 @@
 namespace {
 
 using pemp::bad_sizes;
-using pemp::kFull;
 using pemp::kNodeWarps;
 using pemp::kRows;
 using pemp::kSlotBytes;
@@ -70,37 +69,17 @@ using pemp::launch;
 using pemp::load_row2;
 using pemp::misaligned;
 using pemp::node_scalars;
+using pemp::rows_sum8;
 using pemp::Scalars;
+using pemp::smem2;
+using pemp::stage;
+using pemp::stage_wait;
 using pemp::store2;
 using pemp::sum_sorted_rows;
 using pemp::warp_smem;
-using pemp::warp_sum;
+using pemp::write_dlogit;
+using pemp::zero_ungrouped_slots;
 using pemp::zero_empty_rows;
-
-__device__ __forceinline__ float2 smem2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 smem2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Starts the cp.async copy of `bytes` (a multiple of 16) from src to dst, by
-// the warp; stage_wait() waits for it.
-__device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane * 16; i < bytes; i += 32 * 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(static_cast<char*>(dst) + i))),
-                 "l"(static_cast<const char*>(src) + i)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncwarp();
-}
 
 // Bytes of shared memory a warp uses: a's rows (elem_bytes each value),
 // g's rows (K3b), the per-slot scalars and u (K3b); 16-byte multiple.
@@ -125,26 +104,6 @@ struct AttnSmem : pemp::NodeSmem {
         g(reinterpret_cast<float*>(p + num_types * kWidth * sizeof(T))),
         u(reinterpret_cast<float*>(ord + c)) {}
 };
-
-// Sums v[r] over the warp's lanes for each of the 8 rows r at once, in 9
-// shuffles (each exchange halves the rows a lane carries); lanes 4r to
-// 4r + 3 return row r's sum.
-__device__ __forceinline__ float rows_sum8(const float (&v)[8]) {
-  const int lane = threadIdx.x & 31;
-  float v4[4], v2[2];
-  const bool h4 = lane & 16, h2 = lane & 8, h1 = lane & 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    v4[i] = (h4 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, h4 ? v[i] : v[i + 4], 16);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    v2[i] = (h2 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(kFull, h2 ? v4[i] : v4[i + 2], 8);
-  float v1 = (h1 ? v2[1] : v2[0]) + __shfl_xor_sync(kFull, h1 ? v2[0] : v2[1], 4);
-  v1 += __shfl_xor_sync(kFull, v1, 2);
-  v1 += __shfl_xor_sync(kFull, v1, 1);
-  return v1;
-}
-static_assert(kRows == 8, "rows_sum8 reduces 8 rows");
 
 template <typename T>
 __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_fwd(
@@ -188,15 +147,7 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
   const Scalars sc = node_scalars(sm, types, valid, logits, slot0, c, num_types);
   float* dan = da + row0;
   zero_empty_rows(dan, sc.present, num_types);
-  // the slots of no group: db rows and dlogit 0
-  for (int s0 = 0; s0 < c; s0 += 32) {
-    const int s = s0 + lane;
-    const bool none = s < c && sm.key[s] < 0;
-    if (none) dlogit[slot0 + s] = 0.f;
-    for (unsigned bal = __ballot_sync(kFull, none); bal; bal &= bal - 1)
-      __stcs(reinterpret_cast<float2*>(db + (slot0 + s0 + __ffs(bal) - 1) * kWidth + 2 * lane),
-             make_float2(0.f, 0.f));
-  }
+  zero_ungrouped_slots(sm, slot0, c, db, dlogit);
   stage_wait();
 
   int cur = -1;
@@ -242,23 +193,7 @@ __global__ void __launch_bounds__(kNodeWarps * 32) attn_aggregate_bwd(
   }
   if (cur >= 0) store2(dan + cur * kWidth + 2 * lane, acc);
   __syncwarp();
-
-  // q per present type (lane t keeps it), then every valid slot's dlogit
-  float q = 0.f;
-  for (unsigned rest = sc.present; rest; rest &= rest - 1) {
-    const int t = __ffs(rest) - 1;
-    float sum = 0.f;
-    for (int s = lane; s < c; s += 32)
-      if (sm.key[s] == t) sum = fmaf(sm.w[s], sm.u[s], sum);
-    sum = warp_sum(sum);
-    if (lane == t) q = sum;
-  }
-  for (int s0 = 0; s0 < c; s0 += 32) {
-    const int s = s0 + lane;
-    const int k = s < c ? sm.key[s] : -1;
-    const float qk = __shfl_sync(kFull, q, k & 31);
-    if (k >= 0) dlogit[slot0 + s] = sm.w[s] * (sm.u[s] - qk);
-  }
+  write_dlogit(sm, sm.u, sc.present, slot0, c, dlogit);
 }
 
 }  // namespace

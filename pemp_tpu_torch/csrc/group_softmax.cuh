@@ -62,6 +62,52 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
+// A lane's two columns of a row in shared memory, in f32.
+__device__ __forceinline__ float2 smem2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 smem2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Starts the cp.async copy of `bytes` (a multiple of 16) from src to dst, by
+// the warp; stage_wait() waits for it.
+__device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane * 16; i < bytes; i += 32 * 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(static_cast<char*>(dst) + i))),
+                 "l"(static_cast<const char*>(src) + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Sums v[r] over the warp's lanes for each of the 8 rows r at once, in 9
+// shuffles (each exchange halves the rows a lane carries); lanes 4r to
+// 4r + 3 return row r's sum.
+__device__ __forceinline__ float rows_sum8(const float (&v)[8]) {
+  const int lane = threadIdx.x & 31;
+  float v4[4], v2[2];
+  const bool h4 = lane & 16, h2 = lane & 8, h1 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v4[i] = (h4 ? v[i + 4] : v[i]) + __shfl_xor_sync(kFull, h4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    v2[i] = (h2 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(kFull, h2 ? v4[i] : v4[i + 2], 8);
+  float v1 = (h1 ? v2[1] : v2[0]) + __shfl_xor_sync(kFull, h1 ? v2[0] : v2[1], 4);
+  v1 += __shfl_xor_sync(kFull, v1, 2);
+  v1 += __shfl_xor_sync(kFull, v1, 1);
+  return v1;
+}
+static_assert(kRows == 8, "rows_sum8 reduces 8 rows");
+
 // The calling warp's share of the block's dynamic shared memory, `bytes` a
 // warp.
 __device__ __forceinline__ unsigned char* warp_smem(unsigned char* smem, int bytes) {
@@ -161,6 +207,47 @@ __device__ __forceinline__ void zero_empty_rows(T* __restrict__ rows, unsigned p
   const unsigned all = num_types == 32 ? kFull : (1u << num_types) - 1u;
   for (unsigned rest = all & ~present; rest; rest &= rest - 1)
     store2(rows + (__ffs(rest) - 1) * kWidth + 2 * lane, make_float2(0.f, 0.f));
+}
+
+// The backward kernels' zeros for the slots of no group (key -1): their
+// rows of `rows` (E, kWidth) and their entries of `col` (E,).
+__device__ __forceinline__ void zero_ungrouped_slots(const NodeSmem& sm, long long slot0, int c,
+                                                     float* __restrict__ rows,
+                                                     float* __restrict__ col) {
+  const int lane = threadIdx.x & 31;
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const bool none = s < c && sm.key[s] < 0;
+    if (none) col[slot0 + s] = 0.f;
+    for (unsigned bal = __ballot_sync(kFull, none); bal; bal &= bal - 1)
+      __stcs(reinterpret_cast<float2*>(rows + (slot0 + s0 + __ffs(bal) - 1) * kWidth + 2 * lane),
+             make_float2(0.f, 0.f));
+  }
+}
+
+// The backward kernels' logit gradients, from u[s] = <g[n, t_s], m[s]> per
+// slot offset (complete in shared memory): q[t] = sum over the type-t
+// group of w u (lane t keeps it, in slot order), then dlogit[s] = w[s]
+// (u[s] - q[t_s]) for every valid slot.
+__device__ __forceinline__ void write_dlogit(const NodeSmem& sm, const float* u,
+                                             unsigned present, long long slot0, int c,
+                                             float* __restrict__ dlogit) {
+  const int lane = threadIdx.x & 31;
+  float q = 0.f;
+  for (unsigned rest = present; rest; rest &= rest - 1) {
+    const int t = __ffs(rest) - 1;
+    float sum = 0.f;
+    for (int s = lane; s < c; s += 32)
+      if (sm.key[s] == t) sum = fmaf(sm.w[s], u[s], sum);
+    sum = warp_sum(sum);
+    if (lane == t) q = sum;
+  }
+  for (int s0 = 0; s0 < c; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < c ? sm.key[s] : -1;
+    const float qk = __shfl_sync(kFull, q, k & 31);
+    if (k >= 0) dlogit[slot0 + s] = sm.w[s] * (u[s] - qk);
+  }
 }
 
 // One pass over the node's valid rows of `in` (E, kWidth) in sorted order,

@@ -63,6 +63,15 @@
 // partial of dwe to a workspace (chunk, type, 64, 64); a second launch sums
 // the chunks in a fixed order. No atomics: the step gives the same bits on
 // every run. Both compute on the CUDA cores in f32 (no tensor cores).
+//
+// K2's bf16 form (the pallas eval path; the TPU kernel's bf16 branch,
+// _tile_forward's bf16 selection and projection with f32 accumulation):
+// ef, a, we and w_attn in bf16, out in f32. A product of two bf16 values is
+// exact in f32, so the form widens each value to f32 as it reaches shared
+// memory (ef rows and We_t by 16-byte loads of 8 values in place of the
+// cp.async copies) or registers (a, w_attn) and runs the f32 code on it:
+// the same arithmetic as the plain version on the widened inputs. The f32
+// form's code is unchanged. K2b stays f32.
 
 #include <cuda_runtime.h>
 
@@ -121,7 +130,7 @@ __device__ __forceinline__ float group_max(float v, unsigned mask) {
   return v;
 }
 
-__device__ __forceinline__ void prefetch_l2(const float* p) {
+__device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
@@ -134,6 +143,37 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// K2's bf16 form reads bf16 and computes in f32: a bf16 x bf16 product is
+// exact in f32, so widening each value as it reaches shared memory or
+// registers and reusing the f32 code gives the f32 arithmetic on the same
+// values. The f32 overloads are the f32 form's own loads.
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Four values of a row of a, in f32 (16 bytes of f32, 8 of bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Eight bf16 values (16 bytes) from src, widened to f32 at dst.
+__device__ __forceinline__ void widen8(float* dst, const __nv_bfloat16* src) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    dst[2 * i] = v.x;
+    dst[2 * i + 1] = v.y;
+  }
 }
 
 // The nodes of a block: its local node j is node first + j * stride, every
@@ -161,12 +201,21 @@ struct Chunk {
 };
 
 // Copies We_t (we's columns t * kWidth onwards) to dst at row stride kLdR
-// by cp.async; waited for with the first batch's ef rows.
+// by cp.async; waited for with the first batch's ef rows. In bf16 the
+// values are loaded and widened to f32 in place of the copy.
 __device__ void stage_we(float* dst, const float* __restrict__ we, int t, int num_types) {
   const long long we_row = static_cast<long long>(num_types) * kWidth;
   for (int i = threadIdx.x; i < kWidth * kWidth / 4; i += kThreads) {
     const int k = i / (kWidth / 4), q = i % (kWidth / 4);
     cp_async16(dst + k * kLdR + 4 * q, we + k * we_row + t * kWidth + 4 * q);
+  }
+}
+__device__ void stage_we(float* dst, const __nv_bfloat16* __restrict__ we, int t,
+                         int num_types) {
+  const long long we_row = static_cast<long long>(num_types) * kWidth;
+  for (int i = threadIdx.x; i < kWidth * kWidth / 8; i += kThreads) {
+    const int k = i / (kWidth / 8), q = i % (kWidth / 8);
+    widen8(dst + k * kLdR + 8 * q, we + k * we_row + t * kWidth + 8 * q);
   }
 }
 
@@ -268,6 +317,7 @@ __device__ int batch_end(const int* seg, int j0, int nodes, int rows) {
 
 // Starts the cp.async copy of the ef rows of list entries b0..b0 + nr - 1 to
 // dst (stride kLdR) and writes each row's local node to row_node.
+// In bf16 the rows are loaded and widened to f32 in place of the copy.
 __device__ void load_rows(float* dst, int* row_node, const float* __restrict__ ef,
                           const uint16_t* list, int b0, int nr, const Chunk& ch) {
   for (int i = threadIdx.x; i < nr * (kWidth / 4); i += kThreads) {
@@ -276,14 +326,23 @@ __device__ void load_rows(float* dst, int* row_node, const float* __restrict__ e
   }
   for (int r = threadIdx.x; r < nr; r += kThreads) row_node[r] = list[b0 + r] / ch.c;
 }
+__device__ void load_rows(float* dst, int* row_node, const __nv_bfloat16* __restrict__ ef,
+                          const uint16_t* list, int b0, int nr, const Chunk& ch) {
+  for (int i = threadIdx.x; i < nr * (kWidth / 8); i += kThreads) {
+    const int r = i / (kWidth / 8), q = i % (kWidth / 8);
+    widen8(dst + r * kLdR + 8 * q, ef + ch.slot(list[b0 + r]) * kWidth + 8 * q);
+  }
+  for (int r = threadIdx.x; r < nr; r += kThreads) row_node[r] = list[b0 + r] / ch.c;
+}
 
 // pre = a[n, t] + ef @ We_t for rows base + rg + 16 i (i < RT) of the
 // batch, columns c0..c0 + 3, stored to p; rows at or past nr are computed on
 // whatever the buffer holds and not stored. Only the 16 threads of row group
-// rg, all in one warp, read or write these rows here, so p may be ef.
-template <int RT>
+// rg, all in one warp, read or write these rows here, so p may be ef. a is
+// f32, or bf16 in K2's bf16 form.
+template <int RT, typename TA>
 __device__ void project_pass(const float* we_t, const float* ef, float* p, const int* row_node,
-                             const float* __restrict__ a, int base, int nr, const Chunk& ch) {
+                             const TA* __restrict__ a, int base, int nr, const Chunk& ch) {
   const int rg = threadIdx.x >> 4, c0 = 4 * (threadIdx.x & 15);
   float acc[RT][4] = {};
 #pragma unroll 2
@@ -305,8 +364,7 @@ __device__ void project_pass(const float* we_t, const float* ef, float* p, const
   for (int i = 0; i < RT; ++i) {
     const int r = base + rg + 16 * i;
     if (r < nr) {
-      const float4 av =
-          __ldg(reinterpret_cast<const float4*>(a + ch.row(row_node[r]) * kWidth + c0));
+      const float4 av = load4(a + ch.row(row_node[r]) * kWidth + c0);
       *reinterpret_cast<float4*>(p + r * kLdR + c0) =
           make_float4(acc[i][0] + av.x, acc[i][1] + av.y, acc[i][2] + av.z, acc[i][3] + av.w);
     }
@@ -395,11 +453,14 @@ size_t fwd_smem_bytes(int c) {
          sizeof(uint16_t) * static_cast<size_t>(kChunkNodes) * c;
 }
 
-// Three blocks per SM: the shared memory of one block allows three.
+// Three blocks per SM: the shared memory of one block allows three. T is
+// the inputs' type (ef, a, we, w_attn): float, or bf16 widened to f32 as it
+// is read; out is f32.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
-    const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
-    const int* __restrict__ valid, const float* __restrict__ we,
-    const float* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
+    const T* __restrict__ ef, const T* __restrict__ a, const int* __restrict__ types,
+    const int* __restrict__ valid, const T* __restrict__ we,
+    const T* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
     int num_types) {
   extern __shared__ float4 smem4[];
   const int rows = batch_rows(c);
@@ -408,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
   const Chunk ch(num_nodes, c, num_types, blockIdx.y);
   const int nodes = ch.nodes;
   stage_we(s.we, we, ch.t, num_types);
-  if (tid < kWidth) s.wat[tid] = w_attn[tid];
+  if (tid < kWidth) s.wat[tid] = to_f32(w_attn[tid]);
   list_rows<false>(s.warp_tot, s.list, s.seg, types, valid, nullptr, ch);
   for (int i = tid; i < 2 * nodes; i += kThreads)  // the nodes' a rows to L2
     prefetch_l2(a + ch.row(i >> 1) * kWidth + 32 * (i & 1));
@@ -716,25 +777,41 @@ int set_smem(const void* kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-}  // namespace
-
-// Forward (K2). Pointers are f32 except types and valid (int32); rows are
-// kWidth wide; ef, a, we and out must be 16-byte aligned (they are read and
-// written in 16-byte pieces). Blocks own kChunkNodes nodes at most. Returns a
-// cudaError_t, or -2 for unsupported sizes or alignment.
-extern "C" int pemp_typed_message_fwd(const float* ef, const float* a, const int* types,
-                                      const int* valid, const float* we, const float* w_attn,
-                                      float* out, int num_nodes, int c, int num_types,
-                                      void* stream) {
-  if (c < 1 || c > kMaxSlots || num_types < 1 || num_nodes < 1) return -2;
-  if (!(aligned16(ef) && aligned16(a) && aligned16(we) && aligned16(out))) return -2;
+template <typename T>
+int launch_fwd(const void* ef, const void* a, const int* types, const int* valid,
+               const void* we, const void* w_attn, float* out, int num_nodes, int c,
+               int num_types, void* stream) {
   const size_t smem = fwd_smem_bytes(c);
-  int err = set_smem(reinterpret_cast<const void*>(typed_message_fwd), smem);
+  int err = set_smem(reinterpret_cast<const void*>(typed_message_fwd<T>), smem);
   if (err != 0) return err;
   const dim3 grid((num_nodes + kChunkNodes - 1) / kChunkNodes, num_types);
-  typed_message_fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ef, a, types, valid, we, w_attn, out, num_nodes, c, num_types);
+  typed_message_fwd<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(ef), static_cast<const T*>(a), types, valid,
+      static_cast<const T*>(we), static_cast<const T*>(w_attn), out, num_nodes, c, num_types);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Forward (K2). ef, a, we and w_attn are all f32 (bf16 = 0) or all bf16
+// (bf16 = 1); types and valid int32; out f32. Rows are kWidth wide; ef, we
+// and out must be 16-byte aligned and a 16-byte (f32) or 8-byte (bf16)
+// aligned (they are read and written in pieces of that size). Blocks own
+// kChunkNodes nodes at most. Returns a cudaError_t, or -2 for unsupported
+// sizes or alignment.
+extern "C" int pemp_typed_message_fwd(const void* ef, const void* a, const int* types,
+                                      const int* valid, const void* we, const void* w_attn,
+                                      float* out, int num_nodes, int c, int num_types, int bf16,
+                                      void* stream) {
+  if (c < 1 || c > kMaxSlots || num_types < 1 || num_nodes < 1) return -2;
+  if (!(aligned16(ef) && aligned16(we) && aligned16(out)) ||
+      pemp::misaligned(a, bf16 ? 8 : 16))
+    return -2;
+  if (bf16)
+    return launch_fwd<__nv_bfloat16>(ef, a, types, valid, we, w_attn, out, num_nodes, c,
+                                     num_types, stream);
+  return launch_fwd<float>(ef, a, types, valid, we, w_attn, out, num_nodes, c, num_types,
+                           stream);
 }
 
 // Backward (K2b): writes every row of d_ef (the invalid slots' with zeros);

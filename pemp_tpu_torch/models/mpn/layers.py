@@ -6,12 +6,15 @@ Module and parameter names follow the original reference
 load unchanged. The flagship ``TypeAwareMPNLayer`` is ported with an
 agnostic edge MLP, ``node_edge_attn`` aggregation, skip connections, the
 target-major blocked layout with type-blocked nodes and an ``mlp`` update,
-in the four forms of ``TPU.MSG_PASS``: the fused step (K1), and the split
+in the five forms of ``TPU.MSG_PASS``: the fused step (K1), and the split
 edge MLP followed by the typed message kernel (``pallas``: K2, backward
 K2b), by the reverse-permutation projection and the slim attention
-aggregation (``hybrid``: K3, backward K3b), or by the same projection and
-the blocked aggregate (``einsum``: K4, forward only). All four read the
-same parameters. Every layer computes in its input's dtype.
+aggregation (``hybrid``: K3, backward K3b), by the same projection and the
+blocked aggregate (``einsum``: K4, backward K4b), or by the all-types
+projection and the blocked aggregate (``dots``). All five read the same
+parameters. The split forms gather the edge MLP's source rows through
+ops.gather_mm (G1 in the backward). Every layer computes in its input's
+dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 from pemp_tpu_torch.ops.attn_aggregate import fused_attn_aggregate
 from pemp_tpu_torch.ops.blocked_attn import blocked_attn_aggregate
 from pemp_tpu_torch.ops.fused_step import fused_mpn_step
+from pemp_tpu_torch.ops.gather_mm import gather_plan, gather_rows_mm_or_plain
 from pemp_tpu_torch.ops.typed_message import fused_typed_message_aggregate
 
 # COCO joint order: nose, eye_l, eye_r, ear_l, ear_r, sho_l, sho_r, elb_l,
@@ -75,21 +79,57 @@ def type_blocked_projection(edge, w_edge, rev_perm, raw_types: int, block_slots:
     return bj.reshape(e, -1)[rev_perm]
 
 
-def type_aware_split_linear(x, edge, types, weight, bias, rev_perm, raw_types: int,
-                            block_slots: int, sum_map=None):
-    """pemp_tpu.models.mpn.layers.TypeAwareSplitLinear with ``rev_perm``:
-    the type-``types[s]`` Linear of [x[s // C], edge[s]] for every slot s,
-    its node part computed once per (node, type). x (N, dn), edge (E, De),
-    types (E,) source types; weight (T, D, dn + De), bias (T, D). Returns
-    (E, D)."""
+def typed_rows(group_slots: int, types, num_types: int):
+    """Slot s's row g * T + types[s] of a (groups * T, D) table, g = s //
+    ``group_slots``: the (node, type) row of ``a`` (group_slots C) or the
+    (slot, type) row of the all-types projection (group_slots 1)."""
+    slot = torch.arange(types.numel(), device=types.device)
+    return torch.div(slot, group_slots, rounding_mode="floor") * num_types + types.long()
+
+
+def split_linear_plans(types, num_nodes: int, num_types: int, all_types: bool) -> dict:
+    """G1's plans (ops.gather_mm.gather_plan) for the two selections of
+    :func:`type_aware_split_linear` over ``types`` (E,): ``"a"`` for the
+    (node, type) rows of ``a``, and with ``all_types`` (no ``rev_perm``)
+    ``"b"`` for the (slot, type) rows of the all-types projection. Built
+    once per forward where a gradient can flow."""
+    e, t = types.numel(), num_types
+    plans = {"a": gather_plan(typed_rows(e // num_nodes, types, t), t, num_nodes * t)}
+    if all_types:
+        plans["b"] = gather_plan(typed_rows(1, types, t), t, e * t)
+    return plans
+
+
+def type_aware_split_linear(x, edge, types, weight, bias, rev_perm=None, raw_types: int = 0,
+                            block_slots: int = 0, sum_map=None, plans=None):
+    """pemp_tpu.models.mpn.layers.TypeAwareSplitLinear: the type-``types[s]``
+    Linear of [x[s // C], edge[s]] for every slot s, its node part computed
+    once per (node, type) with the bias. x (N, dn), edge (E, De), types (E,)
+    source types; weight (T, D, dn + De), bias (T, D). The edge part is
+    :func:`type_blocked_projection` given ``rev_perm`` (and the blocks and
+    ``sum_map`` it reads), else the JAX package's all-types branch
+    (pemp_tpu/models/mpn/layers.py:236-239): every slot projected onto all
+    T types, an (E, T, D) tensor, then each slot's own type taken. Both
+    selections are row gathers (:func:`typed_rows`) through
+    ops.gather_mm.gather_rows_mm_or_plain, with T rows an image, so their
+    backward is G1 and keeps no (E, T, D) tensor; ``plans`` is
+    :func:`split_linear_plans` of these types, needed where a gradient can
+    flow. Returns (E, D)."""
     n, dn = x.shape
     e = edge.shape[0]
-    tv = types.long()
-    a = torch.einsum("ni,toi->nto", x, weight[:, :, :dn])               # (N, T, D)
-    a_sel = a[torch.arange(e, device=x.device) // (e // n), tv]
-    b_sel = type_blocked_projection(edge, weight[:, :, dn:], rev_perm, raw_types, block_slots,
-                                    sum_map)
-    return a_sel + b_sel + bias[tv]
+    t = weight.shape[0]
+    plans = plans or {}
+    a = torch.einsum("ni,toi->nto", x, weight[:, :, :dn]) + bias[None]   # (N, T, D)
+    a_sel = gather_rows_mm_or_plain(a.reshape(n * t, -1), typed_rows(e // n, types, t), t,
+                                    plans.get("a"))
+    if rev_perm is None:
+        b_all = torch.einsum("ei,toi->eto", edge, weight[:, :, dn:])     # (E, T, D)
+        b_sel = gather_rows_mm_or_plain(b_all.reshape(e * t, -1), typed_rows(1, types, t), t,
+                                        plans.get("b"))
+    else:
+        b_sel = type_blocked_projection(edge, weight[:, :, dn:], rev_perm, raw_types,
+                                        block_slots, sum_map)
+    return a_sel + b_sel
 
 
 class Linear(nn.Linear):
@@ -176,8 +216,8 @@ class _TypedNodeMLP(nn.Module):
 class TypeAwareMPNLayer(nn.Module):
     """Flagship layer. reference: layers.py:157-258. ``forward`` is the
     fused-step form (K1); ``forward_typed`` (K2, differentiable through
-    K2b), ``forward_hybrid`` (K3, through K3b) and ``forward_einsum`` (K4)
-    are the split forms.
+    K2b), ``forward_hybrid`` (K3, through K3b) and ``forward_einsum`` (K4,
+    through K4b; the ``einsum`` and ``dots`` routes) are the split forms.
 
     ``node_in`` / ``edge_in`` are the widths of the skip-concatenated node
     and edge inputs; ``init_edge_dim`` is the width of their loop-invariant
@@ -241,40 +281,48 @@ class TypeAwareMPNLayer(nn.Module):
         out = self.update_mlp(updates.reshape(n, -1).to(dt))
         return out, new_edge
 
-    def _edge_mlp(self, x, q, init_proj, cur, src):
+    def _edge_mlp(self, x, q, init_proj, cur, pre):
         """The blocked split edge MLP of the JAX package
         (pemp_tpu/models/mpn/layers.py:465-533), in x's dtype: x (N,
         node_in) skip-concatenated nodes; q (E, H) the loop-invariant
         init-edge projection; init_proj (N, H) the loop-invariant init half
-        of the source projection, gathered by source ``src`` (E,); cur (E,
-        De) the edge carry. Returns the new edge carry (E, De)."""
+        of the source projection; cur (E, De) the edge carry. The source
+        half is gathered by ``pre["src"]`` (E,) through
+        ops.gather_mm.gather_rows_mm_or_plain with ``pre["n_img"]`` nodes an
+        image and the forward's ``pre["gather_plan"]`` (None without a
+        gradient). Returns the new edge carry (E, De)."""
         dt = x.dtype
         dn, di = self.node_in, self.node_in - self.node_dim
         lin0, lin1 = self.mlp_edge[0], self.mlp_edge[2]
         w0 = lin0.weight.to(dt)
         h_node = x @ w0[:, :dn].t() + lin0.bias.to(dt)                 # (N, H)
         xproj = x[:, di:] @ w0[:, dn + di:2 * dn].t()                   # (N, H)
-        h_edge = (init_proj + xproj)[src] + q + cur @ w0[:, 2 * dn + self.init_edge_dim:].t()
+        src = gather_rows_mm_or_plain(init_proj + xproj, pre["src"], pre["n_img"],
+                                      pre["gather_plan"])
+        h_edge = src + q + cur @ w0[:, 2 * dn + self.init_edge_dim:].t()
         c = h_edge.shape[0] // x.shape[0]
         h = torch.relu(h_edge + torch.repeat_interleave(h_node, c, dim=0))
         return torch.relu(lin1(h))                                      # (E, De)
 
     def forward_typed(self, x, q, init_proj, cur, pre):
         """One step of the JAX package's ``pallas`` path (the split edge MLP,
-        then pemp_tpu/models/mpn/layers.py:561-614), in float32: arguments
-        as :meth:`_edge_mlp`, ``pre`` the loop-invariant index columns.
-        Returns (new nodes (N, D), new edge carry (E, De))."""
-        n = x.shape[0]
+        then pemp_tpu/models/mpn/layers.py:561-614): arguments as
+        :meth:`_edge_mlp`, ``pre`` the loop-invariant index columns. In x's
+        dtype up to K2 (``ops.typed_message``, float32 in training, bf16 at
+        eval), which computes and returns float32. Returns (new nodes (N,
+        D), new edge carry (E, De))."""
+        n, dt = x.shape[0], x.dtype
         dn = self.node_in
-        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre)
         wn, bn = self.mlp_node.stacked()              # (T, D, dn + De), (T, D)
+        wn, bn = wn.to(dt), bn.to(dt)
         t, d = wn.shape[:2]
         a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
         we = wn[:, :, dn:].permute(2, 0, 1).reshape(-1, t * d)   # we[k, t*D+o]
         updates = fused_typed_message_aggregate(
             new_edge.contiguous(), a.contiguous(), pre["src_type"], pre["valid"],
-            we.contiguous(), self.attn_net[0].weight.t().contiguous(), n, t)
-        out = self.update_mlp(updates.reshape(n, -1))
+            we.contiguous(), self.attn_net[0].weight.to(dt).t().contiguous(), n, t)
+        out = self.update_mlp(updates.reshape(n, -1).to(dt))
         return out, new_edge
 
     def forward_hybrid(self, x, q, init_proj, cur, pre):
@@ -286,7 +334,7 @@ class TypeAwareMPNLayer(nn.Module):
         ``blocks`` (J, K * C) and ``type_sum_map`` to the index columns."""
         n, dt = x.shape[0], x.dtype
         dn = self.node_in
-        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre)
         wn, bn = self.mlp_node.stacked()
         wn, bn = wn.to(dt), bn.to(dt)
         a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
@@ -299,17 +347,21 @@ class TypeAwareMPNLayer(nn.Module):
         return out, new_edge
 
     def forward_einsum(self, x, q, init_proj, cur, pre):
-        """One step of the ``einsum`` path (pemp_tpu/models/mpn/layers.py:
-        627-676): messages by :func:`type_aware_split_linear` and ReLU, the
-        attention scores, then K4 (``ops.blocked_attn``), all in x's dtype;
-        ``pre`` as :meth:`forward_hybrid`. Forward only on the card."""
+        """One step of the ``einsum`` and ``dots`` paths
+        (pemp_tpu/models/mpn/layers.py:627-676): messages by
+        :func:`type_aware_split_linear` and ReLU, the attention scores, then
+        K4 (``ops.blocked_attn``, backward K4b), all in x's dtype. The
+        scores drop their bias, which is constant within each softmax group
+        (its gradient is zero), as the other routes' logits do. On
+        ``einsum`` ``pre`` is as :meth:`forward_hybrid`'s; on ``dots`` it
+        has no ``rev_perm`` and the projection takes the all-types branch."""
         n, dt = x.shape[0], x.dtype
-        new_edge = self._edge_mlp(x, q, init_proj, cur, pre["src"])
+        new_edge = self._edge_mlp(x, q, init_proj, cur, pre)
         wn, bn = self.mlp_node.stacked()
         m = torch.relu(type_aware_split_linear(
-            x, new_edge, pre["src_type"], wn.to(dt), bn.to(dt), pre["rev_perm"],
-            *pre["blocks"], pre["type_sum_map"]))
-        scores = self.attn_net(new_edge)[:, 0]
+            x, new_edge, pre["src_type"], wn.to(dt), bn.to(dt), pre.get("rev_perm"),
+            *pre.get("blocks", (0, 0)), pre.get("type_sum_map"), pre.get("select_plans")))
+        scores = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0]
         updates = blocked_attn_aggregate(m.contiguous(), scores, pre["src_type"], n,
                                          self.num_types, pre["valid"])
         out = self.update_mlp(updates.reshape(n, -1))

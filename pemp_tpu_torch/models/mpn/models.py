@@ -10,11 +10,16 @@ The route of each step is ``TPU.MSG_PASS`` (``_MSG_PASS`` in the MPN
 config), resolved as the JAX package's build_pose_model resolves it on a
 TPU (pemp_tpu/models/pose_estimation.py:234-256) for the module's mode:
 ``auto`` is the fused step (K1) in eval mode and the typed message kernel
-(``pallas``: K2, differentiable through K2b) in training mode; ``hybrid``
-(K3, through K3b) runs in both, ``einsum`` (K4) in eval mode. The two
-reverse-permutation routes read the reverse-edge involution of the
-symmetric layout, built once per forward. The module's mode decides the
-rest: training collects per-step outputs, with the heads on the last
+(``pallas``: K2, differentiable through K2b) in training mode; ``pallas``
+(K2's bf16 form at eval), ``hybrid`` (K3, through K3b), ``einsum`` and
+``dots`` (K4, through K4b) run in both, ``fused_step`` in eval mode only.
+The two reverse-permutation routes (``hybrid``, ``einsum``) read the
+reverse-edge involution of the symmetric layout, built once per forward;
+``dots`` runs on the asymmetric layout, as ``pallas``. Where a gradient can
+flow, the plans of G1 (ops.gather_mm.gather_plan) are built once per
+forward too: the source gather's, and on ``einsum`` and ``dots`` the
+projection's selections'. The module's mode decides the rest: training
+collects per-step outputs, with the heads on the last
 ``AUX_LOSS_STEPS + 1`` steps and on the final features
 (pemp_tpu/models/mpn/models.py:288-316), and takes the embeddings'
 BatchNorm statistics over valid rows; eval runs the heads on the final
@@ -36,8 +41,10 @@ from pemp_tpu_torch.models.mpn.layers import (
     MLP,
     TypeAwareMPNLayer,
     num_summary_types,
+    split_linear_plans,
     sum_node_types,
 )
+from pemp_tpu_torch.ops.gather_mm import gather_plan
 from pemp_tpu_torch.ops.knn import reverse_edge_perm
 
 
@@ -134,12 +141,20 @@ class NodeClassificationMPN(nn.Module):
                 "class": [self.classification(node_features)],
             }
 
-        # the split edge MLP routes (pemp_tpu/models/mpn/models.py:199-211)
+        # the split edge MLP routes (pemp_tpu/models/mpn/models.py:199-211);
+        # the source gather's plan where a gradient can flow
+        n = x.shape[0]
         pre["src"] = edge_index[0].long()
+        pre["n_img"] = c["NUM_JOINTS"] * npt
+        grad = torch.is_grad_enabled()
+        pre["gather_plan"] = gather_plan(pre["src"], pre["n_img"], n) if grad else None
+        if route in ("einsum", "dots") and grad:
+            pre["select_plans"] = split_linear_plans(pre["src_type"], n, self.num_types,
+                                                     route == "dots")
         step = {"pallas": layer.forward_typed, "hybrid": layer.forward_hybrid,
-                "einsum": layer.forward_einsum}[route]
-        if route != "pallas":
-            n, cslots = x.shape[0], c["_BLOCKED_C"]
+                "einsum": layer.forward_einsum, "dots": layer.forward_einsum}[route]
+        if route in ("hybrid", "einsum"):
+            cslots = c["_BLOCKED_C"]
             pre["rev_perm"] = reverse_edge_perm(edge_index[0], edge_valid, n, cslots).long()
             pre["blocks"] = (c["NUM_JOINTS"], npt * cslots)
             summary = c["NODE_TYPE_SUMMARY"]

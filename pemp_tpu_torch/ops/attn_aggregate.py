@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
+from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate, group_weights
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
@@ -82,19 +82,10 @@ def fused_attn_aggregate_bwd_plain(b, a, types, valid, logits, g, num_nodes: int
     = sum of w u and dlogit = w (u - q[n, t_s]). The slots of no group get
     zero db and dlogit, the empty groups zero da. Returns (db, da, dlogit)
     in float32, shaped as b, a and logits."""
-    e, d = b.shape
-    c = e // num_nodes
-    ok = valid.reshape(-1) != 0
-    node = torch.arange(e, device=b.device) // c
-    key = torch.where(ok, node * num_types + types.reshape(-1).long(), 0)
+    d = b.shape[1]
     groups = num_nodes * num_types
+    ok, key, w = group_weights(logits, types, valid, num_nodes, num_types)
     kv = key[ok]
-    lg = logits.reshape(-1).float()
-    mx = torch.full((groups,), float("-inf"), device=b.device).scatter_reduce(
-        0, kv, lg[ok], "amax")
-    ex = torch.where(ok, torch.exp(lg - mx[key]), 0.0)
-    den = torch.zeros(groups, device=b.device).index_add(0, kv, ex[ok]).clamp_min(1e-16)
-    w = ex / den[key]
     pre = a.reshape(groups, d).float()[key] + b.float()
     g_sel = g.reshape(groups, d).float()[key]
     db = torch.where(ok[:, None] & (pre > 0), w[:, None] * g_sel, 0.0)

@@ -34,8 +34,14 @@ f32) with about 70 % of the slots valid, K2 moves ~128 MB and does ~2.6
 GFLOP (~0.038 ms either way); K2b moves ~265 MB and does ~7.6 GFLOP
 (~0.114 ms at the f32 rate: bound by operations).
 
-``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches (the plain
-version does not count).
+K2 also has a bf16 form, for the ``pallas`` eval path: ef, a, we and
+w_attn all bf16 (out stays float32), widened to float32 as they are read
+and run through the float32 code, so it computes what the plain version
+computes on the same inputs. K2b is float32 only: a bf16 input that needs
+a gradient is refused.
+
+``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches of either form
+(the plain version does not count).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ LAUNCHES_BWD = 0
 _WIDTH = 64                 # the kernels' one row width (kWidth in the source)
 _MAX_SLOTS = 256            # C: one thread per slot in the type scan
 _CHUNK = 64                 # most nodes per block (kChunkNodes in the source)
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -85,8 +92,9 @@ def _checked(ef, a, types, valid, we, w_attn, num_nodes, num_types):
     for name, t in {**floats, **ints}.items():
         _check(t.device == ef.device, f"{name} is on {t.device}, ef on {ef.device}")
         _check(t.is_contiguous(), f"{name} is not contiguous")
-    for name, t in floats.items():
-        _check(t.dtype == torch.float32, f"{name} is {t.dtype} (float32 only)")
+    _check(ef.dtype in _DTYPES and all(t.dtype == ef.dtype for t in floats.values()),
+           "ef, a, we and w_attn are " + ", ".join(str(t.dtype) for t in floats.values())
+           + " (all float32, or all bfloat16 forward only)")
     e, w = ef.shape
     c = e // max(num_nodes, 1)
     _check(w == _WIDTH, f"row width {w} (the kernels are built for {_WIDTH})")
@@ -119,7 +127,7 @@ def _launch_forward(ef, a, types, valid, we, w_attn, num_nodes, num_types):
     out = torch.empty((num_nodes, num_types, _WIDTH), dtype=torch.float32, device=ef.device)
     stream = torch.cuda.current_stream(ef.device).cuda_stream
     err = fn(_ptr(ef), _ptr(a), _ptr(types), _ptr(valid), _ptr(we), _ptr(w_attn), _ptr(out),
-             num_nodes, c, num_types, ctypes.c_void_p(stream))
+             num_nodes, c, num_types, _DTYPES[ef.dtype], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K2 (typed message forward) failed to launch: error {err}")
     LAUNCHES_FWD += 1
@@ -129,6 +137,8 @@ def _launch_forward(ef, a, types, valid, we, w_attn, num_nodes, num_types):
 def _launch_backward(ef, a, types, valid, we, w_attn, g, num_nodes, num_types):
     global LAUNCHES_BWD
     e, c = _checked(ef, a, types, valid, we, w_attn, num_nodes, num_types)
+    _check(ef.dtype == torch.float32,
+           f"the backward kernel runs in float32 only (the inputs are {ef.dtype})")
     _check(g.device == ef.device and g.dtype == torch.float32 and g.is_contiguous()
            and tuple(g.shape) == tuple(a.shape), "g must match a (contiguous f32)")
     fn = _fn("pemp_typed_message_bwd", _BWD_ARGTYPES)
@@ -174,11 +184,16 @@ def fused_typed_message_aggregate(ef, a, types, valid, we, w_attn, num_nodes: in
 
     ef (E, De) post-MLP edge features; a (N, T, D) node part including the
     per-type bias; types, valid (E,) int32; we (De, T*D) with
-    we[k, t*D + o] the weight of type t; w_attn (De, 1). On CUDA tensors
-    K2 runs forward and K2b backward; on CPU tensors the plain version.
+    we[k, t*D + o] the weight of type t; w_attn (De, 1). ef, a, we and
+    w_attn are all float32, or all bfloat16 where no gradient is needed
+    (eval). On CUDA tensors K2 runs forward and K2b backward; on CPU
+    tensors the plain version.
     """
     if ef.device.type == "cpu":
         return fused_typed_message_plain(ef, a, types, valid, we, w_attn, num_nodes, num_types)
     if ef.device.type != "cuda":
         raise ValueError(f"fused_typed_message_aggregate: unsupported device {ef.device}")
+    _check(ef.dtype == torch.float32 or not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (ef, a, we, w_attn))),
+        "the bfloat16 form is forward only (K2b runs in float32 only)")
     return _TypedMessage.apply(ef, a, types, valid, we, w_attn, num_nodes, num_types)

@@ -3,12 +3,13 @@
     python -m pemp_tpu_torch.profile_main_path [--msg-pass ROUTE]
 
 Runs the w48/640 eval pipeline at batch 8 (bf16, seeded random weights),
-with ``TPU.MSG_PASS`` set to ROUTE (auto, fused_step, hybrid or einsum;
-default auto, the fused step), as ``BENCH_MSG_PASS`` sets it for bench.py,
-with CUDA events between its stages (backbone + feature gather, graph
-construction, MPN, decode; the heatmap resize and slicing count to the
-graph stage) and prints each stage's median time over 5 forwards, then
-``torch.profiler``'s device time per kernel over one forward. Needs a CUDA
+with ``TPU.MSG_PASS`` set to ROUTE (auto, fused_step, pallas, hybrid,
+einsum or dots; default auto, the fused step), as ``BENCH_MSG_PASS`` sets it
+for bench.py, with CUDA events between its stages (backbone + feature
+gather, graph construction, MPN, decode; the heatmap resize and slicing
+count to the graph stage) and prints each stage's median time over 5
+forwards and their peak device memory, then ``torch.profiler``'s device
+time per kernel over one forward. Needs a CUDA
 card; it does not run on the CPU.
 """
 
@@ -67,6 +68,7 @@ def main(argv=None) -> None:
     images = torch.rand(BATCH, INPUT_SIZE, INPUT_SIZE, 3, generator=gen).cuda()
     with torch.no_grad():
         pipe(images)
+        torch.cuda.reset_peak_memory_stats()
         runs = [_stages(pipe, images) for _ in range(ITERS)]
         total = [sum(r.values()) for r in runs]
         print(f"card: {card}; w48/{INPUT_SIZE} batch {BATCH} bf16, MSG_PASS "
@@ -76,6 +78,7 @@ def main(argv=None) -> None:
             print(f"  {k:9s} {ms:9.3f} ms  {100 * ms / np.median(total):5.1f} %")
         print(f"  {'total':9s} {np.median(total):9.3f} ms  "
               f"({BATCH / np.median(total) * 1e3:.2f} img/s, stages back to back)")
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:

@@ -4,13 +4,15 @@
 
 Trains model_58_4 (HigherHRNet-w32 at 512, batch 8, f32, seeded random
 weights, synthetic batches made before timing), with ``TPU.MSG_PASS`` set
-to ROUTE (auto, pallas or hybrid; default auto, the typed message kernel),
-with CUDA events between the stages of each step: backbone (with the
-feature gather), graph (detection, kNN graph and edge features), labels
-(the auction matcher and the method-6 labels), MPN (embeddings, the 10
-steps and the heads), losses, backward and optimizer. Prints each stage's
-median over 3 steps after a warm-up, then ``torch.profiler``'s device time
-per kernel over one step. Needs a CUDA card; it does not run on the CPU.
+to ROUTE (auto, pallas, hybrid, einsum or dots; default auto, the typed
+message kernel), with CUDA events between the stages of each step:
+backbone (with the feature gather), graph (detection, kNN graph and edge
+features), labels (the auction matcher and the method-6 labels), MPN
+(embeddings, the 10 steps and the heads), losses, backward and optimizer.
+Prints each stage's median over 3 steps after a warm-up and their peak
+device memory, then ``torch.profiler``'s device time per kernel over one
+step and per autograd backward node (``IndexBackward0``: the plain
+gathers' backward). Needs a CUDA card; it does not run on the CPU.
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ def main(argv=None) -> None:
                for _ in range(STEPS + 2)]
     trainer = build_trainer(cfg, device="cuda", seed=0)
     _step(trainer, batches[0])
+    torch.cuda.reset_peak_memory_stats()
     runs = [_step(trainer, b) for b in batches[1:STEPS + 1]]
     total = [sum(r.values()) for r in runs]
     print(f"card: {card}; model_58_4 w32/{size} batch {bs} f32, MSG_PASS {args.msg_pass}, "
@@ -106,12 +109,19 @@ def main(argv=None) -> None:
         print(f"  {k:9s} {ms:9.3f} ms  {100 * ms / np.median(total):5.1f} %")
     print(f"  {'total':9s} {np.median(total):9.3f} ms  "
           f"({bs / np.median(total) * 1e3:.2f} img/s, stages back to back)")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         trainer.step(batches[-1])
         torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
-                                    max_name_column_width=60))
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_device_time_total", row_limit=25,
+                         max_name_column_width=60))
+    nodes = sorted((ev for ev in averages if ev.key.endswith(("Backward", "Backward0"))),
+                   key=lambda ev: -ev.device_time_total)
+    print("autograd backward nodes by device time, one step (torch.profiler):")
+    for ev in nodes[:12]:
+        print(f"  {ev.key:32s} {ev.device_time_total / 1e3:9.3f} ms in {ev.count} calls")
 
 
 if __name__ == "__main__":

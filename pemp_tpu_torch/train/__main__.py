@@ -8,8 +8,8 @@ configuration is read from ``configs/<name>.yaml`` (model_58_4 comes from
 its Python preset, so no PyYAML is needed), the weights are seeded random
 ones, and each step's batch comes from ``data.synthetic`` with a numpy
 ``RandomState(seed)``. ``--msg-pass`` sets ``TPU.MSG_PASS`` (the
-message-passing route: ``pallas`` or ``hybrid``; the file's own value by
-default). Runs on CUDA unless given ``--device cpu``; prints
+message-passing route: ``pallas``, ``hybrid``, ``einsum`` or ``dots``; the
+file's own value by default). Runs on CUDA unless given ``--device cpu``; prints
 each step's loss parts and the steps per second.
 """
 

@@ -7,7 +7,10 @@ backbone, at ``TRAIN.LR`` with ``TRAIN.W_DECAY``), ``backbone`` (at
 ``TRAIN.KP_LR`` with ``TRAIN.KP_W_DECAY``) or ``frozen`` (never updated),
 and runs ``optax.adamw`` with decoupled decay (``optax.adam`` where the
 decay is 0). ``torch.optim.AdamW`` is the same update; its decay is given
-explicitly here, never left at torch's 0.01 default.
+explicitly here, never left at torch's 0.01 default. optax updates every
+parameter of a group, with a zero gradient where the loss does not reach
+it (the decay, and Adam's moments decaying); torch skips a parameter whose
+``grad`` is None, so ``step()`` gives such a parameter zeros first.
 """
 
 from __future__ import annotations
@@ -76,6 +79,9 @@ class SplitAdamW:
         for group in self.opt.param_groups:
             group["lr"] = multistep_lr(self.schedule[group["name"]], self.lr_steps,
                                        self.lr_factor, self.steps_per_epoch, self.count)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.opt.step()
         self.count += 1
 

@@ -1,7 +1,8 @@
-"""K3, K3b and K4, the aggregations of the hybrid and einsum message paths:
-the port's plain versions against the JAX Pallas kernels (interpret mode),
-K3's custom VJP and the JAX package's jnp aggregate. The CUDA kernels are
-held against the plain versions in tests/test_torch_cuda_kernels.py."""
+"""K3, K3b, K4 and K4b, the aggregations of the hybrid, einsum and dots
+message paths: the port's plain versions against the JAX Pallas kernels
+(interpret mode), K3's custom VJP and the JAX package's jnp aggregate and
+its gradient. The CUDA kernels are held against the plain versions in
+tests/test_torch_cuda_kernels.py."""
 
 import jax
 import jax.numpy as jnp
@@ -192,6 +193,53 @@ def test_k4_plain_matches_jax_kernel_at_kernel_widths(dtype):
     else:
         np.testing.assert_allclose(got.float().numpy(), kernel, rtol=2 ** -8, atol=1e-6)
     assert np.all(got.float().numpy()[sizes == 0] == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k4b_factored_backward_matches_jax_vjp_and_autograd(case):
+    """blocked_attn_aggregate_bwd_plain (K4b's math: the weights from the
+    logits, then dm, u, q, dlogit) against jax.vjp of the JAX package's jnp
+    aggregate, which the JAX einsum and dots routes differentiate, and
+    against autograd through the port's plain forward. The jnp aggregate
+    lets the gradient through the group max and the port's plain version
+    holds it constant; the max's gradient cancels, so all three give the
+    factored formula: 1e-5 of each output's largest (f32, sums in other
+    orders)."""
+    (m, _, types, valid, attn), g, n, t = _make(**BWD_CASES[case])
+    jtypes, jvalid = jnp.asarray(types), jnp.asarray(valid)
+    _, vjp = jax.vjp(lambda m, attn: jax_segment_aggregate(m, attn, jtypes, n, t, jvalid),
+                     jnp.asarray(m), jnp.asarray(attn))
+    want = vjp(jnp.asarray(g))
+    got = blocked_attn.blocked_attn_aggregate_bwd_plain(
+        *_torch((m, attn, types, valid, g)), n, t)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (m, attn)]
+    out = blocked_per_type_attention_aggregate(leaves[0], leaves[1], torch.from_numpy(types), n,
+                                               t, torch.from_numpy(valid))
+    autograd = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
+    for name, x, jx, ax in zip(("dm", "dlogit"), got, want, autograd):
+        assert x.dtype == torch.float32 and x.shape == ax.shape, name
+        for ref in (np.asarray(jx), ax.numpy()):
+            err = np.abs(x.numpy() - ref).max()
+            assert err <= 1e-5 * np.abs(ref).max(), (name, err, np.abs(ref).max())
+    dm, dlogit = (x.numpy() for x in got)
+    # the slots of no group give exactly 0
+    assert np.all(dm[valid == 0] == 0.0) and np.all(dlogit[valid == 0] == 0.0)
+
+
+def test_k4_wrapper_differentiates_cpu_tensors_through_the_plain_version():
+    """On CPU tensors blocked_attn_aggregate is the plain version, and
+    autograd through it gives K4b's factored math; nothing launches."""
+    (m, _, types, valid, attn), g, n, t = _make(5, d=64)
+    before = (blocked_attn.LAUNCHES, blocked_attn.LAUNCHES_BWD)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (m, attn)]
+    out = blocked_attn.blocked_attn_aggregate(leaves[0], leaves[1], torch.from_numpy(types), n,
+                                              t, torch.from_numpy(valid))
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
+    factored = blocked_attn.blocked_attn_aggregate_bwd_plain(
+        *_torch((m, attn, types, valid, g)), n, t)
+    for x, ref in zip(grads, factored):
+        assert (x - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (blocked_attn.LAUNCHES, blocked_attn.LAUNCHES_BWD) == before
 
 
 def test_wrappers_route_cpu_tensors_to_plain():

@@ -6,8 +6,8 @@ its bf16 outputs (scoremaps, features, tags, handed on in f32 as both
 backbones hand them on) feed both graph constructors and MPNs: the JAX one
 with ``TPU.MSG_PASS`` pinned to the route and its Pallas kernels in
 interpret mode (as tests/test_torch_slice.py runs them), the port's on the
-CPU through the plain versions of K1 (``fused_step``), K3 (``hybrid``) and
-K4 (``einsum``). An end-to-end bf16 comparison is not made: the two bf16
+CPU through the plain versions of K1 (``fused_step``), K2 (``pallas``), K3
+(``hybrid``) and K4 (``einsum``, ``dots``). An end-to-end bf16 comparison is not made: the two bf16
 backbones round differently, and detections then diverge.
 """
 
@@ -24,10 +24,10 @@ from pemp_tpu.models import build_pose_model as jax_build_pose_model
 from pemp_tpu.models.mpn.layers import fused_tile_ok
 from pemp_tpu_torch.config import small
 from pemp_tpu_torch.models.pose_estimation import build_pose_model
-from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step
+from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, typed_message
 from pemp_tpu_torch.weights import from_jax_variables
 
-ROUTES = ("fused_step", "hybrid", "einsum")
+ROUTES = ("fused_step", "hybrid", "einsum", "pallas", "dots")
 GRAPH_KEYS = ("nodes", "edge_index", "edge_valid", "node_valid")
 
 
@@ -39,9 +39,10 @@ def _jax_model(port_cfg, route):
     cfg.TPU.COLLECT_AUX = False
     cfg.freeze()
     jmodel = jax_build_pose_model(cfg, dtype=jnp.bfloat16)
-    if route != "einsum":
+    if route not in ("einsum", "dots"):
         # build_pose_model turns Pallas off away from a TPU; the interpret
-        # mode runs the route's kernel on the CPU
+        # mode runs the route's kernel on the CPU (einsum and dots run the
+        # jnp aggregate)
         jmodel.mpn_cfg["_USE_PALLAS"] = True
         jmodel.mpn_cfg["_PALLAS_INTERPRET"] = True
     return jmodel
@@ -86,13 +87,15 @@ def test_bf16_mpn_matches_jax(backbone_run, route):
     model.backbone_forward = lambda imgs: (
         [to_t(s).to(torch.bfloat16) for s in stages], to_t(scoremaps), to_t(features),
         to_t(tags))
-    if route == "hybrid":
-        # the JAX layer takes its K3 branch only under this gate
+    if route in ("hybrid", "pallas"):
+        # the JAX layer takes its K3 or K2 branch only under this gate
         assert fused_tile_ok(int(np.asarray(graph["node_valid"]).size), model.gc.slots, 17)
-    before = (fused_step.LAUNCHES, attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES)
+    counts = lambda: (fused_step.LAUNCHES, typed_message.LAUNCHES_FWD,  # noqa: E731
+                      attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES)
+    before = counts()
     with torch.no_grad():
         _, out = model(torch.from_numpy(backbone_run["imgs"]))
-    assert (fused_step.LAUNCHES, attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES) == before
+    assert counts() == before
 
     for key in GRAPH_KEYS:
         np.testing.assert_array_equal(out["graph"][key].numpy(), np.asarray(graph[key]),

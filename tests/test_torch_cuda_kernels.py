@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, typed_message
+from pemp_tpu_torch.ops import (
+    attn_aggregate,
+    blocked_attn,
+    fused_step,
+    gather_mm,
+    typed_message,
+)
 from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 
 
@@ -168,6 +174,43 @@ def test_typed_message_kernels_match_plain_on_card(case):
     assert torch.equal(out_k, out_2)
     for first, second in zip(grads_k, again):
         assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_typed_message_bf16_kernel_matches_plain_on_card(case):
+    # K2's bf16 form (the pallas eval path) against the plain version on the
+    # same bf16 inputs, both computing in f32 on the widened values: 1e-4 of
+    # the largest output (sums in another order). The form widens and runs
+    # the f32 code, so it gives the f32 form's bits on the widened inputs.
+    # Empty groups give exactly 0 over memory a NaN-filled tensor left; a
+    # second call gives the same bits; a gradient is refused (K2b is f32).
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (ef, a, types, valid, we, wa), _, n, t = _k2_inputs(**K2_CASES[case])
+    ef, a, we, wa = (x.to(torch.bfloat16) for x in (ef, a, we, wa))
+    c = types.numel() // n
+    node = torch.arange(types.numel(), device="cuda") // c
+    sizes = torch.bincount((node * t + types.long())[valid != 0], minlength=n * t)
+    empty = (sizes == 0).view(n, t)
+    before = typed_message.LAUNCHES_FWD
+    _nan_garbage(a.float())                    # out: (N, T, 64) float32
+    out_k = typed_message.fused_typed_message_aggregate(ef, a, types, valid, we, wa, n, t)
+    out_p = typed_message.fused_typed_message_plain(ef, a, types, valid, we, wa, n, t)
+    torch.cuda.synchronize()
+    assert typed_message.LAUNCHES_FWD == before + 1 and out_k.dtype == torch.float32
+    assert bool(torch.isfinite(out_k).all())
+    assert (out_k - out_p).abs().max().item() <= 1e-4 * out_p.abs().max().item()
+    assert bool(empty.any()) and bool((out_k[empty] == 0).all())
+    assert torch.equal(out_k, typed_message.fused_typed_message_aggregate(
+        ef, a, types, valid, we, wa, n, t))
+    wide = [x.float() for x in (ef, a, we, wa)]
+    assert torch.equal(out_k, typed_message.fused_typed_message_aggregate(
+        wide[0], wide[1], types, valid, wide[2], wide[3], n, t))
+    with pytest.raises(ValueError, match="forward only"):
+        typed_message.fused_typed_message_aggregate(ef.clone().requires_grad_(), a, types,
+                                                    valid, we, wa, n, t)
 
 
 def _k3_inputs(dtype, seed=4, n=40, c=80, t=17, w=64, full_node=None, empty_type=None):
@@ -332,9 +375,38 @@ def test_blocked_attn_kernel_matches_plain_on_card(case, dtype, tol):
     if dtype == torch.float32:
         assert torch.equal(out_k, attn_aggregate.fused_attn_aggregate(b, a, types, valid,
                                                                       logits, n, t))
-    with pytest.raises(ValueError, match="no backward kernel"):
-        blocked_attn.blocked_attn_aggregate(m.clone().requires_grad_(), logits, types, n, t,
-                                            valid)
+    # K4b, the backward (f32 only): against its factored plain form and
+    # against autograd through the plain version, 1e-4 of each output's
+    # largest; the slots of no group exactly 0 over NaN-filled memory; the
+    # same bits again
+    g = torch.randn(n, t, 64, generator=torch.Generator().manual_seed(len(case))).cuda()
+
+    def kernel_grads():
+        leaves = [m.clone().requires_grad_(), logits.clone().requires_grad_()]
+        out = blocked_attn.blocked_attn_aggregate(leaves[0], leaves[1], types, n, t, valid)
+        _nan_garbage(m.float(), logits)
+        return torch.autograd.grad(out, leaves, g.to(out.dtype))
+
+    if dtype != torch.float32:
+        with pytest.raises(ValueError, match="float32 only"):
+            kernel_grads()
+        return
+    before = blocked_attn.LAUNCHES_BWD
+    grads_k = kernel_grads()
+    plain = [m.clone().requires_grad_(), logits.clone().requires_grad_()]
+    grads_p = torch.autograd.grad(blocked_per_type_attention_aggregate(
+        plain[0], plain[1], types, n, t, valid), plain, g)
+    factored = blocked_attn.blocked_attn_aggregate_bwd_plain(m, logits, types, valid, g, n, t)
+    torch.cuda.synchronize()
+    assert blocked_attn.LAUNCHES_BWD == before + 1
+    for name, gk, gp, gf in zip(("dm", "dlogit"), grads_k, grads_p, factored):
+        assert bool(torch.isfinite(gk).all()), name
+        for ref in (gp, gf):
+            assert (gk - ref).abs().max().item() <= 1e-4 * ref.abs().max().item(), name
+    dm, dlogit = grads_k
+    assert bool((dm[valid == 0] == 0).all() and (dlogit[valid == 0] == 0).all())
+    for first, second in zip(grads_k, kernel_grads()):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -350,3 +422,66 @@ def test_blocked_attn_rejects_what_it_does_not_take():
     shifted = torch.empty(b.numel() + 1, device="cuda")[1:].view_as(b).copy_(b)
     with pytest.raises(ValueError, match="aligned"):
         blocked_attn.blocked_attn_aggregate(shifted, logits, types, n, t, valid)
+
+
+G1_CASES = {
+    # (images, nodes an image, slots an image, width, dtype, slots naming
+    # each image's node 0); the kNN layout points every invalid slot at it
+    "c80": (2, 136, 136 * 80, 64, torch.float32, 2000),
+    # a row of 5000 slots: 79 pieces of at most 64
+    "heavy_row": (1, 40, 9000, 64, torch.float32, 5000),
+    # 130 columns: a lane owns column pairs 2l and 64 + 2l, and only lane 0
+    # the last pair
+    "wide_ragged": (3, 30, 700, 130, torch.float32, 0),
+    # bf16 rows and cotangent: summed in f32, rounded once
+    "bf16": (2, 136, 136 * 80, 64, torch.bfloat16, 2000),
+    # most rows named by no slot: zeros
+    "sparse": (2, 500, 60, 64, torch.float32, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(G1_CASES))
+def test_gather_backward_kernel_matches_plain_on_card(case):
+    # G1 against its plain version on the CPU: the same sums in the same
+    # order (each piece in slot order, then a row's pieces), so the same
+    # bits; against the plain version on the card (index_add_, whose
+    # atomics add in no fixed order) within 1e-5 of the largest (bf16: the
+    # f32 sums may round to neighbouring bf16 values, 2^-8). Rows no
+    # slot names are exactly 0 over NaN-filled memory; a second call gives
+    # the same bits.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    imgs, n_img, e_img, d, dtype, heavy = G1_CASES[case]
+    rng = np.random.RandomState(sorted(G1_CASES).index(case))
+    local = rng.randint(0, n_img, (imgs, e_img))
+    local[:, :heavy] = 0
+    j = torch.from_numpy((local + np.arange(imgs)[:, None] * n_img).ravel())
+    n = imgs * n_img
+    g = torch.from_numpy(rng.randn(j.numel(), d).astype(np.float32)).to(dtype)
+    plan_cpu = gather_mm.gather_plan(j, n_img, n)
+    want = gather_mm.gather_rows_bwd_plain(g, plan_cpu, n, dtype)
+    jc, gc = j.cuda(), g.cuda()
+    plan = gather_mm.gather_plan(jc, n_img, n)
+    for key in plan:
+        assert torch.equal(plan[key].cpu(), plan_cpu[key]), key
+    before = gather_mm.LAUNCHES
+    _nan_garbage(torch.empty(n, d, dtype=dtype, device="cuda"))
+    got = gather_mm.gather_rows_bwd(gc, plan, n, dtype)
+    on_card = gather_mm.gather_rows_bwd_plain(gc, plan, n, dtype)
+    torch.cuda.synchronize()
+    assert gather_mm.LAUNCHES == before + 1 and got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
+    err = (got.float() - on_card.float()).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8      # bf16: one rounding step
+    assert err <= tol * on_card.float().abs().max().item()
+    named = torch.zeros(n, dtype=torch.bool)
+    named[j] = True
+    assert bool((got.cpu()[~named] == 0).all())
+    assert torch.equal(got, gather_mm.gather_rows_bwd(gc, plan, n, dtype))
+    # through the autograd Function: forward x[j], backward G1
+    x = torch.randn(n, d, device="cuda").to(dtype).requires_grad_()
+    out = gather_mm.gather_rows_mm_or_plain(x, jc, n_img, plan)
+    assert torch.equal(out, x.detach()[jc])
+    (dx,) = torch.autograd.grad(out, x, gc)
+    assert gather_mm.LAUNCHES == before + 3 and torch.equal(dx, got)

@@ -128,7 +128,7 @@ def test_repo_yaml_loads_or_is_refused(path):
 
 
 @pytest.mark.parametrize("text,error", [
-    ("TPU: {MSG_PASS: dots}", NotImplementedError),
+    ("TPU: {MSG_PASS: dots_x}", NotImplementedError),
     ("TPU: {S2D_DECONV: 1}", NotImplementedError),
     ("TEST: {FLIP_TEST: true}", NotImplementedError),
     ("MODEL: {GC: {DETECT_THRESHOLDS: 0.1}}", KeyError),
@@ -147,11 +147,15 @@ def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
     ("hybrid", "eval", True),
     ("einsum", "eval", True),
     ("hybrid", "train", True),
-    ("einsum", "train", False),
+    ("einsum", "train", True),
+    ("pallas", "eval", True),
+    ("dots", "eval", True),
+    ("dots", "train", True),
+    ("fused_step", "train", False),
 ])
 def test_reverse_permutation_routes(tmp_path, msg_pass, path, runs):
-    """hybrid and einsum load from a file; eval runs both, training runs
-    hybrid and refuses einsum (no backward kernel for its aggregate)."""
+    """Every route loads from a file; eval runs all five, training all but
+    fused_step, whose JAX backward is a jnp recompute, not a kernel."""
     file = tmp_path / "c.yaml"
     file.write_text(f"TPU: {{MSG_PASS: {msg_pass}}}\n")
     cfg = update_config(w48_640() if path == "eval" else w32_512_train(), str(file))
@@ -159,7 +163,7 @@ def test_reverse_permutation_routes(tmp_path, msg_pass, path, runs):
     if runs:
         check_path(cfg, path)
     else:
-        with pytest.raises(NotImplementedError, match="no backward kernel"):
+        with pytest.raises(NotImplementedError, match="jnp recompute"):
             check_path(cfg, path)
 
 

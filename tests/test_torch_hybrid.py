@@ -1,8 +1,10 @@
-"""The reverse-permutation message paths, port against the JAX package: the
+"""The split edge MLP's message paths, port against the JAX package: the
 type-blocked projection (TypeAwareSplitLinear with ``rev_perm``), the
-flagship MPN on the ``hybrid`` route (K3 in interpret mode on the JAX side)
-at eval and in training and on the ``einsum`` route, and one small_train
-step on ``hybrid`` (K3 and its backward kernel K3b in interpret mode)."""
+flagship MPN on the ``hybrid`` route (K3 in interpret mode on the JAX side),
+the ``einsum`` and ``dots`` routes (the JAX jnp aggregate) at eval and in
+training and the ``pallas`` route at eval (K2's bf16-capable kernel in
+interpret mode), and one small_train step on ``hybrid`` (K3 and its
+backward kernel K3b in interpret mode)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from pemp_tpu_torch.config.defaults import W48_640
 from pemp_tpu_torch.data.synthetic import make_batch
 from pemp_tpu_torch.models.mpn.layers import type_aware_split_linear
 from pemp_tpu_torch.models.mpn.models import NodeClassificationMPN
-from pemp_tpu_torch.ops import attn_aggregate, blocked_attn
+from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, typed_message
 from pemp_tpu_torch.ops.knn import reverse_edge_perm
 from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
 from pemp_tpu_torch.weights import from_jax_variables, mpn_from_jax_variables
@@ -110,10 +112,17 @@ def mpn_setup():
 
 
 ROUTES = {
-    # route: (the JAX model's switches, train)
+    # route: (the JAX model's switches, train); the JAX package's
+    # build_pose_model sets _TYPED_EINSUM for hybrid and einsum only and
+    # _USE_PALLAS off for einsum and dots
     "hybrid_eval": ({"_USE_PALLAS": True, "_PALLAS_INTERPRET": True}, False),
     "hybrid_train": ({"_USE_PALLAS": True, "_PALLAS_INTERPRET": True}, True),
     "einsum_eval": ({}, False),
+    "einsum_train": ({}, True),
+    "dots_eval": ({"_TYPED_EINSUM": False}, False),
+    "dots_train": ({"_TYPED_EINSUM": False}, True),
+    "pallas_eval": ({"_TYPED_EINSUM": False, "_USE_PALLAS": True, "_PALLAS_INTERPRET": True},
+                    False),
 }
 
 
@@ -122,7 +131,7 @@ def test_mpn_route_matches_jax(mpn_setup, route):
     switches, train = ROUTES[route]
     msg_pass = route.split("_")[0]
     s = mpn_setup
-    jax_mpn = JaxMPN({**s["mpn_cfg"], **switches, "_TYPED_EINSUM": True, "_COLLECT_AUX": False})
+    jax_mpn = JaxMPN({**s["mpn_cfg"], "_TYPED_EINSUM": True, "_COLLECT_AUX": False, **switches})
     if train:
         want, _ = jax_mpn.apply(s["variables"], *s["jargs"], train=True,
                                 mutable=["batch_stats"])
@@ -134,11 +143,12 @@ def test_mpn_route_matches_jax(mpn_setup, route):
         s["variables"]["params"], s["variables"]["batch_stats"], s["mpn_cfg"]))
     port.train(train)
     x, ea, ei, _, node_valid, ev = s["args"]
-    before = (attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES)
+    before = (attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES, typed_message.LAUNCHES_FWD)
     with torch.no_grad():
         got = port(_t(x), _t(ea), _t(ei), _t(ev), _t(ei[0] % s["n_img"]), torch.float32,
                    node_valid=_t(node_valid))
-    assert (attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES) == before   # CPU: plain
+    assert (attn_aggregate.LAUNCHES_FWD, blocked_attn.LAUNCHES,
+            typed_message.LAUNCHES_FWD) == before   # CPU: plain
     # tests/test_typed_einsum.py:236-250's tolerance between message paths
     for key in ("edge", "node", "class"):
         assert len(got[key]) == len(want[key]), key

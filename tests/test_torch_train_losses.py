@@ -173,6 +173,41 @@ def test_split_adamw_matches_build_optimizer(freeze_mode, end_to_end):
                                        rtol=1e-6, atol=1e-7, err_msg=name)
 
 
+def test_split_adamw_updates_a_parameter_the_loss_does_not_reach():
+    """A parameter with no gradient (torch: None) is updated as optax
+    updates it on a zero gradient: decayed, with Adam's moments decaying
+    after a step that did reach it (the attention bias on the routes that
+    leave it out of the logits)."""
+    rng = np.random.RandomState(5)
+    port_cfg = small_train()
+    port_cfg.TRAIN.KP_FREEZE_MODE, port_cfg.TRAIN.END_TO_END = "nothing", True
+    port_cfg.TRAIN.W_DECAY = port_cfg.TRAIN.KP_W_DECAY = 0.01
+    jcfg = get_config()
+    jcfg.merge_from_other(port_cfg.to_dict())
+    model = _Composite(rng)
+    params, jax_names = _jax_tree(model.names, [p.detach().numpy() for p in model.params])
+    tx, _ = build_optimizer(jcfg, params, steps_per_epoch=1)
+    state = tx.init(params)
+    opt = SplitAdamW(port_cfg, model, steps_per_epoch=1)
+    unreached = {0: "mpn.lin.weight", 1: "backbone.conv1.weight"}
+    for step in range(3):
+        grads = [rng.randn(*p.shape).astype(np.float32) for p in model.params]
+        for name, p, g in zip(model.names, model.params, grads):
+            if name == unreached.get(step):       # first reached, then not
+                g[...] = 0.0
+                p.grad = None
+            else:
+                p.grad = torch.from_numpy(g)
+        jgrads, _ = _jax_tree(model.names, grads)
+        updates, state = tx.update(jgrads, state, params)
+        params = optax.apply_updates(params, updates)
+        opt.step()
+        flat = flatten_dict(params)
+        for name, p in zip(model.names, model.params):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(flat[jax_names[name]]),
+                                       rtol=1e-6, atol=1e-7, err_msg=f"{name}, step {step}")
+
+
 def test_non_finite_step_is_skipped_and_state_restored():
     """A step whose loss is not finite (a NaN in the heatmap targets) leaves
     the parameters, the optimizer state and the MPN's running statistics
