@@ -101,7 +101,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    times on einsum and 30 on dots: the source gather and the projection's
    selections).
 
-Phases 5 and 8 check the counts the same way: every kernel not named
+18. small TTA slice, CPU against card: the narrow configuration at scales
+   [1.0, 0.5] with flip on two images of different sizes, the same seeded
+   weights on both; aggregated scoremaps, tags and node features within
+   1e-4 of each one's largest, graphs exact, persons within 2e-3.
+19. the eval entry point at full width (``valid.evaluate``, batches of 8):
+   w48/640 with flip at scales [2.0, 1.0, 0.5], bf16, threshold decode on
+   16 rendered images of 480x640 and 640x480 (two batches). The seeded
+   weights get BatchNorm statistics measured on the images, so that
+   persons form (full_width_model). First the pipeline over the images:
+   the card's persons are held against the CPU's decode of the same
+   outputs (2e-3), and there must be some. Then a run with the counts
+   zeroed just before and read just after (K1 10 times a batch), timed,
+   whose results file must hold persons; prints img/s and peak memory.
+   Then a run with each stage timed (host warp, backbone, projection,
+   graph + MPN, decode, scoring), which synchronises the card at each
+   stage's end and so gives the split but not the rate.
+20. model_58_4 as its file says (w32/512, one scale, no flip, GAEC on the
+   host through the g++ library built at first use) on the same images,
+   the node threshold lowered from the file's 1.0 (which no sigmoid score
+   passes) to 0.5; the same three runs, the host clustering and its decode
+   held against the same clustering decoded on the CPU; prints img/s and
+   the host clustering's share.
+21. scoring: the ground truth as detections scores AP 1.0 through the
+   port's KeypointEval; noisy detections score the stats the CPU tests pin
+   against the JAX package.
+
+Phases 5, 8 and 19 check the counts the same way: every kernel not named
 launches 0 times.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
@@ -934,6 +960,252 @@ def phase_decode():
         f"equal on CPU and card")
 
 
+# Phase 21: detections made from the ground truth with normal noise of 2
+# pixels score these stats through the port's KeypointEval (COCO's ten,
+# CrowdPose's nine); tests/test_torch_eval.py holds pemp_tpu.eval's stats
+# on the same detections to them (1e-12).
+SCORING_STATS = {
+    "coco": [0.788558989578646, 0.8563657767093993, 0.8563657767093993, 0.8907142857142857,
+             0.7806647807637905, 0.9296296296296296, 1.0, 1.0, 0.9, 0.9800000000000001],
+    "crowdpose": [0.7550370172152349, 0.761180982963161, 0.761180982963161,
+                  0.9962962962962963, 1.0, 1.0, 0.9158415841584159, 0.7405178979436402,
+                  0.7878359264497875],
+}
+
+
+def scoring_case(crowdpose: bool, noise: float):
+    """Ground truth for ten 300x400 images (a tenth of the persons crowds)
+    and detections made from it with ``noise`` pixels of normal noise plus
+    a false person per image."""
+    from pemp_tpu_torch.data.synthetic import eval_scenes, noisy_results
+
+    gt = eval_scenes(np.random.RandomState(0), [(300, 400)] * 10, 14 if crowdpose else 17,
+                     render=False, crowd_fraction=0.1)[1]
+    return gt, noisy_results(np.random.RandomState(1), gt, noise)
+
+
+def keypoint_stats(gt, dets, crowdpose: bool):
+    from pemp_tpu_torch.data.coco_api import COCO
+    from pemp_tpu_torch.eval.coco_eval import KeypointEval
+
+    coco = COCO(gt)
+    ev = KeypointEval(coco, coco.loadRes(dets), crowdpose=crowdpose)
+    ev.evaluate(sorted(coco.imgs))
+    ev.accumulate()
+    return ev.summarize(verbose=False)
+
+
+def phase_scoring():
+    """The ground truth as detections scores AP 1.0; noisy detections score
+    SCORING_STATS."""
+    worst = 0.0
+    for name, crowdpose in (("coco", False), ("crowdpose", True)):
+        gt, dets = scoring_case(crowdpose, 2.0)
+        stats = keypoint_stats(gt, sum(dets, []), crowdpose)
+        err = float(np.abs(stats - np.asarray(SCORING_STATS[name])).max())
+        worst = max(worst, err)
+        if not err <= 1e-12:
+            raise SystemExit(f"scoring {name}: stats {stats.tolist()} differ from the pinned "
+                             f"{SCORING_STATS[name]} by {err:.3e}")
+        for a in gt["annotations"]:
+            a["iscrowd"] = 0
+        exact = [{"image_id": a["image_id"], "category_id": 1, "keypoints": a["keypoints"],
+                  "score": 1.0} for a in gt["annotations"]]
+        ap = keypoint_stats(gt, exact, crowdpose)[0]
+        if ap != 1.0:
+            raise SystemExit(f"scoring {name}: the ground truth as detections scores AP {ap}")
+    log(f"scoring: the ground truth scores AP 1.0 (COCO, CrowdPose); noisy detections the "
+        f"pinned stats within {worst:.1e}")
+
+
+def tta_model(cfg, device, dtype, seed):
+    """The eval entry point's model with seeded random weights, the edge
+    head's last bias raised to 2 so that, at the narrow width, edges pass
+    the 0.8 grouping threshold and persons form."""
+    from pemp_tpu_torch.models.pose_estimation import build_pose_model
+    from pemp_tpu_torch.pipeline import init_random_weights
+
+    model = build_pose_model(cfg, dtype=dtype, device=device, path="valid")
+    init_random_weights(model, seed)
+    with torch.no_grad():
+        model.mpn.edge_classification[-1].bias.fill_(2.0)
+    return model
+
+
+def phase_small_tta():
+    """Multi-scale + flip test-time augmentation on the narrow configuration
+    at scales [1.0, 0.5] with flip, two images of different sizes, the same
+    weights on the CPU (plain versions) and on the card (kernels)."""
+    from pemp_tpu_torch.config import small
+    from pemp_tpu_torch.data.synthetic import eval_scenes
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+
+    cfg = small()
+    cfg.merge_from_other({"DATASET": {"INPUT_SIZE": 64, "OUTPUT_SIZE": [16, 32]},
+                          "TEST": {"SCALE_FACTOR": [1.0, 0.5], "FLIP_TEST": True}})
+    images, _ = eval_scenes(np.random.RandomState(5), [(72, 96), (96, 80)])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = TTAPipeline(tta_model(cfg, dev, torch.float32, 3), cfg)
+        runs[dev] = [{k: v.cpu() if torch.is_tensor(v) else v for k, v in o.items()}
+                     for o in pipe.run_batched(images, batch_size=2)]
+    errs = {}
+    for c, g in zip(runs["cpu"], runs["cuda"]):
+        for key in ("nodes", "edge_index", "edge_valid", "node_valid", "person_valid"):
+            if not torch.equal(c[key], g[key]):
+                raise SystemExit(f"small TTA: {key} differs between CPU and card")
+        # f32 on both sides (TF32 off), sums in other orders: each map within
+        # 1e-4 of its largest; persons at the CPU tests' 2e-3 against JAX
+        for key in ("scoremaps", "tags", "node_features"):
+            errs[key] = max(errs.get(key, 0.0),
+                            float((c[key] - g[key]).abs().max() / c[key].abs().max()))
+        errs["persons"] = max(errs.get("persons", 0.0),
+                              float((c["persons"] - g["persons"]).abs().max()))
+    bad = {k: v for k, v in errs.items() if not v <= (2e-3 if k == "persons" else 1e-4)}
+    found = sum(int(o["person_valid"].sum()) for o in runs["cpu"])
+    if bad or found < 2:
+        raise SystemExit(f"small TTA: CPU and card differ {bad}, or too few persons ({found})")
+    log(f"small TTA: scales [1.0, 0.5] with flip, images 72x96 and 96x80, CPU vs card: "
+        f"relative errors {errs}; graphs exact; persons found {found}")
+
+
+class RenderedSet:
+    """A COCO-format eval set whose annotations file is written to ``root``
+    and whose images are rendered arrays (the card's machine has no PIL)."""
+
+    def __init__(self, root, images, dataset):
+        import os
+
+        from pemp_tpu_torch.data.datasets import CocoKeypoints
+
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        with open(os.path.join(root, "annotations", "person_keypoints_val2017.json"), "w") as f:
+            json.dump(dataset, f)
+        base = CocoKeypoints(root, filter_empty=False)
+        self.coco, self.img_ids = base.coco, base.img_ids
+        self.images = {r["id"]: image for r, image in zip(dataset["images"], images)}
+
+    def __len__(self):
+        return len(self.img_ids)
+
+    def load_raw(self, idx):
+        img_id = int(self.img_ids[idx])
+        return (img_id, self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id)),
+                self.coco.loadImgs(img_id)[0], self.images[img_id])
+
+
+def full_width_model(cfg, images):
+    """tta_model at full width in bf16, made to form persons. Each
+    BatchNorm's statistics are set to those of its input on ``images`` at
+    scale 1, in one forward in layer order: without it the random maps
+    grow to ~1e3 at full depth, the MPN's sigmoids saturate, and no node
+    passes (node scores 0) or every edge does. Then the node head's last
+    bias is raised to 2 and the edge head's set to 0.5, so that most nodes
+    pass the threshold and edge scores lie on both sides of 0.5 for GAEC."""
+    from pemp_tpu_torch.models.hrnet import BatchNorm2d
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+
+    model = tta_model(cfg, "cuda", torch.bfloat16, 0)
+
+    def measure(bn, args):
+        x = args[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(measure) for m in model.modules()
+             if isinstance(m, BatchNorm2d)]
+    pipe = TTAPipeline(model, cfg)
+    x = np.stack([pipe._prepare(im)[0][pipe.scales.index(1.0)]["padded"] for im in images])
+    with torch.no_grad():
+        model.backbone_forward(torch.from_numpy(x).cuda())
+        for h in hooks:
+            h.remove()
+        model.mpn.node_classification[-1].bias.fill_(2.0)
+        model.mpn.edge_classification[-1].bias.fill_(0.5)
+    return model
+
+
+def check_full_width_decode(label, cfg, model, images):
+    """The pipeline over ``images`` in batches of 8; each image's persons
+    (the card's threshold decode, or the host clustering and its decode on
+    the card) against the same outputs decoded on the CPU: person_valid
+    exact, keypoints within phase 18's 2e-3. Fails unless persons form.
+    Returns their number and the largest error."""
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+    from pemp_tpu_torch.valid import _host_grouping
+
+    threshold = cfg.MODEL.GC.CC_METHOD == "threshold"
+    pipe = TTAPipeline(model, cfg, with_decode=threshold)
+    found, err = 0, 0.0
+    for out in pipe.run_batched(images, batch_size=8):
+        host = {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+        if threshold:
+            card_p, card_v = out["persons"], out["person_valid"]
+            batch = {k: v[None] for k, v in host.items() if torch.is_tensor(v)}
+            cpu_p, cpu_v = (t[0] for t in pipe.decode(batch))
+        else:
+            card_p, card_v = _host_grouping(out, cfg)
+            cpu_p, cpu_v = _host_grouping(host, cfg)
+        if not torch.equal(card_v.cpu(), cpu_v):
+            raise SystemExit(f"{label}: the card and the CPU decode other persons from the "
+                             f"same outputs")
+        if cpu_v.any():
+            err = max(err, float((card_p.cpu() - cpu_p)[cpu_v].abs().max()))
+        found += int(cpu_v.sum())
+    if found == 0 or not err <= 2e-3:
+        raise SystemExit(f"{label}: {found} persons, card against CPU decode {err:.3e}")
+    return found, err
+
+
+def drive_valid(label, cfg, eval_set, batches, card, log_dir):
+    """valid.evaluate in batches of 8 at full width, bf16, after
+    check_full_width_decode (which also warms up): a run with the counts
+    zeroed just before and read just after (K1 10 times a batch, nothing
+    else), timed, then one with the stages timed. Checks the report and
+    that the results file holds persons; returns the K1 count, the stage
+    times and the staged run's seconds."""
+    import os
+
+    from pemp_tpu_torch.valid import evaluate
+
+    cfg.LOG_DIR = log_dir
+    images = [eval_set.load_raw(i)[3] for i in range(len(eval_set))]
+    model = full_width_model(cfg, [im for im in images if im.shape == images[0].shape])
+    found, err = check_full_width_decode(label, cfg, model, images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = evaluate(cfg, model, eval_set, "eval.txt", batch_size=8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(label, {"K1": 10 * batches})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = cfg.TEST.SPLIT
+    with open(os.path.join(log_dir, f"person_keypoints_{split}_mpn_results.json")) as f:
+        results = json.load(f)
+    if len(stats) != 10 or not np.isfinite(stats).all() or not results or not all(
+            np.isfinite(r["keypoints"]).all() and r["image_id"] in eval_set.img_ids
+            for r in results):
+        raise SystemExit(f"{label}: stats {list(stats)}, {len(results)} results")
+    n = len(eval_set)
+    log(f"{label}: {n} images in {batches} batches in {dt:.3f} s: {n / dt:.2f} img/s on "
+        f"{card}; launches K1 {counts['K1']} ({counts['K1'] // batches} a batch); peak "
+        f"memory {peak:.2f} GiB; {len(results)} persons, AP {stats[0]:.4f}; card against "
+        f"CPU decode of the same outputs: {found} persons, largest error {err:.3e}")
+    stage_times = {}
+    t0 = time.perf_counter()
+    evaluate(cfg, model, eval_set, "stages.txt", batch_size=8, stage_times=stage_times)
+    dt_staged = time.perf_counter() - t0
+    split_ms = ", ".join(f"{k} {v * 1e3 / n:.1f}" for k, v in stage_times.items())
+    log(f"{label}, stages timed (the card synchronised at each stage's end): {dt_staged:.3f} "
+        f"s; ms an image by stage: {split_ms}; stages sum to "
+        f"{sum(stage_times.values()):.3f} s")
+    del model
+    torch.cuda.empty_cache()
+    return counts["K1"], stage_times, dt_staged
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -1264,6 +1536,40 @@ def main() -> int:
         torch.cuda.empty_cache()
     del batches
 
+    log(f"chip_smoke: phases 1-17 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 18. small TTA slice, CPU against card
+    phase_small_tta()
+
+    # 19. the eval entry point at full width: w48/640, scales [2.0, 1.0, 0.5]
+    # with flip, threshold decode on the card; 16 rendered images in two
+    # shapes, so two batches of 8
+    import tempfile
+
+    from pemp_tpu_torch.data.synthetic import eval_scenes
+
+    sizes = [(480, 640), (640, 480)] * 8
+    rendered, dataset = eval_scenes(np.random.RandomState(7), sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered, dataset)
+        cfg = w48_640()
+        cfg.merge_from_other({"TEST": {"FLIP_TEST": True, "SCALE_FACTOR": [2.0, 1.0, 0.5]}})
+        valid_launches, _, _ = drive_valid("valid w48/640 multi-scale + flip", cfg, eval_set,
+                                           2, card, tmp)
+
+        # 20. model_58_4 as its file says: w32/512, one scale, no flip, GAEC
+        # on the host through the g++ library built at first use
+        cfg = w32_512_train()
+        cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid score passes it
+        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 2, card, tmp)
+        valid_launches += count
+        log(f"valid model_58_4 GAEC: host clustering and its decode {times['cluster']:.3f} s "
+            f"of the staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
+
+    # 21. scoring on the card's machine
+    phase_scoring()
+    launches += valid_launches
+
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
         "name": "fused_mpn_step", "route": "cuda",
@@ -1301,7 +1607,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-17 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-21 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,18 @@ not hold. The ``MODEL.MPN`` subtree takes new keys, as in the JAX package;
 the model checks it (``models.mpn.models._check_flagship``).
 
 Each path then checks the values it implements for one setting only:
-:func:`check_path` with ``"eval"`` (the builders of the eval model and
-pipeline) or ``"train"`` (the trainer), against :data:`EVAL_FIXED` or
+:func:`check_path` with ``"eval"`` (the bench's pipeline), ``"valid"`` (the
+eval entry point, ``python -m pemp_tpu_torch.valid``) or ``"train"`` (the
+trainer), against :data:`EVAL_FIXED`, :data:`VALID_FIXED` or
 :data:`TRAIN_FIXED` and :func:`msg_pass_route`. :func:`w48_640` and
 :func:`w32_512_train` carry ``configs/hrnet/w48_640.yaml`` and
 ``configs/hybrid_class_agnostic_end2end/model_58_4.yaml`` as Python, for
-machines without PyYAML.
+machines without PyYAML; :func:`load_config` resolves a ``--config`` name
+to a preset or a file.
 """
+
+import ast
+import pathlib
 
 from pemp_tpu_torch.config.node import ConfigNode as CN
 
@@ -35,7 +40,11 @@ def _stage(modules, branches, blocks, channels):
 
 
 _C = CN({
+    "LOG_DIR": "",
     "DATASET": {
+        "ROOT": "data/coco",
+        "DATASET": "coco",
+        "SCALING_TYPE": "short",
         "NUM_JOINTS": 17,
         "MAX_NUM_PEOPLE": 30,
         "INPUT_SIZE": 512,
@@ -120,11 +129,15 @@ _C = CN({
         },
     },
     "TEST": {
+        "SPLIT": "coco_17_mini",
         "FLIP_TEST": True,
+        "FLIP_AND_REARANGE": True,
         "SCALE_FACTOR": [0.5, 1.0, 2.0],
+        "PROJECT2IMAGE": True,
         "FILL_MEAN": True,
         "WITH_REFINE": False,
         "ADJUST": True,
+        "SCORING": "correct",
     },
     "TRAIN": {
         "LR": 3e-4,
@@ -188,6 +201,16 @@ EVAL_FIXED = {
     "TEST.ADJUST": (True,),
 }
 
+# The eval entry point (valid.py) runs multi-scale + flip test-time
+# augmentation and groups by threshold on the card or by correlation
+# clustering on the host; the greedy grouping (decode/greedy.py) and the
+# hourglass's long-side scaling are not ported.
+VALID_FIXED = {
+    "MODEL.GC.CC_METHOD": ("threshold", "GAEC", "KL", "MUT"),
+    "DATASET.SCALING_TYPE": ("short",),
+    "TPU.S2D_DECONV": (-1, 0),
+}
+
 # The training path is model_58_4's: edge labels by method 6 without the
 # neighbour pass, the auction matcher, no node dropout or image-centric
 # sampling, an unweighted class loss, the backbone's BatchNorm frozen and
@@ -211,12 +234,12 @@ def _under(prefix: str, names: str) -> set:
 
 NOT_READ = frozenset({
     # run, logging, devices
-    "OUTPUT_DIR", "LOG_DIR", "DATA_DIR", "GPUS", "WORKERS", "PRINT_FREQ", "CUDNN",
+    "OUTPUT_DIR", "DATA_DIR", "GPUS", "WORKERS", "PRINT_FREQ", "CUDNN",
     "AUTO_RESUME", "PIN_MEMORY", "RANK", "VERBOSE", "DIST_BACKEND",
     "MULTIPROCESSING_DISTRIBUTED",
     # data loading and augmentation (the trainer's batches are synthetic)
-    *_under("DATASET", "ROOT DATASET WITH_CENTER SCALING_TYPE SIGMA HEAT_GENERATOR "
-                       "MAX_ROTATION MIN_SCALE MAX_SCALE SCALE_TYPE MAX_TRANSLATE FLIP"),
+    *_under("DATASET", "WITH_CENTER SIGMA HEAT_GENERATOR MAX_ROTATION MIN_SCALE MAX_SCALE "
+                       "SCALE_TYPE MAX_TRANSLATE FLIP"),
     # epochs, resumption and splits (the trainer runs a given number of steps)
     *_under("TRAIN", "SPLIT START_EPOCH END_EPOCH CONTINUE SPLIT_OPTIMIZER FINETUNE "
                      "LOSS_REDUCTION USE_LABEL_MASK USE_BATCH_INDEX"),
@@ -236,10 +259,10 @@ NOT_READ = frozenset({
     "MODEL.GC.NAME",
     # the other backbone (MODEL.KP is fixed to hrnet)
     "MODEL.HG",
-    # evaluation sets and output formatting, which come after the persons
-    # the pipeline returns
-    *_under("TEST", "SPLIT NUM_EVAL PROJECT_TO_IMAGE PROJECT2IMAGE REFINE_COMP "
-                    "WITH_HEATMAPS WITH_AE FLIP_AND_REARANGE WITH_POSE_FILTER SCORING"),
+    # evaluation settings of the JAX package's other tools (valid_hr.py,
+    # the upper bounds) and the reference's dead keys
+    *_under("TEST", "NUM_EVAL PROJECT_TO_IMAGE REFINE_COMP WITH_HEATMAPS WITH_AE "
+                    "WITH_POSE_FILTER"),
     # how the JAX package runs on a TPU; the working type is the entry
     # points' ``dtype`` argument
     *_under("TPU", "USE_PALLAS SCAN_UNROLL COMPILE_BUDGET COMPUTE_DTYPE MESH_DATA "
@@ -297,9 +320,9 @@ def msg_pass_route(msg_pass: str, train: bool) -> str:
 
 
 def check_path(cfg, path: str) -> None:
-    """Raises ``NotImplementedError`` unless ``cfg`` asks the ``"eval"`` or
-    ``"train"`` path for what the port implements there."""
-    fixed = {"eval": EVAL_FIXED, "train": TRAIN_FIXED}[path]
+    """Raises ``NotImplementedError`` unless ``cfg`` asks the ``"eval"``,
+    ``"valid"`` or ``"train"`` path for what the port implements there."""
+    fixed = {"eval": EVAL_FIXED, "valid": VALID_FIXED, "train": TRAIN_FIXED}[path]
     for key, allowed in fixed.items():
         value = _lookup(cfg, key)
         if value not in allowed:
@@ -319,6 +342,41 @@ def update_config(cfg, config_file):
     with open(config_file) as f:
         cfg.merge_from_other(_drop_unread(yaml.safe_load(f) or {}))
     return cfg
+
+
+def update_config_command(cfg, opts):
+    """Merges ``KEY VALUE`` pairs (``TEST.FLIP_TEST True``) into ``cfg`` as
+    a file's keys merge: values are Python literals or plain strings, keys
+    no path reads are dropped and fixed values are checked."""
+    if len(opts) % 2:
+        raise ValueError(f"options must be KEY VALUE pairs, got {opts}")
+    tree: dict = {}
+    for key, value in zip(opts[0::2], opts[1::2]):
+        *parents, leaf = key.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        try:
+            node[leaf] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            node[leaf] = value
+    cfg.merge_from_other(_drop_unread(tree))
+    return cfg
+
+
+CONFIGS = pathlib.Path(__file__).resolve().parents[2] / "configs"
+
+
+def load_config(name: str):
+    """The configuration a ``--config`` name gives: the two files the port
+    carries as presets come from them (no PyYAML needed), any other name is
+    ``configs/<name>.yaml`` (or a path ending in ``.yaml``)."""
+    presets = {"hrnet/w48_640": w48_640,
+               "hybrid_class_agnostic_end2end/model_58_4": w32_512_train}
+    if name in presets:
+        return presets[name]()
+    path = name if name.endswith(".yaml") else str(CONFIGS / f"{name}.yaml")
+    return update_config(get_config(), path)
 
 
 # the flagship MPN head, as both presets' files give it
@@ -345,7 +403,7 @@ _FLAGSHIP_MPN = {
 
 # configs/hrnet/w48_640.yaml, the keys of it that the port reads
 W48_640 = {
-    "DATASET": {"INPUT_SIZE": 640, "OUTPUT_SIZE": [160, 320]},
+    "DATASET": {"INPUT_SIZE": 640, "OUTPUT_SIZE": [160, 320], "SCALING_TYPE": "short"},
     "MODEL": {
         "HRNET": {
             "NUM_JOINTS": 17,
@@ -372,7 +430,8 @@ W48_640 = {
             "NORM_NODE_DISTANCE": True,
         },
     },
-    "TEST": {"ADJUST": True, "FLIP_TEST": False, "WITH_REFINE": True, "SCALE_FACTOR": [1.0]},
+    "TEST": {"SPLIT": "coco_17_full", "ADJUST": True, "FLIP_TEST": False,
+             "WITH_REFINE": True, "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": True},
 }
 
 
@@ -389,7 +448,8 @@ def w48_640():
 # the port reads: HigherHRNet-w32 at 512 (the default tree), the flagship
 # MPN, method-6 labels, losses [edge, node, class, heatmap], split-LR AdamW
 MODEL_58_4 = {
-    "DATASET": {"MAX_NUM_PEOPLE": 30},
+    "LOG_DIR": "log/PoseEstimationBaseline/Real_node/58_4",
+    "DATASET": {"ROOT": "data/coco", "MAX_NUM_PEOPLE": 30, "SCALING_TYPE": "short"},
     "MODEL": {
         "PRETRAINED": "log/PoseEstimationBaseline/Real_node/58_4/pose_estimation.ckpt",
         "HRNET": {
@@ -413,7 +473,8 @@ MODEL_58_4 = {
         "LOSS": {"NAME": ["edge", "node", "class", "heatmap"], "USE_FOCAL": True,
                  "FOCAL_GAMMA": 2.0, "FOCAL_ALPHA": 1.0},
     },
-    "TEST": {"ADJUST": True, "FLIP_TEST": False, "WITH_REFINE": True, "SCALE_FACTOR": [1.0]},
+    "TEST": {"SPLIT": "coco_17_full", "ADJUST": True, "FLIP_TEST": False,
+             "WITH_REFINE": True, "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": True},
     "TRAIN": {
         "LR": 3.0e-4,
         "KP_LR": 1.0e-6,

@@ -145,3 +145,71 @@ def make_batch(rng, batch_size=2, input_size=128, output_sizes=(32, 64), num_joi
             np.stack([s["ae_targets"][i] for s in samples]) for i in range(n_scales)
         ],
     }
+
+
+def _render(keypoints, height, width, rng):
+    """render_image on an (height, width) canvas, each blob drawn in its
+    own window (exp(-d2 / 18) is below 4e-4 past 12 pixels)."""
+    img = rng.rand(height, width, 3).astype(np.float32) * 0.1
+    for kp in keypoints:
+        for j, (x, y, v) in enumerate(kp):
+            if v > 0:
+                x0, x1 = max(int(x) - 12, 0), min(int(x) + 13, width)
+                y0, y1 = max(int(y) - 12, 0), min(int(y) + 13, height)
+                yy, xx = np.mgrid[y0:y1, x0:x1]
+                img[y0:y1, x0:x1, j % 3] += np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 18.0)
+    return np.clip(img, 0, 1)
+
+
+def eval_scenes(rng, sizes, num_joints=17, n_people=3, render=True, crowd_fraction=0.0):
+    """An eval set in memory: COCO-format ground truth for images of the
+    given (height, width) sizes (people placed in a random square of the
+    short side, crowdIndex rising evenly from 0 to 1 over the images, a
+    person marked ``iscrowd`` with probability ``crowd_fraction``) and,
+    with ``render``, the images as (H, W, 3) uint8. Returns (images or
+    None, dataset)."""
+    images, records, anns = [], [], []
+    for i, (h, w) in enumerate(sizes, 1):
+        side = min(h, w)
+        kps, areas = random_scene(rng, input_size=side, num_joints=num_joints,
+                                  n_people=n_people, scale_range=(0.3, 0.8))
+        kps[..., 0] += rng.randint(0, w - side + 1)
+        kps[..., 1] += rng.randint(0, h - side + 1)
+        records.append({"id": i, "width": w, "height": h, "file_name": f"{i:012d}.jpg",
+                        "crowdIndex": (i - 1) / max(len(sizes) - 1, 1)})
+        for kp, area in zip(kps, areas):
+            vis = kp[:, 2] > 0
+            x0, y0 = kp[vis, :2].min(0)
+            x1, y1 = kp[vis, :2].max(0)
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1,
+                         "keypoints": [float(v) for v in kp.ravel()],
+                         "num_keypoints": int(vis.sum()), "area": float(area),
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "iscrowd": int(rng.rand() < crowd_fraction)})
+        if render:
+            images.append((_render(kps, h, w, rng) * 255).astype(np.uint8))
+    dataset = {"images": records, "annotations": anns,
+               "categories": [{"id": 1, "name": "person"}]}
+    return (images if render else None), dataset
+
+
+def noisy_results(rng, dataset, noise):
+    """Per image a list of COCO keypoint results: each ground-truth person
+    moved by ``noise`` pixels (normal) with random scores and confidences,
+    and one false person at random places."""
+    per_image = {img["id"]: [] for img in dataset["images"]}
+    sizes = {img["id"]: (img["width"], img["height"]) for img in dataset["images"]}
+    for ann in dataset["annotations"]:
+        kp = np.asarray(ann["keypoints"], np.float64).reshape(-1, 3).copy()
+        kp[:, :2] += rng.randn(len(kp), 2) * noise
+        kp[:, 2] = rng.uniform(0.2, 1.0, len(kp))
+        per_image[ann["image_id"]].append(
+            {"image_id": ann["image_id"], "category_id": 1,
+             "keypoints": [float(v) for v in kp.ravel()], "score": float(rng.rand())})
+    for img_id, results in per_image.items():
+        j = len(dataset["annotations"][0]["keypoints"]) // 3
+        fake = rng.rand(j, 3) * [*sizes[img_id], 1.0]
+        results.append({"image_id": img_id, "category_id": 1,
+                        "keypoints": [float(v) for v in fake.ravel()],
+                        "score": float(rng.rand())})
+    return list(per_image.values())

@@ -183,7 +183,7 @@ def adjust_quarter(scoremaps, persons):
 
 def decode_poses(
     scoremaps,       # (B, H, W, J)
-    tagmaps,         # (B, H, W, J)
+    tagmaps,         # (B, H, W, J) or (B, H, W, J, S)
     joint_det,       # (B, N, 3)
     node_scores,     # (B, N) sigmoid node preds
     edge_index,      # (B, 2, N*C) per-image ids, target-major blocked
@@ -196,20 +196,32 @@ def decode_poses(
     class_probs=None,
     cc_threshold: float = 0.8,
     max_persons: int = 30,
+    with_fill_mean: bool = True,
+    with_refine: bool = True,
+    with_adjust: bool = True,
+    cluster_labels=None,
 ):
     """Threshold -> cluster -> assemble -> fill mean -> refine -> adjust.
 
     reference pred_to_ann: Utils.py:1445-1478 (everything before
-    reverse_affine_map). Returns persons (B, P, J, 3), person_valid (B, P).
+    reverse_affine_map). ``cluster_labels`` (B, N), each node's cluster
+    named by one of its nodes (the host's correlation clustering,
+    cluster.cluster_labels), replaces the threshold clustering; the edges
+    are then not read. Returns persons (B, P, J, 3), person_valid (B, P).
     """
     n = joint_det.shape[1]
     node_keep = node_valid & (node_scores > node_threshold)
-    labels = cluster_threshold(
-        edge_index, edge_valid, edge_pred, n, node_keep, cc_threshold, blocked_c
-    )
+    if cluster_labels is None:
+        cluster_labels = cluster_threshold(
+            edge_index, edge_valid, edge_pred, n, node_keep, cc_threshold, blocked_c
+        )
     persons, person_valid = persons_from_clusters(
-        joint_det, node_scores, labels, node_keep, num_joints, max_persons, class_probs
+        joint_det, node_scores, cluster_labels, node_keep, num_joints, max_persons, class_probs
     )
-    persons = fill_mean(persons, person_valid)
-    persons = refine_ae(scoremaps, tagmaps, persons, person_valid)
-    return adjust_quarter(scoremaps, persons), person_valid
+    if with_fill_mean:
+        persons = fill_mean(persons, person_valid)
+    if with_refine:
+        persons = refine_ae(scoremaps, tagmaps, persons, person_valid)
+    if with_adjust:
+        persons = adjust_quarter(scoremaps, persons)
+    return persons, person_valid

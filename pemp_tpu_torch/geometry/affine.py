@@ -1,0 +1,160 @@
+"""Affine geometry of the eval path's resizing and output-coordinate mapping
+(numpy copy of pemp_tpu.geometry.affine; the short-side scaling only).
+
+This math defines output-coordinate correctness against COCO evaluation, so
+it follows the reference exactly:
+
+  * get_affine_transform     reference: src/Utils/transformations.py:170-213
+  * get_multi_scale_size     reference: src/Utils/transformations.py:216-237
+  * kpt_affine               reference: src/Utils/transformations.py:131-135
+  * reverse_affine_map       reference: src/Utils/transformations.py:7-76
+  * three_point_affine       replaces cv2.getAffineTransform
+
+The hourglass's long-side scaling (``DATASET.SCALING_TYPE: long``) is not
+ported: config.check_path refuses it on the eval entry point.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def three_point_affine(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The 2x3 affine matrix mapping three src points to three dst points
+    (as cv2.getAffineTransform)."""
+    src = np.asarray(src, dtype=np.float64)
+    dst = np.asarray(dst, dtype=np.float64)
+    a = np.concatenate([src, np.ones((3, 1))], axis=1)  # (3, 3)
+    # a @ M.T = dst  ->  M.T = solve(a, dst)
+    mt = np.linalg.solve(a, dst)  # (3, 2)
+    return mt.T.astype(np.float64)  # (2, 3)
+
+
+def _get_3rd_point(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    direct = a - b
+    return b + np.array([-direct[1], direct[0]], dtype=np.float64)
+
+
+def _get_dir(src_point, rot_rad: float):
+    sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+    return np.array(
+        [
+            src_point[0] * cs - src_point[1] * sn,
+            src_point[0] * sn + src_point[1] * cs,
+        ]
+    )
+
+
+def get_affine_transform(
+    center,
+    scale,
+    output_size,
+    rot: float = 0.0,
+    shift=(0.0, 0.0),
+    inv: bool = False,
+) -> np.ndarray:
+    """Three-point-form affine transform (HigherHRNet convention).
+
+    reference: src/Utils/transformations.py:170-213 and
+    src/Utils/hr_utils/multi_scales_testing.py:72-106
+    """
+    scale = np.asarray(scale, dtype=np.float64)
+    if scale.ndim == 0:
+        scale = np.array([scale, scale])
+    shift = np.asarray(shift, dtype=np.float64)
+
+    scale_tmp = scale * 200.0
+    src_w = scale_tmp[0]
+    dst_w, dst_h = output_size[0], output_size[1]
+
+    rot_rad = np.pi * rot / 180.0
+    src_dir = _get_dir([0, src_w * -0.5], rot_rad)
+    dst_dir = np.array([0, dst_w * -0.5], dtype=np.float64)
+
+    src = np.zeros((3, 2))
+    dst = np.zeros((3, 2))
+    src[0, :] = np.asarray(center, dtype=np.float64) + scale_tmp * shift
+    src[1, :] = np.asarray(center, dtype=np.float64) + src_dir + scale_tmp * shift
+    dst[0, :] = [dst_w * 0.5, dst_h * 0.5]
+    dst[1, :] = np.array([dst_w * 0.5, dst_h * 0.5]) + dst_dir
+    src[2, :] = _get_3rd_point(src[0, :], src[1, :])
+    dst[2, :] = _get_3rd_point(dst[0, :], dst[1, :])
+
+    if inv:
+        return three_point_affine(dst, src)
+    return three_point_affine(src, dst)
+
+
+def get_multi_scale_size(img_h: int, img_w: int, input_size: int, current_scale: float,
+                         min_scale: float):
+    """64-multiple short-side sizing with scale in 200px units. Returns
+    ((w_resized, h_resized), center, scale).
+
+    reference: src/Utils/transformations.py:216-237
+    """
+    h, w = img_h, img_w
+    center = np.array([int(w / 2.0 + 0.5), int(h / 2.0 + 0.5)])
+    min_input_size = int((min_scale * input_size + 63) // 64 * 64)
+    if w < h:
+        w_resized = int(min_input_size * current_scale / min_scale)
+        h_resized = int(int((min_input_size / w * h + 63) // 64 * 64) * current_scale / min_scale)
+        scale_w = w / 200.0
+        scale_h = h_resized / w_resized * w / 200.0
+    else:
+        h_resized = int(min_input_size * current_scale / min_scale)
+        w_resized = int(int((min_input_size / h * w + 63) // 64 * 64) * current_scale / min_scale)
+        scale_h = h / 200.0
+        scale_w = w_resized / h_resized * h / 200.0
+    return (w_resized, h_resized), center, np.array([scale_w, scale_h])
+
+
+def kpt_affine(kpt: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine to (..., 2) points.
+
+    reference: src/Utils/transformations.py:131-135
+    """
+    kpt = np.asarray(kpt)
+    shape = kpt.shape
+    kpt = kpt.reshape(-1, 2)
+    ones = np.ones((kpt.shape[0], 1), dtype=kpt.dtype)
+    return (np.concatenate([kpt, ones], axis=1) @ np.asarray(mat).T).reshape(shape)
+
+
+def reverse_affine_map(
+    keypoints: np.ndarray,
+    img_size_orig,
+    input_size: int,
+    scaling_type: str,
+    min_scale: float = 1.0,
+) -> np.ndarray:
+    """Map predicted keypoints back to original image coordinates.
+
+    ``keypoints``: (P, J, 3), modified in place and returned.
+    ``img_size_orig``: (width, height) of the image the scaling starts from.
+    ``scaling_type``: ``short`` (keypoints at score-map resolution) or
+    ``short_with_resize`` (at input resolution).
+
+    reference: src/Utils/transformations.py:7-76
+    """
+    if scaling_type not in ("short", "short_with_resize"):
+        raise NotImplementedError(f"scaling type {scaling_type!r}: the port maps back only "
+                                  f"the short-side scalings")
+    resized_img, center, scale = get_multi_scale_size(
+        img_size_orig[1], img_size_orig[0], input_size, 1.0, min_scale
+    )
+    div = 2 if scaling_type == "short" else 1
+    inv_mat = get_affine_transform(
+        center, scale, (int(resized_img[0] / div), int(resized_img[1] / div)), inv=True
+    )
+    keypoints[:, :, :2] = kpt_affine(keypoints[:, :, :2], inv_mat)
+    return keypoints
+
+
+def get_scaling_type(config) -> str:
+    """The eval scaling type. reference: src/valid.py:25-33"""
+    if config.DATASET.SCALING_TYPE != "short":
+        raise NotImplementedError(f"DATASET.SCALING_TYPE={config.DATASET.SCALING_TYPE!r}: "
+                                  f"the port scales the short side only")
+    if len(config.TEST.SCALE_FACTOR) > 1 and not config.TEST.PROJECT2IMAGE:
+        raise ValueError("several TEST.SCALE_FACTOR values need TEST.PROJECT2IMAGE")
+    return "short_with_resize" if config.TEST.PROJECT2IMAGE else "short"

@@ -89,7 +89,7 @@ class GraphBatch:
     edge_index: Any        # (2, E*) into flattened node ids
     joint_det: Any         # (N*, 3) x, y, type
     joint_scores: Any      # (N*,)
-    joint_tags: Any        # (N*,)
+    joint_tags: Any        # (N*,) or (N*, S)
     batch_index: Any       # (N*,)
     node_valid: Any        # (N*,) bool
     edge_valid: Any        # (E*,) bool
@@ -209,8 +209,10 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
                           joints_gt=None, factors=None):
     """Graph construction, with method-6 labels when ``joints_gt`` is given.
 
-    scoremaps (B, H, W, J), features (B, H, W, F), tagmaps (B, H, W, J),
-    masks (B, H, W) crowd masks or None, joints_gt (B, P, J, 3) GT joints in
+    scoremaps (B, H, W, J), features (B, H, W, F), tagmaps (B, H, W, J) or
+    (B, H, W, J, S) with test-time augmentation's S tag channels (original
+    and flipped), masks (B, H, W) crowd masks (or the canvas's valid region
+    at test time) or None, joints_gt (B, P, J, 3) GT joints in
     map coordinates, factors (B, P, J) their OKS factors. Returns the
     flattened GraphBatch.
     """
@@ -224,7 +226,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
     bi = torch.arange(b, device=det.device)[:, None]
     xs, ys, ts = det[..., 0].long(), det[..., 1].long(), det[..., 2].long()
     node_feats = features[bi, ys, xs]                       # (B, N, F)
-    tags_at = tagmaps[bi, ys, xs, ts]                       # (B, N)
+    tags_at = tagmaps[bi, ys, xs, ts]                       # (B, N[, S])
     ei, ev = knn_edges_target_major(
         det[..., :2].float(), valid, cfg.knn_k, cfg.knn_cap_in, cfg.knn_symmetric
     )                                                       # (B, 2, E), (B, E)
@@ -238,7 +240,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
         edge_index=edge_index,
         joint_det=det_flat,
         joint_scores=scores.reshape(b * n),
-        joint_tags=tags_at.reshape(b * n),
+        joint_tags=tags_at.reshape(b * n, *tags_at.shape[2:]),
         batch_index=torch.arange(b, device=det.device).repeat_interleave(n),
         node_valid=valid.reshape(b * n),
         edge_valid=ev.reshape(b * e),

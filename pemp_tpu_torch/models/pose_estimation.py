@@ -65,6 +65,11 @@ class PoseEstimationBaseline(nn.Module):
         stages = [y.permute(0, 2, 3, 1) for y in final_outputs]
         return stages, scoremaps.float(), features.float(), tags.float()
 
+    def mpn_forward(self, gb):
+        """The MPN's per-step logits on the graph batch ``gb``."""
+        return self.mpn(gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
+                        self.dtype, node_valid=gb.node_valid)
+
     def forward(self, imgs, keypoints_gt=None, masks=None, factors=None):
         """reference forward: PoseEstimation.py:71-111.
 
@@ -80,10 +85,7 @@ class PoseEstimationBaseline(nn.Module):
         stages, scoremaps, features, tags = self.backbone_forward(imgs)
         gb = construct_graph_batch(self.gc, scoremaps.detach(), features, tags.detach(),
                                    masks=masks, joints_gt=keypoints_gt, factors=factors)
-        preds = self.mpn(
-            gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
-            self.dtype, node_valid=gb.node_valid,
-        )
+        preds = self.mpn_forward(gb)
         graph = {
             "nodes": gb.joint_det,
             "detector_scores": gb.joint_scores,
@@ -130,16 +132,17 @@ def resolve_device(device) -> torch.device:
 
 
 def build_pose_model(config, dtype=torch.float32, device="cuda",
-                     train: bool = False) -> PoseEstimationBaseline:
+                     path: str = "eval") -> PoseEstimationBaseline:
     """Factory from the config tree (reference get_pose_model:
-    PoseEstimation.py:14-38), for the eval path or, with ``train``, the
-    training path; raises on settings that path does not implement
-    (config.check_path). Returned in eval mode; ``.train()`` switches the
+    PoseEstimation.py:14-38), for the bench's eval path, the eval entry
+    point (``"valid"``) or the training path (``"train"``); raises on
+    settings that path does not implement (config.check_path). Returned in
+    eval mode; ``.train()`` switches the
     forward to the training path. The weights are PyTorch's
     default initialisation; load real ones with ``load_state_dict`` or
     :func:`pemp_tpu_torch.weights.from_jax_variables`."""
     device = resolve_device(device)
-    check_path(config, "train" if train else "eval")
+    check_path(config, path)
     gc = GCConfig.from_config(config)
     mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
     # edges arrive in target-major blocks of C slots and nodes are

@@ -16,25 +16,14 @@ each step's loss parts and the steps per second.
 from __future__ import annotations
 
 import argparse
-import pathlib
 import time
 
 import numpy as np
 import torch
 
-from pemp_tpu_torch.config import get_config, update_config, w32_512_train
+from pemp_tpu_torch.config import load_config
 from pemp_tpu_torch.data.synthetic import make_batch
 from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
-
-PRESETS = {"hybrid_class_agnostic_end2end/model_58_4": w32_512_train}
-CONFIGS = pathlib.Path(__file__).resolve().parents[2] / "configs"
-
-
-def load_config(name: str):
-    if name in PRESETS:
-        return PRESETS[name]()
-    return update_config(get_config(), str(CONFIGS / f"{name}.yaml"))
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Train the pose-estimation MPN for a few steps")

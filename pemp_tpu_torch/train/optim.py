@@ -89,3 +89,11 @@ class SplitAdamW:
         self.opt.zero_grad(set_to_none=True)
         for p in self.frozen:
             p.grad = None
+
+    def state_dict(self) -> dict:
+        """AdamW's moments and the schedule's count (optax's opt_state)."""
+        return {"adamw": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["adamw"])
+        self.count = int(state["count"])

@@ -121,6 +121,6 @@ def build_trainer(config, device="cuda", seed: int = 0):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = build_pose_model(config, dtype=torch.float32, device=device, train=True)
+    model = build_pose_model(config, dtype=torch.float32, device=device, path="train")
     init_random_weights(model, seed)
     return TrainStep(model, dispatch_loss_func(config), SplitAdamW(config, model), config)

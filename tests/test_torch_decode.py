@@ -7,9 +7,11 @@ node predictions here are built by hand, far from the 0.8 (edge) and 0.1
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pemp_tpu.decode.assembly import decode_poses as jax_decode
+from pemp_tpu_torch.cluster.api import cluster_labels
 from pemp_tpu_torch.decode.assembly import decode_poses
 
 
@@ -75,3 +77,36 @@ def test_decode_poses_matches_jax():
         np.testing.assert_allclose(persons[i, ..., 2].numpy(), wp[..., 2], atol=1e-6, rtol=0)
     # refine added joints (score 1e-3) somewhere, so that branch is exercised
     assert np.any(np.isclose(persons[..., 2].numpy(), 1e-3))
+
+
+@pytest.mark.parametrize("fill,refine,adjust", [(True, True, True), (False, True, False),
+                                                (True, False, True), (False, False, False)])
+def test_decode_options_two_tag_channels_and_host_clusters(fill, refine, adjust):
+    """The eval entry point's decode: the fill, refine and adjust switches,
+    tags with two channels (original and flipped) and clusters from the
+    host's GAEC, against the JAX package as tools/valid.py calls it (maps
+    channels-first, clusters given)."""
+    rng = np.random.RandomState(1)
+    s, c = _scene(rng)
+    s["tagmaps"] = rng.randn(*s["tagmaps"].shape, 2).astype(np.float32)
+    keep = s["node_valid"] & (s["node_scores"] > 0.1)
+    ei, ev = s["edge_index"], s["edge_valid"]
+    sel = ev & keep[ei[0]] & keep[ei[1]]
+    labels = cluster_labels(ei[:, sel], s["edge_pred"][sel] - 0.5, len(keep), "GAEC")
+    flags = dict(with_fill_mean=fill, with_refine=refine, with_adjust=adjust)
+    keys = ("joint_det", "node_scores", "edge_index", "edge_valid", "edge_pred", "node_valid")
+    wp, wv = jax_decode(
+        jnp.transpose(jnp.asarray(s["scoremaps"]), (2, 0, 1)),
+        jnp.transpose(jnp.asarray(s["tagmaps"]), (2, 0, 1, 3)),
+        *(jnp.asarray(s[key]) for key in keys), node_threshold=0.1, num_joints=17,
+        class_probs=jnp.asarray(s["class_probs"]), cluster_labels=jnp.asarray(labels), **flags)
+    t = lambda key: torch.from_numpy(np.asarray(s[key]))[None]  # noqa: E731
+    persons, valid = decode_poses(
+        t("scoremaps"), t("tagmaps"), *(t(key) for key in keys), node_threshold=0.1,
+        num_joints=17, blocked_c=0, class_probs=t("class_probs"),
+        cluster_labels=torch.from_numpy(labels)[None], **flags)
+    wp, wv = np.asarray(wp), np.asarray(wv)
+    assert wv.sum() >= 2
+    np.testing.assert_array_equal(valid[0].numpy(), wv)
+    np.testing.assert_array_equal(persons[0, ..., :2].numpy(), wp[..., :2])
+    np.testing.assert_allclose(persons[0, ..., 2].numpy(), wp[..., 2], atol=1e-6, rtol=0)

@@ -34,8 +34,8 @@ CONFIGS = ROOT / "configs"
 W48_YAML = str(CONFIGS / "hrnet" / "w48_640.yaml")
 M58_YAML = str(CONFIGS / "hybrid_class_agnostic_end2end" / "model_58_4.yaml")
 # the config files of the repo whose settings a path of the port implements
-LOADS = {"hrnet/w48_640.yaml": {"eval"},
-         "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train"}}
+LOADS = {"hrnet/w48_640.yaml": {"eval", "valid"},
+         "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train", "valid"}}
 
 
 def _project(full: dict, like: dict) -> dict:
@@ -97,7 +97,7 @@ def _paths(cfg) -> set:
     and, for training, the loss."""
     ok = set()
     mpn = {**mpn_cfg_from_config(cfg.MODEL.MPN), "_BLOCKED_C": 80, "_NODES_PER_TYPE": 40}
-    for path in ("eval", "train"):
+    for path in ("eval", "valid", "train"):
         try:
             check_path(cfg, path)
             _check_flagship(mpn)
@@ -133,6 +133,7 @@ def test_repo_yaml_loads_or_is_refused(path):
     ("TEST: {FLIP_TEST: true}", NotImplementedError),
     ("MODEL: {GC: {DETECT_THRESHOLDS: 0.1}}", KeyError),
     ("MODEL: {HRNET: {NUM_JOINTS: seventeen}}", ValueError),
+    ("MODEL: {GC: {CC_METHOD: greedy}}", NotImplementedError),
 ])
 def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
     """Refused when the file loads (a value no path implements, an unknown
@@ -141,6 +142,31 @@ def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
     path.write_text(text)
     with pytest.raises(error):
         check_path(update_config(get_config(), str(path)), "eval")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.GC.CC_METHOD", "greedy"),
+    ("DATASET.SCALING_TYPE", "long"),
+    ("TPU.S2D_DECONV", 1),
+])
+def test_valid_path_refuses_what_it_does_not_do(key, value):
+    """The eval entry point takes any scales, flip, grouping by threshold,
+    GAEC, KL or MUT and a checkpoint, and refuses the greedy grouping, the
+    hourglass's long-side scaling and the space-to-depth deconvolution."""
+    for name, preset in (("w48_640", w48_640), ("model_58_4", w32_512_train)):
+        cfg = preset()
+        check_path(cfg, "valid")
+        cfg.TEST.FLIP_TEST, cfg.TEST.SCALE_FACTOR = True, [2.0, 1.0, 0.5]
+        for method in ("threshold", "GAEC", "KL", "MUT"):
+            cfg.MODEL.GC.CC_METHOD = method
+            check_path(cfg, "valid")
+        *parents, leaf = key.split(".")
+        node = cfg
+        for part in parents:
+            node = node[part]
+        node[leaf] = value
+        with pytest.raises(NotImplementedError, match=key):
+            check_path(cfg, "valid")
 
 
 @pytest.mark.parametrize("msg_pass,path,runs", [
@@ -179,6 +205,7 @@ def test_config_drops_what_eval_does_not_read(tmp_path):
     want.TPU.KNN_K = 20
     want.TRAIN.LR = 0.1
     want.TEST.FLIP_TEST = False
+    want.TEST.SCORING = "mean"
     want.TPU.MSG_PASS = "fused_step"
     assert cfg == want
     with pytest.raises(KeyError):
