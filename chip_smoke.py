@@ -126,9 +126,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
 21. scoring: the ground truth as detections scores AP 1.0 through the
    port's KeypointEval; noisy detections score the stats the CPU tests pin
    against the JAX package.
+22. the training entry point on the small cut, CPU against card, through
+   ``train.__main__.train``: a COCO-format set of 16 rendered images
+   (480x640 and 640x480; two with a crowd RLE, so the ignore mask runs)
+   served as training samples with the augmentation, one epoch of 2
+   steps plus validation, the same batches and seeded weights on both
+   sides, for (a) model_58_4's options and (b) label method 4 with the
+   neighbour pass, the greedy matcher, the tag-map loss and the backbone's
+   BatchNorm in training mode. Labels exact; the first step's loss parts
+   within 5e-3 of their size; its gradients within 5e-3 of each tensor's
+   largest ((b) with the backbone in float64 on both sides: its float32
+   gradients are ill-conditioned, see f64_backbone_grads); (b)'s backbone
+   running statistics after the step within 1e-4 of each tensor's
+   largest; validation losses within 1e-3 relative.
+23. the training entry point at full width: model_58_4 as its preset
+   gives it (w32/512, batch 8, f32, pallas, WORKERS loader threads) on 32
+   rendered training and 8 validation images, 2 epochs of 4 steps with
+   LR_STEP [1] (one snapshot), the counts zeroed before and read after
+   (K2 10 a step and a validation batch, K2b and G1 10 a step); then
+   CONTINUE for one more epoch (the saved epoch again, the first rate
+   multistep_lr's at the restored count) and FINETUNE from the snapshot
+   for one step. Losses finite, no step skipped, metrics.jsonl with the
+   loss parts, the checkpoint's epoch and the snapshot. Prints img/s over
+   the timed epoch, its loader-wait share, device time a step and peak
+   memory.
 
-Phases 5, 8 and 19 check the counts the same way: every kernel not named
-launches 0 times.
+Phases 5, 8, 19 and 23 check the counts the same way: every kernel not
+named launches 0 times.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -816,7 +840,7 @@ def phase_small_train(msg_pass="auto"):
         loss, logging, out = trainer.loss(batch_to_torch(batch, dev))
         loss.backward()
         runs[dev] = (
-            {k: float(v.detach()) for k, v in logging.items()},
+            {k: float(v.detach() if torch.is_tensor(v) else v) for k, v in logging.items()},
             {k: (v[0] if isinstance(v, list) else v).cpu() for k, v in out["labels"].items()},
             {k: p.grad.cpu() for k, p in trainer.model.named_parameters() if p.grad is not None},
             {k: b.cpu() for k, b in trainer.model.mpn.named_buffers() if "running" in k},
@@ -1206,6 +1230,304 @@ def drive_valid(label, cfg, eval_set, batches, card, log_dir):
     return counts["K1"], stage_times, dt_staged
 
 
+def rle_counts(mask):
+    """Uncompressed COCO RLE counts of a binary mask (column-major runs,
+    zeros first)."""
+    flat = mask.flatten(order="F").astype(np.int8)
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], flat, [1 - flat[-1]]])))
+    return np.diff(np.concatenate([[0], edges])).tolist()
+
+
+def with_crowd_regions(dataset, image_ids):
+    """Adds to each of ``image_ids`` a crowd annotation whose RLE mask
+    covers a quarter of the image, so the training sample's ignore mask
+    runs."""
+    sizes = {r["id"]: (r["height"], r["width"]) for r in dataset["images"]}
+    j = len(dataset["annotations"][0]["keypoints"]) // 3
+    for img_id in image_ids:
+        h, w = sizes[img_id]
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4: h // 2, w // 4: w // 2] = 1
+        dataset["annotations"].append({
+            "id": len(dataset["annotations"]) + 1, "image_id": img_id, "category_id": 1,
+            "keypoints": [0.0] * (3 * j), "num_keypoints": 0, "area": float(m.sum()),
+            "bbox": [w / 4, h / 4, w / 4, h / 4], "iscrowd": 1,
+            "segmentation": {"counts": rle_counts(m), "size": [h, w]}})
+    return dataset
+
+
+def rendered_train_set(root, mode, images, dataset, cfg, rng):
+    """A COCO-format training set on rendered arrays (the card's machine
+    has no PIL): data.datasets.CocoKeypoints with the training
+    augmentation drawing from ``rng`` and the targets of ``cfg``'s output
+    sizes (sigma 1 below 64, where the default size / 64 does not splat),
+    its load_raw serving the arrays."""
+    import os
+
+    from pemp_tpu_torch.data.datasets import CocoKeypoints
+    from pemp_tpu_torch.data.targets import HeatmapGenerator, JointsGenerator
+    from pemp_tpu_torch.data.transforms import transforms_hr_train
+
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    with open(os.path.join(root, "annotations", f"person_keypoints_{mode}2017.json"), "w") as f:
+        json.dump(dataset, f)
+    outs, nj = list(cfg.DATASET.OUTPUT_SIZE), cfg.DATASET.NUM_JOINTS
+    sigma = -1 if min(outs) >= 64 else 1
+    arrays = {r["id"]: image for r, image in zip(dataset["images"], images)}
+
+    class Rendered(CocoKeypoints):
+        def load_raw(self, idx):
+            img_id = int(self.img_ids[idx])
+            return (img_id, self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id)),
+                    self.coco.loadImgs(img_id)[0], arrays[img_id])
+
+    return Rendered(root, mode=mode, filter_empty=False, num_joints=nj,
+                    transforms=transforms_hr_train(cfg, rng=rng),
+                    heatmap_generator=[HeatmapGenerator(s, nj, sigma) for s in outs],
+                    joint_generator=[JointsGenerator(cfg.DATASET.MAX_NUM_PEOPLE, nj, s, True)
+                                     for s in outs])
+
+
+def training_scenes(seed, n_train, n_val):
+    """Rendered 480x640 and 640x480 scenes, the first two training images
+    with a crowd region: (train images, train dataset, val images, val
+    dataset)."""
+    from pemp_tpu_torch.data.synthetic import eval_scenes
+
+    sizes = [(480, 640), (640, 480)] * ((n_train + n_val + 1) // 2)
+    images, dataset = eval_scenes(np.random.RandomState(seed), sizes[:n_train + n_val])
+    train_ds = {"images": dataset["images"][:n_train], "categories": dataset["categories"],
+                "annotations": [a for a in dataset["annotations"] if a["image_id"] <= n_train]}
+    val_ds = {"images": dataset["images"][n_train:], "categories": dataset["categories"],
+              "annotations": [a for a in dataset["annotations"] if a["image_id"] > n_train]}
+    return images[:n_train], with_crowd_regions(train_ds, (1, 2)), images[n_train:], val_ds
+
+
+# phase 22's configuration (b): what the training entry point's slice
+# opened, on the small cut
+OPENED = {"MODEL": {"GC": {"EDGE_LABEL_METHOD": 4, "USE_NEIGHBOURS": True},
+                    "LOSS": {"NAME": ["edge", "node", "class", "heatmap", "tagmap"]}},
+          "TRAIN": {"WITH_AE_LOSS": [True, False], "FREEZE_BN": False},
+          "TPU": {"MATCHER": "greedy"}}
+
+
+def f64_backbone_grads(cfg, state, batch, device):
+    """The first step's gradients with the backbone and feature gather in
+    float64 (the MPN in float32 on its kernels or plain versions). With the
+    backbone's BatchNorm in training mode the float32 gradients of this
+    random network's backbone are ill-conditioned (tests/
+    test_torch_train_opened.py), so configuration (b) is compared so."""
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    trainer = build_trainer(cfg, device=device)
+    m = trainer.model
+    m.load_state_dict(state)
+    m.backbone.double()
+    m.feature_gather.double()
+    m.dtype = torch.float64
+    m.mpn_forward = lambda gb, route=None: m.mpn(
+        gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local, torch.float32,
+        node_valid=gb.node_valid, route=route)
+    loss, _, _ = trainer.loss(batch_to_torch(batch, device))
+    loss.backward()
+    return {k: p.grad.double().cpu() for k, p in m.named_parameters() if p.grad is not None}
+
+
+def phase_small_train_entry():
+    """train() on the small cut, CPU against card, one epoch of 2 steps and
+    validation, for model_58_4's options (a) and the opened ones (b), on the
+    same batches of a rendered COCO-format set."""
+    import tempfile
+
+    from pemp_tpu_torch.config import small_train
+    from pemp_tpu_torch.data.datasets import DataLoader
+    from pemp_tpu_torch.train.__main__ import train
+
+    tr_images, tr_ds, va_images, va_ds = training_scenes(11, 8, 8)
+    for label, opts in (("a", {}), ("b", OPENED)):
+        cfg = small_train()
+        cfg.merge_from_other({"PRINT_FREQ": 1, "MODEL": {"PRETRAINED": ""}})
+        cfg.merge_from_other(opts)
+        with tempfile.TemporaryDirectory() as tmp:
+            rng = np.random.RandomState(3)
+            train_set = rendered_train_set(tmp + "/set", "train", tr_images, tr_ds, cfg, rng)
+            val_set = rendered_train_set(tmp + "/set", "val", va_images, va_ds, cfg, rng)
+            bs = cfg.TRAIN.BATCH_SIZE
+            batches = list(DataLoader(train_set, bs))[:2]      # images 1-4, crowds in 1 and 2
+            val_batches = list(DataLoader(val_set, bs))
+            masked = sum(int((b["masks"][-1] == 0).sum()) for b in batches)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                first = {}
+
+                def on_step(trainer, it, loss, logging, first=first):
+                    if it:
+                        return
+                    m = trainer.model
+                    first["labels"] = {k: (v[0] if isinstance(v, list) else v).cpu()
+                                       for k, v in trainer.last_output["labels"].items()
+                                       if k in ("node", "class", "person", "edge")}
+                    first["parts"] = {k: float(v) for k, v in logging.items()}
+                    first["grads"] = {k: p.grad.cpu() for k, p in m.named_parameters()
+                                      if p.grad is not None}
+                    first["stats"] = {k: b.cpu().clone() for k, b in m.backbone.named_buffers()
+                                      if "running" in k}
+
+                summary = train(cfg, batches, val_batches, f"{tmp}/{dev}", schedule_steps=2,
+                                epochs=1, device=dev, seed=3, on_step=on_step)
+                runs[dev] = (first, summary["val_losses"][0])
+            (c, c_val), (g, g_val) = runs["cpu"], runs["cuda"]
+            if not masked:
+                raise SystemExit(f"small train() ({label}): the crowd regions masked nothing")
+            for key in c["labels"]:
+                if not torch.equal(c["labels"][key], g["labels"][key]):
+                    raise SystemExit(f"small train() ({label}): labels {key} differ")
+            bad = {k: (c["parts"][k], g["parts"][k]) for k in c["parts"]
+                   if abs(c["parts"][k] - g["parts"][k]) > 5e-3 * abs(c["parts"][k]) + 1e-7}
+            if bad:
+                raise SystemExit(f"small train() ({label}): loss parts differ {bad}")
+            if label == "a":
+                gc, gg = c["grads"], g["grads"]
+            else:
+                from pemp_tpu_torch.pipeline import init_random_weights
+                from pemp_tpu_torch.train.train_step import build_trainer
+
+                model = build_trainer(cfg, device="cpu").model
+                init_random_weights(model, 3)
+                state = model.state_dict()
+                gc = f64_backbone_grads(cfg, state, batches[0], "cpu")
+                gg = f64_backbone_grads(cfg, state, batches[0], "cuda")
+            if set(gc) != set(gg):
+                raise SystemExit(f"small train() ({label}): different parameters have gradients")
+            worst = max(((gc[k] - gg[k]).abs().max() / gc[k].abs().max()).item()
+                        for k in gc if gc[k].abs().max() > 0)
+            if not worst <= 5e-3:
+                raise SystemExit(f"small train() ({label}): gradients differ by {worst:.2e} of "
+                                 f"their largest")
+            # each statistic within 1e-4 of its tensor's largest (a mean
+            # near zero has no relative error of its own)
+            stat_err = max(((c["stats"][k] - g["stats"][k]).abs().max()
+                            / c["stats"][k].abs().max().clamp(min=1e-30)).item()
+                           for k in c["stats"])
+            if label == "b" and not stat_err <= 1e-4:
+                raise SystemExit(f"small train() (b): backbone running statistics differ by "
+                                 f"{stat_err:.2e} of their largest")
+            if not abs(c_val - g_val) <= 1e-3 * abs(c_val):
+                raise SystemExit(f"small train() ({label}): validation losses {c_val}, {g_val}")
+        log(f"small train() ({label}), CPU vs card: labels exact "
+            f"({int(c['labels']['node'].sum())} positive nodes, "
+            f"{int(c['labels']['edge'].sum())} positive edges; {masked} masked output pixels); "
+            f"loss {c['parts']['loss']:.6f} vs {g['parts']['loss']:.6f}; gradients"
+            f"{' (backbone in float64)' if label == 'b' else ''} within {worst:.2e} of each "
+            f"tensor's largest; backbone running statistics within {stat_err:.2e} of their largest; "
+            f"validation loss {c_val:.6f} vs {g_val:.6f}")
+
+
+def phase_train_entry(card):
+    """train() at full width: model_58_4 as its preset gives it (w32/512,
+    batch 8, f32, pallas, WORKERS threads) on 32 rendered training images
+    and 8 validation images, 2 epochs of 4 steps with LR_STEP [1]; then
+    CONTINUE for one more epoch and FINETUNE from the snapshot for one
+    step. Returns the launch counts of the first run."""
+    import os
+    import tempfile
+
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.data.datasets import DataLoader
+    from pemp_tpu_torch.train.__main__ import train
+    from pemp_tpu_torch.train.optim import multistep_lr
+
+    cfg = w32_512_train()
+    bs, workers = cfg.TRAIN.BATCH_SIZE, cfg.WORKERS
+    t0 = time.perf_counter()
+    tr_images, tr_ds, va_images, va_ds = training_scenes(13, 32, 8)
+    log(f"train entry: 40 scenes rendered in {time.perf_counter() - t0:.1f} s (set-up)")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.merge_from_other({"MODEL": {"PRETRAINED": ""}, "TRAIN": {"LR_STEP": [1]},
+                              "LOG_DIR": f"{tmp}/log"})
+        rng = np.random.RandomState(0)
+        train_set = rendered_train_set(f"{tmp}/set", "train", tr_images, tr_ds, cfg, rng)
+        val_set = rendered_train_set(f"{tmp}/set", "val", va_images, va_ds, cfg, rng)
+        loader = DataLoader(train_set, bs, shuffle=True, num_workers=workers)
+        val_loader = DataLoader(val_set, bs, num_workers=workers)
+        steps = len(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        summary = train(cfg, loader, val_loader, cfg.LOG_DIR, schedule_steps=steps, epochs=2,
+                        seed=0)
+        torch.cuda.synchronize()
+        mpn_steps = cfg.MODEL.MPN.STEPS
+        n_val = 2 * len(val_loader)
+        counts = read_counts("train entry", {"K2": mpn_steps * (2 * steps + n_val),
+                                             "K2b": mpn_steps * 2 * steps,
+                                             "G1": mpn_steps * 2 * steps})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = summary["losses"]
+        ckpt = summary["ckpt_path"]
+        if (len(losses) != 2 * steps or not np.isfinite(losses).all() or summary["fail_count"]
+                or not all(np.isfinite(v) for v in summary["val_losses"].values())):
+            raise SystemExit(f"train entry: losses {losses}, validation "
+                             f"{summary['val_losses']}, {summary['fail_count']} skipped")
+        with open(os.path.join(cfg.LOG_DIR, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        parts = [r for r in records if r["tag"] == "Loss/parts"]
+        saved = torch.load(ckpt, weights_only=True)
+        if (not parts or not {"heatmap", "node", "edge", "class_loss", "loss"} <= set(parts[0])
+                or saved["epoch"] != 1 or not os.path.exists(f"{ckpt}.epoch0")):
+            raise SystemExit(f"train entry: metrics {parts[:1]}, checkpoint epoch "
+                             f"{saved['epoch']}, snapshot {os.path.exists(f'{ckpt}.epoch0')}")
+        timed = summary["epochs"][1]
+        n = timed["steps"] * bs
+        log(f"train entry: model_58_4 w32/512 batch {bs} f32 pallas, {workers} loader threads, "
+            f"32 training and 8 validation images (480x640, 640x480): epoch 1 (timed) "
+            f"{timed['steps']} steps in {timed['seconds']:.3f} s: {n / timed['seconds']:.2f} "
+            f"img/s on {card}; loader wait {timed['loader_s']:.3f} s "
+            f"({100 * timed['loader_s'] / timed['seconds']:.1f} %), steps "
+            f"{timed['step_s']:.3f} s, device time a step {1e3 * timed['device_s'] / timed['steps']:.1f} "
+            f"ms (CUDA events around each step); epoch 0 {summary['epochs'][0]['seconds']:.3f} s "
+            f"(loader wait {summary['epochs'][0]['loader_s']:.3f} s); peak memory {peak:.2f} GiB; "
+            f"launches K2 {counts['K2']} (10 a step and a validation batch), K2b {counts['K2b']}, "
+            f"G1 {counts['G1']}; losses {[round(x, 4) for x in losses]}; validation "
+            f"{ {k: round(v, 4) for k, v in summary['val_losses'].items()} }")
+
+        # resume: the saved epoch runs again, from the restored count's rate
+        firsts = []
+
+        def first_lr(trainer, it, loss, logging):
+            if len(firsts) < want_runs:
+                firsts.append((it, trainer.optimizer.count - 1,
+                               [g["lr"] for g in trainer.optimizer.opt.param_groups]))
+
+        want_runs = 1
+        cfg.TRAIN.CONTINUE = ckpt
+        resumed = train(cfg, loader, None, f"{tmp}/resumed", schedule_steps=steps, epochs=2,
+                        seed=0, on_step=first_lr)
+        it, count, lrs = firsts[0]
+        want = [multistep_lr(base, [1], cfg.TRAIN.LR_FACTOR, steps, count)
+                for base in (cfg.TRAIN.LR, cfg.TRAIN.KP_LR)]
+        if (resumed["start_epoch"] != 1 or count != 2 * steps or it != steps
+                or not np.allclose(lrs, want, rtol=1e-12) or resumed["fail_count"]
+                or not np.isfinite(resumed["losses"]).all()):
+            raise SystemExit(f"train entry: resumed at epoch {resumed['start_epoch']}, "
+                             f"iteration {it}, count {count}, rates {lrs} (want {want})")
+        # finetune: the snapshot's weights, a fresh optimizer, one step
+        want_runs = 2
+        cfg.TRAIN.CONTINUE, cfg.TRAIN.FINETUNE = f"{ckpt}.epoch0", True
+        one = DataLoader(val_set, bs, num_workers=workers)
+        tuned = train(cfg, one, None, f"{tmp}/finetuned", schedule_steps=steps, epochs=1, seed=0,
+                      on_step=first_lr)
+        if (firsts[1][:2] != (0, 0) or tuned["fail_count"]
+                or not np.isfinite(tuned["losses"]).all()):
+            raise SystemExit(f"train entry: finetune first step {firsts[1]}, "
+                             f"losses {tuned['losses']}")
+        log(f"train entry: CONTINUE re-ran epoch 1 from update {count} at rates "
+            f"{[f'{x:.3e}' for x in lrs]} (multistep_lr at the restored count), losses "
+            f"{[round(x, 4) for x in resumed['losses']]}; FINETUNE from the epoch-0 snapshot: "
+            f"a fresh optimizer, loss {tuned['losses'][0]:.4f}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -1569,6 +1891,16 @@ def main() -> int:
     # 21. scoring on the card's machine
     phase_scoring()
     launches += valid_launches
+    log(f"chip_smoke: phases 1-21 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 22. the training entry point on the small cut, CPU against card
+    phase_small_train_entry()
+
+    # 23. the training entry point at full width: model_58_4 through train()
+    counts = phase_train_entry(card)
+    k2_fwd += counts["K2"]
+    k2_bwd += counts["K2b"]
+    g1_launches += counts["G1"]
 
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
@@ -1607,7 +1939,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-21 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-23 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ A YAML file of the repo's ``configs/`` loads through :func:`update_config`
   otherwise (the backbone, the graph layout, collect-at-eval, the message
   passing forms): a file giving another value raises
   ``NotImplementedError``;
-* a key of :data:`NOT_READ`, which no path reads (run and logging
-  settings, data loading, the other backbone, the label methods and losses
-  the port refuses, the stages after decode): dropped.
+* a key of :data:`NOT_READ`, which no path reads (device and run
+  settings, the other backbone, the loss terms and heads the port
+  refuses, the stages after decode): dropped.
 
 Any other key raises ``KeyError``, and so does setting a key the tree does
 not hold. The ``MODEL.MPN`` subtree takes new keys, as in the JAX package;
@@ -41,6 +41,8 @@ def _stage(modules, branches, blocks, channels):
 
 _C = CN({
     "LOG_DIR": "",
+    "WORKERS": 4,
+    "PRINT_FREQ": 20,
     "DATASET": {
         "ROOT": "data/coco",
         "DATASET": "coco",
@@ -49,6 +51,12 @@ _C = CN({
         "MAX_NUM_PEOPLE": 30,
         "INPUT_SIZE": 512,
         "OUTPUT_SIZE": [128, 256],
+        # training augmentation (data.transforms)
+        "MAX_ROTATION": 30,
+        "MIN_SCALE": 0.75,
+        "MAX_SCALE": 1.25,
+        "MAX_TRANSLATE": 40,
+        "FLIP": 0.5,
     },
     "MODEL": {
         "PRETRAINED": "",
@@ -74,6 +82,9 @@ _C = CN({
                 "WITH_AE_LOSS": (True, False),   # sizes the tag head
                 "WITH_HEATMAPS_LOSS": (True, True),
                 "HEATMAPS_LOSS_FACTOR": (1.0, 1.0),
+                "AE_LOSS_TYPE": "exp",
+                "PUSH_LOSS_FACTOR": (0.001, 0.001),
+                "PULL_LOSS_FACTOR": (0.001, 0.001),
             },
             "EXTRA": {
                 "STEM_INPLANES": 64,
@@ -121,6 +132,9 @@ _C = CN({
             # training labels
             "EDGE_LABEL_METHOD": 4,
             "MATCHING_RADIUS": 0.1,
+            "INCLUSION_RADIUS": 0.75,
+            "NODE_MATCHING_RADIUS": 0.5,
+            "NODE_INCLUSION_RADIUS": 0.7,
             "USE_NEIGHBOURS": False,
             "WITH_BACKGROUND": False,
             "IMAGE_CENTRIC_SAMPLING": False,
@@ -140,6 +154,11 @@ _C = CN({
         "SCORING": "correct",
     },
     "TRAIN": {
+        "SPLIT": "coco_17_mini",
+        "START_EPOCH": 0,
+        "END_EPOCH": 100,
+        "CONTINUE": "",
+        "FINETUNE": False,
         "LR": 3e-4,
         "KP_LR": 1e-5,
         "LR_FACTOR": 0.1,
@@ -211,20 +230,17 @@ VALID_FIXED = {
     "TPU.S2D_DECONV": (-1, 0),
 }
 
-# The training path is model_58_4's: edge labels by method 6 without the
-# neighbour pass, the auction matcher, no node dropout or image-centric
-# sampling, an unweighted class loss, the backbone's BatchNorm frozen and
-# no associative-embedding loss.
+# The training path labels edges by methods 3-6 (with or without the
+# neighbour pass, auction or greedy matcher; ``TPU.MATCHER`` values other
+# than greedy are the auction); methods 1, 2 and 7 need the GT joints among
+# the detections, which is not ported. No background class, node dropout,
+# image-centric sampling or weighted class loss.
 TRAIN_FIXED = {
-    "MODEL.GC.EDGE_LABEL_METHOD": (6,),
-    "MODEL.GC.USE_NEIGHBOURS": (False,),
+    "MODEL.GC.EDGE_LABEL_METHOD": (3, 4, 5, 6),
     "MODEL.GC.WITH_BACKGROUND": (False,),
     "MODEL.GC.IMAGE_CENTRIC_SAMPLING": (False,),
     "MODEL.GC.WEIGHT_CLASS_LOSS": (False,),
     "MODEL.GC.NODE_DROPOUT": (0.0,),
-    "TRAIN.FREEZE_BN": (True,),
-    "TRAIN.WITH_AE_LOSS": ([False, False],),
-    "TPU.MATCHER": ("hungarian", "auction"),   # anything but greedy is the auction
 }
 
 
@@ -234,25 +250,23 @@ def _under(prefix: str, names: str) -> set:
 
 NOT_READ = frozenset({
     # run, logging, devices
-    "OUTPUT_DIR", "DATA_DIR", "GPUS", "WORKERS", "PRINT_FREQ", "CUDNN",
+    "OUTPUT_DIR", "DATA_DIR", "GPUS", "CUDNN",
     "AUTO_RESUME", "PIN_MEMORY", "RANK", "VERBOSE", "DIST_BACKEND",
     "MULTIPROCESSING_DISTRIBUTED",
-    # data loading and augmentation (the trainer's batches are synthetic)
-    *_under("DATASET", "WITH_CENTER SIGMA HEAT_GENERATOR MAX_ROTATION MIN_SCALE MAX_SCALE "
-                       "SCALE_TYPE MAX_TRANSLATE FLIP"),
-    # epochs, resumption and splits (the trainer runs a given number of steps)
-    *_under("TRAIN", "SPLIT START_EPOCH END_EPOCH CONTINUE SPLIT_OPTIMIZER FINETUNE "
-                     "LOSS_REDUCTION USE_LABEL_MASK USE_BATCH_INDEX"),
+    # data settings no path reads (augmentation scales by SCALING_TYPE, and
+    # the heatmaps' sigma is the generator's own)
+    *_under("DATASET", "WITH_CENTER SIGMA HEAT_GENERATOR SCALE_TYPE"),
+    # training settings the JAX trainer does not read either
+    *_under("TRAIN", "SPLIT_OPTIMIZER LOSS_REDUCTION USE_LABEL_MASK USE_BATCH_INDEX"),
     "UB",
     # read only by the loss factories, label methods and heads the port refuses
     *_under("MODEL", "AUX_STEPS WITH_FLIP_KERNEL FOCAL_LOSS"),
     *_under("MODEL.LOSS", "TAG_WEIGHT SYNC_TAGS SYNC_GT_TAGS EDGE_WITH_LOGITS "
                           "NODE_BCE_POS_WEIGHT LOSS_WEIGHTS"),
     *_under("MODEL.HRNET", "PRETRAINED SYNC_BN"),
-    *_under("MODEL.HRNET.LOSS", "NUM_STAGES AE_LOSS_TYPE PUSH_LOSS_FACTOR PULL_LOSS_FACTOR"),
+    "MODEL.HRNET.LOSS.NUM_STAGES",
     "MODEL.HRNET.EXTRA.PRETRAINED_LAYERS",
-    *_under("MODEL.GC", "CHEAT INCLUSION_RADIUS GT_FOR_END2END NODE_MATCHING_RADIUS "
-                        "NODE_INCLUSION_RADIUS"),
+    *_under("MODEL.GC", "CHEAT GT_FOR_END2END"),
     # names and sizes the JAX package does not read either
     *_under("MODEL", "KP_OUTPUT_DIM FEATURE_GATHER_PADDING"),
     *_under("MODEL.HRNET", "NAME INPUT_SIZE OUTPUT_SIZE"),
@@ -426,6 +440,7 @@ W48_640 = {
             "MASK_CROWDS": True,
             "DETECT_THRESHOLD": 0.1,
             "MATCHING_RADIUS": 0.5,
+            "INCLUSION_RADIUS": 0.75,
             "CC_METHOD": "threshold",
             "NORM_NODE_DISTANCE": True,
         },
@@ -445,19 +460,23 @@ def w48_640():
 
 
 # configs/hybrid_class_agnostic_end2end/model_58_4.yaml, the keys of it that
-# the port reads: HigherHRNet-w32 at 512 (the default tree), the flagship
-# MPN, method-6 labels, losses [edge, node, class, heatmap], split-LR AdamW
+# the port reads: HigherHRNet-w32 at 512 (the default tree), its
+# augmentation, the flagship MPN, method-6 labels, losses [edge, node,
+# class, heatmap], split-LR AdamW, 11 epochs
 MODEL_58_4 = {
     "LOG_DIR": "log/PoseEstimationBaseline/Real_node/58_4",
-    "DATASET": {"ROOT": "data/coco", "MAX_NUM_PEOPLE": 30, "SCALING_TYPE": "short"},
+    "DATASET": {"ROOT": "data/coco", "MAX_NUM_PEOPLE": 30, "SCALING_TYPE": "short",
+                "MAX_ROTATION": 30, "MIN_SCALE": 0.75, "MAX_SCALE": 1.5, "MAX_TRANSLATE": 40,
+                "FLIP": 0.5},
     "MODEL": {
         "PRETRAINED": "log/PoseEstimationBaseline/Real_node/58_4/pose_estimation.ckpt",
         "HRNET": {
             "NUM_JOINTS": 17,
             "TAG_PER_JOINT": True,
             "FEATURE_FUSION": "small",
-            "LOSS": {"WITH_AE_LOSS": [True, False], "WITH_HEATMAPS_LOSS": [True, True],
-                     "HEATMAPS_LOSS_FACTOR": [1.0, 1.0]},
+            "LOSS": {"AE_LOSS_TYPE": "exp", "WITH_AE_LOSS": [True, False],
+                     "PUSH_LOSS_FACTOR": [0.001, 0.001], "PULL_LOSS_FACTOR": [0.001, 0.001],
+                     "WITH_HEATMAPS_LOSS": [True, True], "HEATMAPS_LOSS_FACTOR": [1.0, 1.0]},
         },
         "MPN": {**_FLAGSHIP_MPN, "NODE_THRESHOLD": 1.0},
         "GC": {
@@ -467,6 +486,7 @@ MODEL_58_4 = {
             "MASK_CROWDS": True,
             "DETECT_THRESHOLD": 0.1,
             "MATCHING_RADIUS": 0.5,
+            "INCLUSION_RADIUS": 0.75,
             "CC_METHOD": "GAEC",
             "NORM_NODE_DISTANCE": True,
         },
@@ -476,6 +496,10 @@ MODEL_58_4 = {
     "TEST": {"SPLIT": "coco_17_full", "ADJUST": True, "FLIP_TEST": False,
              "WITH_REFINE": True, "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": True},
     "TRAIN": {
+        "SPLIT": "coco_17_full",
+        "START_EPOCH": 0,
+        "END_EPOCH": 11,
+        "CONTINUE": "",
         "LR": 3.0e-4,
         "KP_LR": 1.0e-6,
         "KP_W_DECAY": 0.0001,

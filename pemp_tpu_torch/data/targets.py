@@ -1,6 +1,6 @@
 """Training targets: Gaussian heatmaps and AE joint indices (numpy copy of
-pemp_tpu.data.targets: ``HeatmapGenerator``, ``JointsGenerator`` and
-``pack_for_batch``; reference: src/data/utils.py:4-85). Host-side, shapes
+pemp_tpu.data.targets: ``HeatmapGenerator``, ``JointsGenerator``,
+``filter_visible`` and ``pack_for_batch``; reference: src/data/utils.py:4-85). Host-side, shapes
 fixed to (max_people, J, ...) so batches stack.
 """
 
@@ -72,6 +72,21 @@ class JointsGenerator:
                         visible_nodes[i][tot] = (y * res + x, 1)
                     tot += 1
         return visible_nodes
+
+
+def filter_visible(keypoints, output_shape):
+    """Zero out keypoints outside the output canvas.
+
+    reference: data/utils.py:68-77.
+    """
+    out_h, out_w = output_shape[0], output_shape[1]
+    vis = keypoints.copy()
+    if len(keypoints) == 0:
+        return vis
+    x, y = keypoints[..., 0], keypoints[..., 1]
+    bad = (x < 0) | (x >= out_w) | (y < 0) | (y >= out_h)
+    vis[bad] = 0.0
+    return vis
 
 
 def pack_for_batch(array, max_num_people):

@@ -1,12 +1,15 @@
-"""Affine geometry of the eval path's resizing and output-coordinate mapping
-(numpy copy of pemp_tpu.geometry.affine; the short-side scaling only).
+"""Affine geometry of resizing, training augmentation and output-coordinate
+mapping (numpy copy of pemp_tpu.geometry.affine; the short-side scaling
+only).
 
 This math defines output-coordinate correctness against COCO evaluation, so
 it follows the reference exactly:
 
+  * get_transform            reference: src/Utils/transformations.py:142-167
   * get_affine_transform     reference: src/Utils/transformations.py:170-213
   * get_multi_scale_size     reference: src/Utils/transformations.py:216-237
   * kpt_affine               reference: src/Utils/transformations.py:131-135
+  * factor_affine            reference: src/Utils/transformations.py:138-139
   * reverse_affine_map       reference: src/Utils/transformations.py:7-76
   * three_point_affine       replaces cv2.getAffineTransform
 
@@ -28,6 +31,38 @@ def three_point_affine(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     # a @ M.T = dst  ->  M.T = solve(a, dst)
     mt = np.linalg.solve(a, dst)  # (3, 2)
     return mt.T.astype(np.float64)  # (2, 3)
+
+
+def get_transform(center, scale, res, rot: float = 0) -> np.ndarray:
+    """Transformation matrix in the Hourglass convention (200px scale units).
+
+    reference: src/Utils/transformations.py:142-167
+    """
+    scale = np.asarray(scale, dtype=np.float64)
+    if scale.ndim == 0:
+        scale = np.array([scale, scale])
+    h = 200.0 * scale
+    t = np.zeros((3, 3))
+    t[0, 0] = float(res[1]) / h[1]
+    t[1, 1] = float(res[0]) / h[0]
+    t[0, 2] = res[1] * (-float(center[0]) / h[0] + 0.5)
+    t[1, 2] = res[0] * (-float(center[1]) / h[1] + 0.5)
+    t[2, 2] = 1.0
+    if rot != 0:
+        rot = -rot
+        rot_mat = np.zeros((3, 3))
+        rot_rad = rot * np.pi / 180.0
+        sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+        rot_mat[0, :2] = [cs, -sn]
+        rot_mat[1, :2] = [sn, cs]
+        rot_mat[2, 2] = 1.0
+        t_mat = np.eye(3)
+        t_mat[0, 2] = -res[1] / 2.0
+        t_mat[1, 2] = -res[0] / 2.0
+        t_inv = t_mat.copy()
+        t_inv[:2, 2] *= -1
+        t = t_inv @ rot_mat @ t_mat @ t
+    return t
 
 
 def _get_3rd_point(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -118,6 +153,14 @@ def kpt_affine(kpt: np.ndarray, mat: np.ndarray) -> np.ndarray:
     kpt = kpt.reshape(-1, 2)
     ones = np.ones((kpt.shape[0], 1), dtype=kpt.dtype)
     return (np.concatenate([kpt, ones], axis=1) @ np.asarray(mat).T).reshape(shape)
+
+
+def factor_affine(factors: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """Scale OKS distance factors by the transform's area change.
+
+    reference: src/Utils/transformations.py:138-139
+    """
+    return factors * mat[0, 0] * mat[1, 1]
 
 
 def reverse_affine_map(

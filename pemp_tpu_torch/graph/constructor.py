@@ -1,6 +1,6 @@
 """Batched, static-shape graph construction (counterpart of
 pemp_tpu.graph.constructor), with the training labels of edge label
-method 6 when ground truth is given.
+methods 3-6 when ground truth is given.
 
 Detection (NMS + per-type top-K) gives J*K padded nodes per image; the
 target-major kNN builder gives C = k + cap_in in-edge slots per node. The
@@ -8,12 +8,15 @@ per-image graphs are flattened into one disjoint graph by offsetting node
 ids (reference: src/graph_constructor/ConstructGraph.py:221-231), so the MPN
 runs once over (B*N, B*N*C).
 
-Labels (method 6 without the neighbour pass, reference
-ConstructGraph.py:769-942): an OKS-style similarity between every GT joint
-and every detection, thresholded at the matching radius, is matched twice
-with the auction (same-type pairs, then cross-type pairs for the rows the
-first pass left unmatched); matched detections take their GT row's person
-and type, and an edge is positive when both ends belong to one person.
+Labels (reference ConstructGraph.py:577-942): an OKS-style similarity
+between every GT joint and every detection, thresholded at the matching
+radius, is matched with the auction or the greedy matcher (method 6:
+same-type pairs, then cross-type pairs for the rows the first pass left
+unmatched); matched detections take their GT row's person and type, an
+optional neighbour pass adds the unmatched detections near exactly one
+matched GT joint, and an edge is positive when both ends belong to one
+person. Methods 1, 2 and 7 (GT joints as or among the detections) are not
+ported.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.detection import joint_det_from_scoremaps
 from pemp_tpu_torch.ops.knn import knn_edges_target_major
-from pemp_tpu_torch.ops.matching import auction_assignment
+from pemp_tpu_torch.ops.matching import auction_assignment, greedy_assignment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +52,13 @@ class GCConfig:
     edge_features: tuple = ("position", "connection_type")
     norm_node_distance: bool = False
     mask_crowds: bool = True
+    edge_label_method: int = 6
     matching_radius: float = 0.5
+    inclusion_radius: float = 0.75
+    node_matching_radius: float = 0.5
+    node_inclusion_radius: float = 0.7
+    use_neighbours: bool = False
+    matcher: str = "auction"   # auction | greedy
     knn_symmetric: bool = False
 
     @classmethod
@@ -69,7 +78,13 @@ class GCConfig:
             edge_features=tuple(gc.EDGE_FEATURES_TO_USE),
             norm_node_distance=gc.NORM_NODE_DISTANCE,
             mask_crowds=gc.MASK_CROWDS,
+            edge_label_method=gc.EDGE_LABEL_METHOD,
             matching_radius=gc.MATCHING_RADIUS,
+            inclusion_radius=gc.INCLUSION_RADIUS,
+            node_matching_radius=gc.NODE_MATCHING_RADIUS,
+            node_inclusion_radius=gc.NODE_INCLUSION_RADIUS,
+            use_neighbours=gc.USE_NEIGHBOURS,
+            matcher="greedy" if config.TPU.MATCHER == "greedy" else "auction",
             knn_symmetric=config.TPU.MSG_PASS in ("hybrid", "einsum"),
         )
 
@@ -169,45 +184,116 @@ def _labels_from_matching(num_det, col_of_row, row_valid, gt_person, gt_type):
     return node_labels, node_persons, node_classes
 
 
+def _assign(cfg: GCConfig, sims):
+    """Column of each row for the problems ``sims (P, R, C)``, by the
+    configured matcher."""
+    if cfg.matcher == "greedy":
+        return greedy_assignment(sims)
+    return auction_assignment(sims)
+
+
+def _neighbour_pass(sim, col, matched_row, gt_person, gt_type, inclusion_radius,
+                    node_labels, node_persons, node_classes):
+    """Second pass, per image: an unmatched detection within
+    ``inclusion_radius`` of exactly one matched GT row joins its person;
+    one claimed by several rows is ambiguous. reference:
+    ConstructGraph.py:883-912. Returns the labels and ``ambiguous (B, N)``."""
+    b, r, n = sim.shape
+    zero = torch.zeros_like(sim)
+    cost = torch.where(sim < inclusion_radius, zero, sim)
+    # the columns pass 1 chose are taken
+    chosen = torch.zeros((b, n + 1), dtype=torch.bool, device=sim.device)
+    chosen.scatter_(1, torch.where(col >= 0, col, torch.full_like(col, n)), True)
+    cost = torch.where(chosen[:, None, :n], zero, cost)
+    # ambiguity counts the claims of ALL GT rows, also those pass 1 left
+    # unmatched; only the claiming itself is restricted to matched rows
+    # (reference order: ConstructGraph.py:886-899 before :900-903)
+    ambiguous = (cost > 0).sum(dim=1) > 1
+    cost = torch.where(ambiguous[:, None, :] | ~matched_row[:, :, None], zero, cost)
+    claimed = (cost > 0).any(dim=1)
+    claim_row = cost.argmax(dim=1)          # the one claimant where claimed
+    node_labels = torch.where(claimed, 1.0, node_labels)
+    node_persons = torch.where(claimed, gt_person[claim_row].to(torch.int32), node_persons)
+    node_classes = torch.where(claimed, gt_type[claim_row].to(torch.int32), node_classes)
+    return node_labels, node_persons, node_classes, ambiguous
+
+
 def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, factors, hw):
-    """Method 6 (semi-agnostic two-pass, reference method==2 branch,
-    ConstructGraph.py:807-829) without the neighbour pass, for the images
-    of a batch at once. edge_index (B, 2, E) holds per-image node ids.
-    Returns per-image labels and masks, as pemp_tpu's _construct_labels."""
+    """Edge label methods 3-6 for the images of a batch at once
+    (pemp_tpu.graph.constructor._construct_labels); edge_index (B, 2, E)
+    holds per-image node ids. Returns per-image labels and masks.
+
+    Method 6 (semi-agnostic two-pass, reference method==2 branch,
+    ConstructGraph.py:807-829): same-type pairs, then cross-type pairs for
+    the rows the first pass left unmatched; the neighbour pass under
+    ``use_neighbours``, whose ambiguous detections leave the node, class
+    and edge losses. Methods 3, 4 and 5: one same-type pass (5 at the node
+    matching radius), the neighbour pass, the edge loss only between
+    label-positive nodes (3), and nodes whose best same-type similarity
+    lies in [0.1, 0.8] out of the node loss (5).
+    """
     b, n = det.shape[:2]
+    method = cfg.edge_label_method
+    if method not in (3, 4, 5, 6):
+        raise NotImplementedError(f"MODEL.GC.EDGE_LABEL_METHOD={method}")
     sim, same_type, gt_valid, gt_person, gt_type = _similarity(
         det, det_valid, joints_gt, factors, hw)
     zero = torch.zeros_like(sim)
     sim_same = torch.where(same_type, sim, zero)
-    sim_same = torch.where(sim_same < cfg.matching_radius, zero, sim_same)
-    sim_diff = torch.where(same_type, zero, sim)
-    sim_diff = torch.where(sim_diff < cfg.matching_radius, zero, sim_diff)
-    # both passes of every image in one batched auction
-    cols = auction_assignment(torch.cat([sim_same, sim_diff], dim=0))
-    col_same, col_diff = cols[:b], cols[b:]
-    col = torch.where(col_same >= 0, col_same, col_diff)
-    matched_row = gt_valid & (col >= 0)
-    col = torch.where(matched_row, col, torch.full_like(col, -1))
+    if method == 6:
+        radius, inclusion = cfg.matching_radius, cfg.inclusion_radius
+        sim_diff = torch.where(same_type, zero, sim)
+        sims = torch.cat([sim_same, sim_diff], dim=0)
+        # both passes of every image in one batched matching
+        cols = _assign(cfg, torch.where(sims < radius, torch.zeros_like(sims), sims))
+        col = torch.where(cols[:b] >= 0, cols[:b], cols[b:])
+        matched_row = gt_valid & (col >= 0)
+        col = torch.where(matched_row, col, torch.full_like(col, -1))
+    else:
+        five = method == 5
+        radius = cfg.node_matching_radius if five else cfg.matching_radius
+        inclusion = cfg.node_inclusion_radius if five else cfg.inclusion_radius
+        col = _assign(cfg, torch.where(sim_same < radius, zero, sim_same))
+        matched_row = gt_valid & (col >= 0)
 
     node_labels, node_persons, node_classes = _labels_from_matching(
         n, col, gt_valid, gt_person, gt_type)
+    ambiguous = torch.zeros_like(det_valid)
+    if cfg.use_neighbours:
+        node_labels, node_persons, node_classes, ambiguous = _neighbour_pass(
+            sim, col, matched_row, gt_person, gt_type, inclusion,
+            node_labels, node_persons, node_classes)
     src, dst = edge_index[:, 0].long(), edge_index[:, 1].long()
     ps, pd = torch.gather(node_persons, 1, src), torch.gather(node_persons, 1, dst)
     edge_labels = ((ps >= 0) & (ps == pd)).float()
-    # no neighbour pass: nothing is ambiguous, so every edge counts where the
-    # image has a positive edge at all (reference create_loss_mask)
+    # reference create_loss_mask (ConstructGraph.py:1136-1158), and no edge
+    # loss in an image without a positive edge
+    bad = torch.gather(ambiguous, 1, src) | torch.gather(ambiguous, 1, dst)
     any_pos = edge_labels.amax(dim=1, keepdim=True) > 0
-    label_mask = any_pos.float().expand_as(edge_labels)
-    return dict(
-        edge_labels=edge_labels, node_labels=node_labels, node_classes=node_classes,
-        node_persons=node_persons, label_mask=label_mask,
-        label_mask_node=torch.ones_like(node_labels), class_mask=node_labels,
-    )
+    label_mask = (~bad & any_pos).float()
+    node_mask = (~ambiguous).float()
+    if method == 3:
+        # the edge loss only on the GT-node subgraph (ConstructGraph.py:619)
+        on_gt = (torch.gather(node_labels, 1, src) == 1.0) & (torch.gather(node_labels, 1, dst) == 1.0)
+        label_mask = label_mask * on_gt.float()
+    if method == 6:
+        return dict(edge_labels=edge_labels, node_labels=node_labels,
+                    node_classes=node_classes, node_persons=node_persons,
+                    label_mask=label_mask, label_mask_node=node_mask,
+                    class_mask=node_labels * node_mask)
+    label_mask_node = torch.ones_like(node_labels)
+    if method == 5:
+        best = sim_same.amax(dim=1)
+        has_gt = gt_valid.any(dim=1, keepdim=True)
+        label_mask_node = torch.where((best >= 0.1) & (best <= 0.8) & has_gt, 0.0, 1.0)
+    return dict(edge_labels=edge_labels, node_labels=node_labels, node_classes=node_classes,
+                node_persons=node_persons, label_mask=label_mask,
+                label_mask_node=label_mask_node, class_mask=node_labels)
 
 
 def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=None,
                           joints_gt=None, factors=None):
-    """Graph construction, with method-6 labels when ``joints_gt`` is given.
+    """Graph construction, with training labels when ``joints_gt`` is given.
 
     scoremaps (B, H, W, J), features (B, H, W, F), tagmaps (B, H, W, J) or
     (B, H, W, J, S) with test-time augmentation's S tag channels (original

@@ -3,9 +3,10 @@ reference: src/Utils/loss.py).
 
 All losses take explicit masks, which also carry node and edge validity,
 so padding is inert. Only the flagship factory is ported:
-``ClassMultiLossFactory`` with the edge, node, class and heatmap losses
-(the associative-embedding ``tagmap`` and per-node ``tag_loss`` terms are
-refused), and ``dispatch_loss_func`` routes to it alone.
+``ClassMultiLossFactory`` with the edge, node, class and heatmap losses and
+the associative-embedding loss on the tag maps (``tagmap``; the per-node
+``tag_loss`` term, which needs the MPN zoo's tag outputs, is refused), and
+``dispatch_loss_func`` routes to it alone.
 """
 
 from __future__ import annotations
@@ -56,6 +57,40 @@ def heatmap_loss(pred, gt, mask):
     return ((pred - gt) ** 2 * mask[..., None]).mean(dim=(1, 2, 3))
 
 
+def ae_loss(tags_pred_flat, joints, loss_type="exp"):
+    """Associative-embedding push and pull on tag maps, per image.
+
+    tags_pred_flat (B, L): the tag maps flattened in (J, H, W) order;
+    joints (B, P, J, 2) int: (flat index into L, valid) per person and
+    joint. reference AELoss (loss.py:37-98). Returns (push (B,), pull (B,)).
+    """
+    idx = joints[..., 0].long().clamp(0, tags_pred_flat.shape[1] - 1)   # (B, P, J)
+    v = joints[..., 1] > 0
+    b, p, j = idx.shape
+    t = torch.gather(tags_pred_flat, 1, idx.reshape(b, p * j)).reshape(b, p, j)
+    zero = torch.zeros_like(t)
+    cnt = v.sum(dim=2)                                          # (B, P)
+    person_valid = cnt > 0
+    safe_cnt = cnt.clamp(min=1)
+    mean_t = torch.where(v, t, zero).sum(dim=2) / safe_cnt      # (B, P)
+    pull_pp = torch.where(v, (t - mean_t[:, :, None]) ** 2, zero).sum(dim=2) / safe_cnt
+    num_tags = person_valid.sum(dim=1)                          # (B,)
+    pull = torch.where(person_valid, pull_pp, torch.zeros_like(pull_pp)).sum(dim=1) \
+        / num_tags.clamp(min=1)
+
+    diff = mean_t[:, :, None] - mean_t[:, None, :]
+    pair_valid = person_valid[:, :, None] & person_valid[:, None, :]
+    if loss_type == "exp":
+        push_mat = torch.exp(-(diff ** 2))
+    else:   # max
+        push_mat = torch.clamp(1 - diff.abs(), min=0)
+    push = torch.where(pair_valid, push_mat, torch.zeros_like(push_mat)).sum(dim=(1, 2)) - num_tags
+    denom = ((num_tags - 1) * num_tags).clamp(min=1)
+    push = torch.where(num_tags > 1, push / denom * 0.5, torch.zeros_like(push))
+    pull = torch.where(num_tags > 0, pull, torch.zeros_like(pull))
+    return push, pull
+
+
 def mask_node_connections(preds_nodes_sigmoid, edge_index, threshold, node_labels=None,
                           include_bordering_nodes=False):
     """Graph-reduction mask for the edge loss: edges between nodes that are
@@ -70,17 +105,18 @@ def mask_node_connections(preds_nodes_sigmoid, edge_index, threshold, node_label
 
 
 class ClassMultiLossFactory:
-    """Flagship multi-loss: heatmap + node + edge + class. reference:
-    loss.py:539-758. Stateless; settings from the config tree."""
+    """Flagship multi-loss: heatmap + tag-map AE + node + edge + class.
+    reference: loss.py:539-758. Stateless; settings from the config tree."""
 
     def __init__(self, config):
         losses = set(config.MODEL.LOSS.NAME)
-        refused = losses & {"tagmap", "tag_loss"}
-        if refused:
+        if "tag_loss" in losses:
             raise NotImplementedError(
-                f"MODEL.LOSS.NAME {sorted(refused)}: the port has no tag losses")
+                "MODEL.LOSS.NAME ['tag_loss']: the per-node tag loss needs the MPN zoo's tag "
+                "outputs, which the port does not have")
         self.num_joints = config.MODEL.HRNET.NUM_JOINTS
         self.with_heatmap = "heatmap" in losses
+        self.with_tagmap = "tagmap" in losses
         self.with_edge = "edge" in losses
         self.with_node = "node" in losses
         self.with_class = "class" in losses
@@ -98,6 +134,10 @@ class ClassMultiLossFactory:
             raise NotImplementedError("MODEL.LOSS.NODE_USE_FOCAL=False")
         self.with_heatmaps_loss = tuple(config.MODEL.HRNET.LOSS.WITH_HEATMAPS_LOSS)
         self.heatmaps_loss_factor = tuple(config.MODEL.HRNET.LOSS.HEATMAPS_LOSS_FACTOR)
+        self.with_ae = tuple(config.TRAIN.WITH_AE_LOSS)
+        self.ae_loss_type = config.MODEL.HRNET.LOSS.AE_LOSS_TYPE
+        self.push_factor = tuple(config.MODEL.HRNET.LOSS.PUSH_LOSS_FACTOR)
+        self.pull_factor = tuple(config.MODEL.HRNET.LOSS.PULL_LOSS_FACTOR)
 
     def __call__(self, outputs, labels, masks):
         """Returns (total loss, {part name: loss})."""
@@ -113,6 +153,19 @@ class ClassMultiLossFactory:
                     heatmap_total = heatmap_total + hl.mean() * self.heatmaps_loss_factor[idx]
         total = total + heatmap_total
         logging["heatmap"] = heatmap_total
+
+        ae_total = 0.0
+        if self.with_tagmap:
+            for idx, pred in enumerate(outputs["heatmap"]):
+                if idx < len(self.with_ae) and self.with_ae[idx]:
+                    tags = pred[..., self.num_joints:]
+                    # flattened in the reference's CHW order: (J, H, W)
+                    flat = tags.permute(0, 3, 1, 2).reshape(tags.shape[0], -1)
+                    push, pull = ae_loss(flat, labels["tag"][idx], self.ae_loss_type)
+                    ae_total = (ae_total + push.mean() * self.push_factor[idx]
+                                + pull.mean() * self.pull_factor[idx])
+        total = total + ae_total
+        logging["tag_loss"] = ae_total
 
         node_total = 0.0
         if self.with_node:

@@ -43,14 +43,30 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval BatchNorm over running statistics, in float32, cast back to the
-    input's dtype (flax BatchNorm with a low-precision ``dtype``)."""
+    """BatchNorm in float32 (float64 for a float64 input), cast back to the
+    input's dtype (flax BatchNorm with a low-precision ``dtype``, whose
+    statistics are at least float32). In eval mode it reads the running
+    statistics. In training mode (the backbone under ``TRAIN.FREEZE_BN:
+    false``) it normalises by the batch's mean and biased variance and
+    moves the running statistics towards them as flax does: ``r = 0.9 r +
+    0.1 s`` with the *biased* variance, where torch's own update takes the
+    unbiased one."""
 
     def forward(self, x):
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, False, 0.0, self.eps,
-        )
+        xf = x if x.dtype == torch.float64 else x.float()
+        if not self.training:
+            y = F.batch_norm(xf, self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype),
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        # two-pass statistics, differentiated through: torch's CPU
+        # batch_norm in training mode loses precision to cancellation on one
+        # thread (and flax's E[x^2] - E[x]^2 does in float32)
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean.to(torch.float32))
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var.to(torch.float32))
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = xf * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
         return y.to(x.dtype)
 
 

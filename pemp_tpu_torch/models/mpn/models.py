@@ -104,15 +104,16 @@ class NodeClassificationMPN(nn.Module):
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None):
+                node_valid=None, route=None):
         """x (N, F) f32, edge_attr (E, 2+J), edge_index (2, E) flat ids,
         edge_valid (E,), edge_src_local (E,) source ids within their image;
         ``dtype`` is the working type; ``node_valid`` (N,) masks the
         BatchNorm statistics in training. Node types are not an input: on
         the type-blocked layout they are index arithmetic. The route is
-        ``_MSG_PASS`` resolved for the module's mode (module docstring)."""
+        ``route`` when given, else ``_MSG_PASS`` resolved for the module's
+        mode (module docstring)."""
         c = self.cfg
-        route = msg_pass_route(c.get("_MSG_PASS", "auto"), self.training)
+        route = route or msg_pass_route(c.get("_MSG_PASS", "auto"), self.training)
         npt = c["_NODES_PER_TYPE"]
         e = edge_index.shape[1]
         edge_features = self.edge_embedding(edge_attr.to(dtype), edge_valid)

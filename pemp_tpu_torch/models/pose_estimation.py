@@ -35,9 +35,10 @@ class PoseEstimationBaseline(nn.Module):
     def __init__(self, hrnet_spec: HRNetSpec, gc: GCConfig, mpn_cfg: dict,
                  num_joints: int = 17, feature_gather_kernel: int = 3,
                  node_input_dim: int = 128, scoremap_mode: str = "avg",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, backbone_train: bool = False):
         super().__init__()
         self.gc = gc
+        self.backbone_train = backbone_train
         self.num_joints = num_joints
         self.scoremap_mode = scoremap_mode
         self.dtype = dtype
@@ -49,11 +50,18 @@ class PoseEstimationBaseline(nn.Module):
         )
         self.mpn = NodeClassificationMPN(mpn_cfg)
 
+    def train(self, mode: bool = True):
+        """Training mode for the graph and MPN; the backbone's BatchNorm
+        takes batch statistics only with ``backbone_train`` (``TRAIN.FREEZE_BN:
+        false``) and reads its running statistics otherwise."""
+        super().train(mode)
+        self.backbone.train(mode and self.backbone_train)
+        return self
+
     def backbone_forward(self, imgs):
         """imgs (B, H, W, 3) -> (per-stage outputs NHWC, scoremaps,
-        features, tags), the last three NHWC float32. The backbone's
-        BatchNorm always reads its running statistics (``FREEZE_BN``);
-        gradients flow through it."""
+        features, tags), the last three NHWC float32. Gradients flow
+        through the backbone whatever its BatchNorm mode."""
         x = imgs.to(self.dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
@@ -65,27 +73,29 @@ class PoseEstimationBaseline(nn.Module):
         stages = [y.permute(0, 2, 3, 1) for y in final_outputs]
         return stages, scoremaps.float(), features.float(), tags.float()
 
-    def mpn_forward(self, gb):
-        """The MPN's per-step logits on the graph batch ``gb``."""
+    def mpn_forward(self, gb, route=None):
+        """The MPN's per-step logits on the graph batch ``gb``; ``route``
+        overrides the message-passing route the module's mode resolves."""
         return self.mpn(gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
-                        self.dtype, node_valid=gb.node_valid)
+                        self.dtype, node_valid=gb.node_valid, route=route)
 
-    def forward(self, imgs, keypoints_gt=None, masks=None, factors=None):
+    def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None):
         """reference forward: PoseEstimation.py:71-111.
 
-        The module's ``training`` flag picks the path. Eval mode returns
-        (scoremaps (B, H, W, J), output) with output["preds"] (MPN logits)
-        and output["graph"] (the flattened eval graph and tags). Training
-        mode takes the GT joints (B, P, J, 3) in map
-        coordinates, their OKS factors (B, P, J) and the crowd masks
-        (B, H, W) of the last scale, and adds output["labels"] and
-        output["masks"], with output["preds"]["heatmap"] the backbone's
-        per-stage outputs (pemp_tpu/models/pose_estimation.py:109-171).
+        Returns (scoremaps (B, H, W, J), output) with output["preds"] (MPN
+        logits) and output["graph"] (the flattened graph and tags). Given
+        the GT joints (B, P, J, 3) in map coordinates, their OKS factors
+        (B, P, J) and the crowd masks (B, H, W) of the last scale (always
+        in training mode; at eval for the validation loss), it adds
+        output["labels"] and output["masks"], with output["preds"]["heatmap"]
+        the backbone's per-stage outputs
+        (pemp_tpu/models/pose_estimation.py:109-171). The module's mode
+        picks the MPN's route unless ``route`` names one.
         """
         stages, scoremaps, features, tags = self.backbone_forward(imgs)
         gb = construct_graph_batch(self.gc, scoremaps.detach(), features, tags.detach(),
                                    masks=masks, joints_gt=keypoints_gt, factors=factors)
-        preds = self.mpn_forward(gb)
+        preds = self.mpn_forward(gb, route)
         graph = {
             "nodes": gb.joint_det,
             "detector_scores": gb.joint_scores,
@@ -98,7 +108,7 @@ class PoseEstimationBaseline(nn.Module):
             "x": gb.x,
             "edge_attr": gb.edge_attr,
         }
-        if not self.training:
+        if keypoints_gt is None:
             return scoremaps, {"preds": preds, "graph": graph}
         nv, ev = gb.node_valid.float(), gb.edge_valid.float()
         output = {
@@ -157,6 +167,7 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
         node_input_dim=config.MODEL.MPN.NODE_INPUT_DIM,
         scoremap_mode=config.MODEL.HRNET.SCOREMAP_MODE,
         dtype=dtype,
+        backbone_train=not config.TRAIN.FREEZE_BN,
     )
     model = model.to(device).eval()
     if device.type == "cuda":

@@ -1,12 +1,13 @@
-"""The auction matcher for training labels (counterpart of
-pemp_tpu.ops.matching.auction_assignment), batched over a leading problem
-axis.
+"""The matchers of the training labels (counterpart of
+pemp_tpu.ops.matching's ``auction_assignment`` and ``greedy_assignment``),
+batched over a leading problem axis.
 
 ``auction_assignment(sim)`` takes similarities ``sim (P, R, C)``: P
 independent problems (the trainer stacks the B images times the two passes
 of label method 6), rows = GT joints, columns = detections, entries <= 0
 forbidden. It returns ``col_of_row (P, R)`` int64 with -1 for unmatched
 rows, lane for lane what the JAX function gives under ``vmap``.
+``greedy_assignment`` takes and gives the same (``TPU.MATCHER: greedy``).
 
 The JAX function is one ``lax.while_loop`` per problem; under ``vmap`` the
 loop runs while any lane's condition holds and each lane keeps its state
@@ -32,6 +33,32 @@ NEG = -1e9
 # rounds (a few small kernels each) while syncing 8x less often than a
 # check every round; exactness does not depend on the interval.
 CHECK_EVERY = 8
+
+
+def greedy_assignment(sim: torch.Tensor) -> torch.Tensor:
+    """For each problem of ``sim (P, R, C)``: pick the globally best
+    (row, column) pair, remove its row and column, R times
+    (pemp_tpu.ops.matching.greedy_assignment). Ties go to the first pair in
+    row-major order, as ``jnp.argmax`` of the flattened matrix. Once no
+    lane has a positive entry left the remaining rounds change nothing, so
+    the loop asks the device every :data:`CHECK_EVERY` rounds and stops."""
+    p, r, c = sim.shape
+    dev = sim.device
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    s = torch.where(sim > 0, sim.float(), neg)
+    col_of_row = torch.full((p, r), -1, dtype=torch.int64, device=dev)
+    lanes = torch.arange(p, device=dev)
+    for it in range(r):
+        if it % CHECK_EVERY == 0 and not bool((s > 0).any()):
+            break
+        flat = s.reshape(p, r * c).argmax(dim=1)
+        i, j = flat // c, flat % c
+        good = s[lanes, i, j] > 0
+        col_of_row[lanes, i] = torch.where(good, j, col_of_row[lanes, i])
+        row_hit = (torch.arange(r, device=dev)[None, :] == i[:, None]) & good[:, None]
+        col_hit = (torch.arange(c, device=dev)[None, :] == j[:, None]) & good[:, None]
+        s = torch.where(row_hit[:, :, None] | col_hit[:, None, :], neg, s)
+    return col_of_row
 
 
 def _col_of_row_from(row_of_col: torch.Tensor, r: int) -> torch.Tensor:

@@ -48,8 +48,10 @@ def multistep_lr(base_lr: float, lr_steps, lr_factor: float, steps_per_epoch: in
                  step: int) -> float:
     """MultiStepLR in steps: ``base_lr`` times ``lr_factor`` for each epoch
     boundary of ``lr_steps`` that ``step`` (updates done so far) has
-    reached (optax.piecewise_constant_schedule)."""
-    bounds = sorted(int(e) * steps_per_epoch for e in lr_steps)
+    reached (optax.piecewise_constant_schedule over the boundaries
+    ``{epoch * steps_per_epoch: lr_factor}``: a boundary given twice counts
+    once, as a dict key)."""
+    bounds = sorted({int(e) * steps_per_epoch for e in lr_steps})
     return base_lr * lr_factor ** bisect.bisect_right(bounds, step)
 
 

@@ -1,7 +1,10 @@
-"""The training step (counterpart of pemp_tpu.train.train_step.make_train_step;
-reference: src/train.py:115-184): forward in training mode, graph-reduction
-edge masks, the multi-loss, backward, the optimizer update, and the skip of
-a step whose loss or any gradient is not finite.
+"""The training step and the validation step (counterpart of
+pemp_tpu.train.train_step's ``make_train_step`` and ``make_eval_step``;
+reference: src/train.py:115-184, 351-495): forward in training mode,
+graph-reduction edge masks, the multi-loss, backward, the optimizer update,
+and the skip of a step whose loss or any gradient is not finite; the
+validation step is the same forward and loss in eval mode, without
+gradients.
 
 The JAX step is a pure function that selects the old parameters, optimizer
 state and BatchNorm statistics on a skipped step. Here the forward updates
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from pemp_tpu_torch.config.defaults import msg_pass_route
 from pemp_tpu_torch.losses.factories import mask_node_connections
 
 
@@ -29,7 +33,9 @@ class TrainStep:
     ``batch`` holds torch tensors on the model's device: imgs (B, H, W, 3),
     heatmaps [per scale (B, h, w, J)], masks [per scale (B, h, w)],
     keypoints (B, P, J, 3) in the last scale's coordinates, factors
-    (B, P, J).
+    (B, P, J), and for the tag-map loss ae_targets [per scale (B, P, J, 2)].
+    ``steps`` counts the calls of ``step``, skipped ones too (the JAX
+    state's ``step``).
     """
 
     def __init__(self, model, loss_factory, optimizer, config):
@@ -38,18 +44,25 @@ class TrainStep:
         self.optimizer = optimizer
         self.node_threshold = config.MODEL.MPN.NODE_THRESHOLD
         self.include_bordering = config.MODEL.LOSS.INCLUDE_BORDERING_NODES
+        # validation runs the training route (msg_pass_route's train path)
+        self.train_route = msg_pass_route(config.TPU.MSG_PASS, True)
         self.fail_count = 0
+        self.steps = 0
         self.last_output = None   # labels and validity of the last step
 
-    def loss(self, batch):
+    def loss(self, batch, train: bool = True):
         """Forward and loss (pemp_tpu/train/train_step.py:56-96); returns
-        (loss, logging, output). Puts the model in training mode."""
-        self.model.train()
+        (loss, logging, output). Puts the model in training mode, or with
+        ``train=False`` in eval mode on the training route, as
+        make_eval_step (:134-175) does."""
+        self.model.train(train)
         _, output = self.model(batch["imgs"], keypoints_gt=batch["keypoints"],
-                               masks=batch["masks"][-1], factors=batch["factors"])
+                               masks=batch["masks"][-1], factors=batch["factors"],
+                               route=self.train_route)
         labels, masks, preds = output["labels"], output["masks"], output["preds"]
         masks["heatmap"] = batch["masks"]
         labels["heatmap"] = batch["heatmaps"]
+        labels["tag"] = batch.get("ae_targets")
         # graph reduction: the edge loss only between predicted or labelled
         # positive nodes (reference: train.py:140-154)
         edge_masks, edge_labels = [], []
@@ -69,6 +82,7 @@ class TrainStep:
         """One update; returns (loss, logging) with ``logging["skipped"]``
         1.0 where the step was skipped."""
         saved = {k: v.clone() for k, v in _running_stats(self.model).items()}
+        self.steps += 1
         self.optimizer.zero_grad()
         loss, logging, output = self.loss(batch)
         loss.backward()
@@ -93,9 +107,16 @@ class TrainStep:
         logging["skipped"] = torch.tensor(0.0 if bool(finite) else 1.0)
         return loss.detach(), logging
 
+    @torch.no_grad()
+    def eval_step(self, batch):
+        """The validation loss of ``batch``: (loss, logging), no update."""
+        loss, logging, _ = self.loss(batch, train=False)
+        return loss, {k: (v if torch.is_tensor(v) else torch.tensor(v)) for k, v in logging.items()}
+
 
 def batch_to_torch(batch: dict, device) -> dict:
-    """A numpy batch of ``data.synthetic.make_batch`` as torch tensors."""
+    """A numpy batch (``data.synthetic.make_batch``,
+    ``data.datasets.default_collate``) as torch tensors."""
     def conv(x):
         if isinstance(x, list):
             return [conv(v) for v in x]
@@ -103,10 +124,13 @@ def batch_to_torch(batch: dict, device) -> dict:
     return {k: conv(v) for k, v in batch.items()}
 
 
-def build_trainer(config, device="cuda", seed: int = 0):
+def build_trainer(config, device="cuda", seed: int = 0, steps_per_epoch: int = 1000,
+                  model=None):
     """The training path for ``config`` (float32, as tools/train.py builds
-    it) with seeded random weights; runs on CUDA unless ``device="cpu"``.
-    Raises on settings the training path does not implement.
+    it): ``model`` (a build_pose_model on the training path, with its
+    weights) or one with seeded random weights; runs on CUDA unless
+    ``device="cpu"``. ``steps_per_epoch`` places the learning-rate steps
+    (SplitAdamW). Raises on settings the training path does not implement.
 
     On CUDA it turns TF32 off for matmuls and cuDNN convolutions (PyTorch
     leaves it on for cuDNN by default), so the step computes in the float32
@@ -121,6 +145,8 @@ def build_trainer(config, device="cuda", seed: int = 0):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = build_pose_model(config, dtype=torch.float32, device=device, path="train")
-    init_random_weights(model, seed)
-    return TrainStep(model, dispatch_loss_func(config), SplitAdamW(config, model), config)
+    if model is None:
+        model = build_pose_model(config, dtype=torch.float32, device=device, path="train")
+        init_random_weights(model, seed)
+    return TrainStep(model, dispatch_loss_func(config),
+                     SplitAdamW(config, model, steps_per_epoch), config)

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from pemp_tpu_torch.data.datasets import FLIP_CONFIG
+from pemp_tpu_torch.data.transforms import FLIP_CONFIG
 from pemp_tpu_torch.decode.assembly import decode_poses
 from pemp_tpu_torch.geometry.affine import (
     get_affine_transform,

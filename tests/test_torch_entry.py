@@ -204,6 +204,7 @@ def test_config_drops_what_eval_does_not_read(tmp_path):
     want = get_config()
     want.TPU.KNN_K = 20
     want.TRAIN.LR = 0.1
+    want.TRAIN.END_EPOCH = 3
     want.TEST.FLIP_TEST = False
     want.TEST.SCORING = "mean"
     want.TPU.MSG_PASS = "fused_step"
@@ -230,7 +231,8 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_trainer(small_train())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        train_main(["hybrid_class_agnostic_end2end/model_58_4", "--synthetic", "--steps", "1"])
+        train_main(["hybrid_class_agnostic_end2end/model_58_4", "--synthetic", "--epochs", "1",
+                    "--steps-per-epoch", "1"])
 
 
 def test_builders_check_their_path():

@@ -1,5 +1,6 @@
-"""Training labels: the auction matcher and the method-6 labels and masks,
-port against the JAX package, exactly.
+"""Training labels: the auction matcher and the labels and masks of edge
+label methods 3-6 (with and without the neighbour pass, on the auction and
+on the greedy matcher), port against the JAX package, exactly.
 
 Ties are the hazard: ``lax.top_k`` takes the lower index among equal
 values, and the scaled phases of the auction only start on contended
@@ -66,11 +67,10 @@ LABEL_FIELDS = ("edge_labels", "node_labels", "node_classes", "node_persons", "l
                 "label_mask_node", "class_mask", "edge_index", "edge_valid", "node_valid")
 
 
-@pytest.fixture(scope="module")
-def jax_labels():
+def _label_configs(**labels):
     kw = dict(num_joints=17, nodes_per_type=8, knn_k=50, knn_cap_in=30,
-              norm_node_distance=True, matching_radius=0.5)
-    jcfg = JaxGCConfig(**kw, knn_symmetric=False, edge_label_method=6)
+              norm_node_distance=True, matching_radius=0.5, **labels)
+    jcfg = JaxGCConfig(**kw, knn_symmetric=False)
 
     def build(sm, feats, tags, masks, joints, factors):
         return jax_construct(jcfg, sm, feats, tags, joints_gt=joints, factors=factors,
@@ -79,12 +79,15 @@ def jax_labels():
     return GCConfig(**kw), jax.jit(build)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_method6_labels_and_masks_exact(seed, jax_labels):
+@pytest.fixture(scope="module")
+def jax_labels():
+    return _label_configs(edge_label_method=6)
+
+
+def _labels_exact(cfg, jax_build, seed):
     """Synthetic scenes with scoremaps peaked at the GT (plus noise, so
     detections and near misses mix) and crowd masks; every label and mask
-    of the batch graph equal."""
-    cfg, jax_build = jax_labels
+    of the batch graph equal. Returns the JAX graph."""
     rng = np.random.RandomState(seed)
     batch = make_batch(rng, 2, 64, (16, 32), 17, 30, scale_range=(0.4, 0.9))
     b, h, w, j = 2, 32, 32, 17
@@ -100,3 +103,31 @@ def test_method6_labels_and_masks_exact(seed, jax_labels):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
     assert np.asarray(want.node_labels).sum() > 10 and np.asarray(want.edge_labels).sum() > 50
+    return want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_method6_labels_and_masks_exact(seed, jax_labels):
+    _labels_exact(*jax_labels, seed)
+
+
+LABEL_CASES = [(m, nb, mt) for m in (3, 4, 5) for nb in (False, True)
+               for mt in ("auction", "greedy")] + [
+    (6, True, "auction"), (6, False, "greedy"), (6, True, "greedy")]
+
+
+@pytest.mark.parametrize("method,neighbours,matcher", LABEL_CASES)
+def test_label_methods_exact(method, neighbours, matcher):
+    """Methods 3, 4 and 5 with and without the neighbour pass, and method 6
+    with it or on the greedy matcher (method 6 without it on the auction
+    is test_method6_labels_and_masks_exact). The neighbour pass must add
+    detections to persons."""
+    cfg, jax_build = _label_configs(edge_label_method=method, use_neighbours=neighbours,
+                                    matcher=matcher, inclusion_radius=0.6,
+                                    node_inclusion_radius=0.6)
+    want = _labels_exact(cfg, jax_build, 2)
+    if neighbours:
+        plain = _labels_exact(*_label_configs(edge_label_method=method, matcher=matcher), 2)
+        assert np.asarray(want.node_labels).sum() > np.asarray(plain.node_labels).sum()
+        if method == 6:     # detections several GT joints claim leave the node loss
+            assert (np.asarray(want.label_mask_node) == 0).sum() > 0
