@@ -151,8 +151,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the timed epoch, its loader-wait share, device time a step and peak
    memory.
 
-Phases 5, 8, 19 and 23 check the counts the same way: every kernel not
-named launches 0 times.
+24. the small Hourglass (2 stacks 16 wide at 512, long-side scaling)
+   through TTAPipeline's ``maps_only`` at scales [1.0, 0.5] with flip,
+   CPU against card (maps within 1e-4 of each one's largest; HG's parser
+   on both sides' maps); and model_81_1_2's small cut (14 joint types) as
+   phases 4 (fused-step eval slice, node threshold 0.1) and 7 (pallas
+   training step), CPU against card.
+25. K1, K2 and K2b at T = 14: K1 on the step-0 inputs of model_81_1_2's
+   eval path (bf16, batch 8 at 480x640: N = 4480) within 2e-2 of each
+   output's largest, K2 and K2b on its training path's step-0 inputs and
+   cotangent (f32, batch 8) within 1e-4 of each output's largest; kernel,
+   plain and bound ms as phases 3 and 6.
+26. model_81_1_2 through ``valid.evaluate`` at full width (w32/512, bf16,
+   one scale, GAEC on the host at node threshold 0.5 as phase 20, CrowdPose
+   scoring) on 16 rendered images with 14 joints, as phase 20: K1 10
+   times a batch.
+27. model_81_1_2 training at full width (w32/512, batch 8, f32, pallas,
+   synthetic 14-joint batches): one warm-up step and 3 timed steps, K2,
+   K2b and G1 10 times each a step, losses finite; prints the device time
+   a step.
+28. the AE-grouping entry point at full width (``valid_hr.evaluate``,
+   f32, batches of 8) on phase 19's 16 images: hg_512 (4 stacks 256 wide
+   at 512, long-side scaling) with the hg and hg2 parsers, and w32/512
+   with flip and the hr parser. Seeded weights whose output heads are
+   scaled from the images so that persons form (ae_full_width_model). Per
+   configuration the card's maps against the CPU's on two images (1e-4);
+   per parser the results files (AE grouping and correlation clustering)
+   must hold persons and equal the host's parse of the card's maps; prints
+   img/s, the stage split, and peak memory.
+
+Phases 5, 8, 19, 23, 26 and 27 check the counts the same way: every
+kernel not named launches 0 times.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -751,11 +780,12 @@ def drive_eval(label, pipe, images, iters, want, card):
     return counts
 
 
-def drive_train(label, trainer, batches, want, card):
+def drive_train(label, trainer, batches, want, card, model="model_58_4"):
     """Training at full width: a warm-up step on ``batches[0]``, then one
     step on each of the others with the counts zeroed just before and read
     just after; each kernel of ``want`` must launch that often per step,
-    every other one never; losses finite, no step skipped. Returns the
+    every other one never; losses finite, no step skipped. Prints the
+    device time a step (CUDA events around the timed steps). Returns the
     counts."""
     trainer.step(batches[0])                      # warm-up
     torch.cuda.synchronize()
@@ -763,12 +793,16 @@ def drive_train(label, trainer, batches, want, card):
     timed = batches[1:]
     losses = []
     zero_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     for batch in timed:
         loss, logging = trainer.step(batch)
         losses.append(loss)
+    end.record()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end) / len(timed)
     counts = read_counts(label, {k: v * len(timed) for k, v in want.items()})
     if not all(bool(torch.isfinite(x)) for x in losses) or trainer.fail_count:
         raise SystemExit(f"{label}: losses {[float(x) for x in losses]}, "
@@ -776,8 +810,9 @@ def drive_train(label, trainer, batches, want, card):
     lab, gr = trainer.last_output["labels"], trainer.last_output["graph"]
     bs, size = batches[0]["imgs"].shape[:2]
     launched = ", ".join(f"{k} {v} ({v // len(timed)} per step)" for k, v in counts.items() if v)
-    log(f"{label}: model_58_4 w32/{size} batch {bs} f32, {len(timed)} steps in {dt:.3f} s: "
+    log(f"{label}: {model} w32/{size} batch {bs} f32, {len(timed)} steps in {dt:.3f} s: "
         f"{len(timed) / dt:.3f} steps/s, {bs * len(timed) / dt:.2f} img/s on {card}; "
+        f"device time a step {device_ms:.1f} ms; "
         f"launches {launched}; losses {[round(float(x), 4) for x in losses]}; "
         f"parts of the last {({k: round(float(v), 4) for k, v in logging.items()})}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
@@ -819,17 +854,17 @@ def capture_train_inputs(trainer, batch, name, steps=(0, 9)):
     return kept
 
 
-def phase_small_train(msg_pass="auto"):
-    """small_train() on ``msg_pass``, same seeded weights and batch, CPU
-    against card."""
+def phase_small_train(msg_pass="auto", cfg=None, name="small train"):
+    """small_train() (or ``cfg``, a small cut) on ``msg_pass``, same seeded
+    weights and batch, CPU against card."""
     from pemp_tpu_torch.config import small_train
     from pemp_tpu_torch.data.synthetic import make_batch
     from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
 
-    cfg = small_train()
+    cfg = small_train() if cfg is None else cfg
     cfg.TPU.MSG_PASS = msg_pass
-    batch = make_batch(np.random.RandomState(5), cfg.TRAIN.BATCH_SIZE, 64, (16, 32), 17, 30,
-                       scale_range=(0.4, 0.9))
+    batch = make_batch(np.random.RandomState(5), cfg.TRAIN.BATCH_SIZE, 64, (16, 32),
+                       cfg.DATASET.NUM_JOINTS, 30, scale_range=(0.4, 0.9))
     runs = {}
     state = None
     for dev in ("cpu", "cuda"):
@@ -848,25 +883,25 @@ def phase_small_train(msg_pass="auto"):
     (lc, labc, gc, sc), (lg, labg, gg, sg) = runs["cpu"], runs["cuda"]
     for key in ("node", "class", "person", "edge"):
         if not torch.equal(labc[key], labg[key]):
-            raise SystemExit(f"small train {msg_pass}: labels {key} differ between CPU and card")
+            raise SystemExit(f"{name} {msg_pass}: labels {key} differ between CPU and card")
     # f32 on both sides (TF32 off); cuDNN and the kernels sum in other
     # orders than the CPU: loss parts at 1e-4; gradients within 5e-3 of each
     # tensor's largest |grad| (the CPU tests' tolerance against the JAX
     # package, set from a float64 evaluation)
     bad = {k: (lc[k], lg[k]) for k in lc if abs(lc[k] - lg[k]) > 1e-4 * max(1.0, abs(lc[k]))}
     if bad:
-        raise SystemExit(f"small train {msg_pass}: loss parts differ: {bad}")
+        raise SystemExit(f"{name} {msg_pass}: loss parts differ: {bad}")
     if set(gc) != set(gg):
-        raise SystemExit(f"small train {msg_pass}: different parameters have gradients")
+        raise SystemExit(f"{name} {msg_pass}: different parameters have gradients")
     worst = max(((gc[k] - gg[k]).abs().max() / max(gc[k].abs().max(), 1e-30)).item()
                 for k in gc if gc[k].abs().max() > 0)
     if not worst <= 5e-3:
-        raise SystemExit(f"small train {msg_pass}: gradients differ by {worst:.2e} of their "
+        raise SystemExit(f"{name} {msg_pass}: gradients differ by {worst:.2e} of their "
                          f"largest")
     stat_err = max((sc[k] - sg[k]).abs().max().item() for k in sc)
     if not stat_err <= 1e-4:
-        raise SystemExit(f"small train {msg_pass}: MPN running statistics differ by {stat_err}")
-    log(f"small train {msg_pass}: CPU vs card labels exact ({int(labc['node'].sum())} positive "
+        raise SystemExit(f"{name} {msg_pass}: MPN running statistics differ by {stat_err}")
+    log(f"{name} {msg_pass}: CPU vs card labels exact ({int(labc['node'].sum())} positive "
         f"nodes, {int(labc['edge'].sum())} positive edges); loss {lc['loss']:.6f} vs "
         f"{lg['loss']:.6f}; gradients within {worst:.2e} of each tensor's largest; "
         f"MPN running statistics within {stat_err:.2e}")
@@ -896,13 +931,13 @@ def capture_eval_inputs(pipe, images, name, steps=(0, 9)):
     return kept
 
 
-def phase_small_slice(msg_pass="auto"):
-    """The narrow test configuration on ``msg_pass``, same weights, CPU
-    against card."""
+def phase_small_slice(msg_pass="auto", cfg=None, name="small slice"):
+    """The narrow test configuration (or ``cfg``, a small cut) on
+    ``msg_pass``, same weights, CPU against card."""
     from pemp_tpu_torch.config import small
     from pemp_tpu_torch.pipeline import build_pipeline
 
-    cfg = small()
+    cfg = small() if cfg is None else cfg
     cfg.TPU.MSG_PASS = msg_pass
     imgs = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
     runs = {}
@@ -915,7 +950,7 @@ def phase_small_slice(msg_pass="auto"):
     (pc, vc, gc, mc), (pg, vg, gg, mg) = runs["cpu"], runs["cuda"]
     for key in ("nodes", "edge_index", "edge_valid", "node_valid"):
         if not torch.equal(gc[key], gg[key]):
-            raise SystemExit(f"small slice {msg_pass}: graph field {key} differs between CPU "
+            raise SystemExit(f"{name} {msg_pass}: graph field {key} differs between CPU "
                              f"and card")
     ev = gc["edge_valid"]
     errs = {"edge": (mc["edge"] - mg["edge"])[ev].abs().max().item(),
@@ -925,11 +960,11 @@ def phase_small_slice(msg_pass="auto"):
     # than the CPU: the JAX package's MPN parity tolerance
     bad = {k: v for k, v in errs.items() if not v <= 2e-3}
     if bad:
-        raise SystemExit(f"small slice {msg_pass}: MPN outputs differ: {bad}")
+        raise SystemExit(f"{name} {msg_pass}: MPN outputs differ: {bad}")
     if not (torch.equal(vc, vg) and torch.equal(pc[..., :2], pg[..., :2])
             and (pc[..., 2] - pg[..., 2]).abs().max().item() <= 1e-5):
-        raise SystemExit(f"small slice {msg_pass}: persons differ between CPU and card")
-    log(f"small slice {msg_pass}: CPU vs card MPN max abs err {errs}; graph exact; "
+        raise SystemExit(f"{name} {msg_pass}: persons differ between CPU and card")
+    log(f"{name} {msg_pass}: CPU vs card MPN max abs err {errs}; graph exact; "
         f"persons equal ({int(vc.sum())} found); valid edges {int(ev.sum())}")
 
 
@@ -1126,27 +1161,41 @@ def full_width_model(cfg, images):
     passes (node scores 0) or every edge does. Then the node head's last
     bias is raised to 2 and the edge head's set to 0.5, so that most nodes
     pass the threshold and edge scores lie on both sides of 0.5 for GAEC."""
-    from pemp_tpu_torch.models.hrnet import BatchNorm2d
-    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
-
     model = tta_model(cfg, "cuda", torch.bfloat16, 0)
-
-    def measure(bn, args):
-        x = args[0].float()
-        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
-
-    hooks = [m.register_forward_pre_hook(measure) for m in model.modules()
-             if isinstance(m, BatchNorm2d)]
-    pipe = TTAPipeline(model, cfg)
-    x = np.stack([pipe._prepare(im)[0][pipe.scales.index(1.0)]["padded"] for im in images])
     with torch.no_grad():
-        model.backbone_forward(torch.from_numpy(x).cuda())
-        for h in hooks:
-            h.remove()
+        measure_batchnorm(model, scale_one_inputs(model, cfg, images))
         model.mpn.node_classification[-1].bias.fill_(2.0)
         model.mpn.edge_classification[-1].bias.fill_(0.5)
     return model
+
+
+def scale_one_inputs(model, cfg, images):
+    """The prepared scale-1 inputs of ``images`` (all of one shape) as the
+    eval pipeline feeds them, on the card."""
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+
+    pipe = TTAPipeline(model, cfg, maps_only=True)
+    x = np.stack([pipe._prepare(im)[0][pipe.scales.index(1.0)]["padded"] for im in images])
+    return torch.from_numpy(x).cuda()
+
+
+def measure_batchnorm(model, x):
+    """Sets each BatchNorm's statistics to those of its input on ``x``, in
+    one forward in layer order."""
+    from pemp_tpu_torch.models.hrnet import BatchNorm2d
+
+    def measure(bn, args):
+        y = args[0].float()
+        bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(y.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(measure) for m in model.modules()
+             if isinstance(m, BatchNorm2d)]
+    try:
+        model.backbone_forward(x)
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def check_full_width_decode(label, cfg, model, images):
@@ -1181,7 +1230,7 @@ def check_full_width_decode(label, cfg, model, images):
     return found, err
 
 
-def drive_valid(label, cfg, eval_set, batches, card, log_dir):
+def drive_valid(label, cfg, eval_set, batches, card, log_dir, model=None):
     """valid.evaluate in batches of 8 at full width, bf16, after
     check_full_width_decode (which also warms up): a run with the counts
     zeroed just before and read just after (K1 10 times a batch, nothing
@@ -1194,7 +1243,8 @@ def drive_valid(label, cfg, eval_set, batches, card, log_dir):
 
     cfg.LOG_DIR = log_dir
     images = [eval_set.load_raw(i)[3] for i in range(len(eval_set))]
-    model = full_width_model(cfg, [im for im in images if im.shape == images[0].shape])
+    if model is None:
+        model = full_width_model(cfg, [im for im in images if im.shape == images[0].shape])
     found, err = check_full_width_decode(label, cfg, model, images)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1208,7 +1258,8 @@ def drive_valid(label, cfg, eval_set, batches, card, log_dir):
     split = cfg.TEST.SPLIT
     with open(os.path.join(log_dir, f"person_keypoints_{split}_mpn_results.json")) as f:
         results = json.load(f)
-    if len(stats) != 10 or not np.isfinite(stats).all() or not results or not all(
+    n_stats = 10 if cfg.DATASET.DATASET == "coco" else 9
+    if len(stats) != n_stats or not np.isfinite(stats).all() or not results or not all(
             np.isfinite(r["keypoints"]).all() and r["image_id"] in eval_set.img_ids
             for r in results):
         raise SystemExit(f"{label}: stats {list(stats)}, {len(results)} results")
@@ -1526,6 +1577,271 @@ def phase_train_entry(card):
             f"{[round(x, 4) for x in resumed['losses']]}; FINETUNE from the epoch-0 snapshot: "
             f"a fresh optimizer, loss {tuned['losses'][0]:.4f}")
     return counts
+
+
+def phase_small_hg():
+    """The narrow Hourglass (config.small_hg: 2 stacks 16 wide at 512,
+    long-side scaling) through TTAPipeline with ``maps_only`` at scales
+    [1.0, 0.5] with flip on two images of different sizes, the same seeded
+    weights on the CPU and on the card: the aggregated maps within 1e-4 of
+    each one's largest, the same canvas and scaling; then HG's parser on
+    each side's maps (host numpy: only the maps come from the card)."""
+    from pemp_tpu_torch.config import small_hg
+    from pemp_tpu_torch.data.synthetic import eval_scenes
+    from pemp_tpu_torch.decode.group_hg import HeatmapParserHG
+    from pemp_tpu_torch.models.ae_group import build_ae_group_model
+    from pemp_tpu_torch.pipeline import init_random_weights
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+    from pemp_tpu_torch.valid_hr import host_maps
+
+    cfg = small_hg()
+    cfg.merge_from_other({"TEST": {"SCALE_FACTOR": [1.0, 0.5], "FLIP_TEST": True}})
+    images, _ = eval_scenes(np.random.RandomState(5), [(72, 96), (96, 80)])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_ae_group_model(cfg, device=dev)
+        init_random_weights(model, 3)
+        runs[dev] = [{k: v.cpu() if torch.is_tensor(v) else v for k, v in o.items()}
+                     for o in TTAPipeline(model, cfg, maps_only=True).run_batched(images, 2)]
+    errs = {}
+    for c, g in zip(runs["cpu"], runs["cuda"]):
+        if (c["canvas_size"], c["scaling_type"]) != (g["canvas_size"], g["scaling_type"]) \
+                or c["scaling_type"] != "long_with_multiscale":
+            raise SystemExit(f"small Hourglass: canvas or scaling {c['canvas_size']}, "
+                             f"{c['scaling_type']} against {g['canvas_size']}, {g['scaling_type']}")
+        # f32 on both sides (TF32 off), sums in other orders
+        for key in ("scoremaps", "tags"):
+            errs[key] = max(errs.get(key, 0.0),
+                            float((c[key] - g[key]).abs().max() / c[key].abs().max()))
+    if not all(v <= 1e-4 for v in errs.values()):
+        raise SystemExit(f"small Hourglass: CPU and card maps differ {errs}")
+    parser = HeatmapParserHG(cfg)
+    found = {dev: [len(parser.parse(*host_maps(o))[0]) for o in outs]
+             for dev, outs in runs.items()}
+    log(f"small Hourglass maps_only: scales [1.0, 0.5] with flip, images 72x96 and 96x80, "
+        f"canvas {runs['cpu'][0]['canvas_size']}, CPU vs card: relative errors {errs}; HG "
+        f"parser persons per image from the CPU's maps {found['cpu']}, from the card's "
+        f"{found['cuda']}")
+
+
+def ae_full_width_model(cfg, images):
+    """models.ae_group at full width in f32 (the AE-grouping entry point's
+    type) with seeded random weights, made to form persons on ``images``
+    (all of one shape): HigherHRNet's BatchNorm statistics from the images
+    (as full_width_model), then each output head's heat row scaled so that
+    the 5th-highest NMS peak of its joint type's map (the median over the
+    images) sits at the 0.1 detection threshold, and each tag row so that
+    its spread is 0.3, below the parsers' 1.0 tag threshold, so that joints
+    join. Three passes: HigherHRNet's second head reads the first's output."""
+    from pemp_tpu_torch.models.ae_group import build_ae_group_model
+    from pemp_tpu_torch.ops.detection import nms_mask
+    from pemp_tpu_torch.pipeline import init_random_weights
+
+    model = build_ae_group_model(cfg, device="cuda")
+    init_random_weights(model, 0)
+    x = scale_one_inputs(model, cfg, images)
+    j = cfg.DATASET.NUM_JOINTS
+    if cfg.MODEL.KP == "hourglass":
+        heads = [(model.backbone.outs[-1].conv, 2 * j)]
+    else:
+        heads = [(model.backbone.final_layers[0], 2 * j), (model.backbone.final_layers[1], j)]
+    with torch.no_grad():
+        measure_batchnorm(model, x)
+        for _ in range(3):
+            _, heat, _, tags = model.backbone_forward(x)
+            heat = heat.permute(0, 3, 1, 2)
+            kth = (nms_mask(heat, 5) * heat).flatten(2).topk(5, dim=-1).values[..., -1]
+            kth = kth.median(dim=0).values                              # (J,)
+            # a type whose peaks all lie below 0 has its row negated first
+            s_heat = torch.where(kth > 0, 0.1 / kth, -torch.ones_like(kth))
+            s_tag = 0.3 / tags.flatten(0, 2).std(dim=0)                # (J,)
+            for conv, channels in heads:
+                scale = torch.ones(conv.out_channels, device="cuda")
+                scale[:j], scale[j:channels] = s_heat, s_tag[:channels - j]
+                conv.weight.mul_(scale[:, None, None, None])
+                conv.bias.mul_(scale)
+        if not bool((s_heat > 0).all()):
+            raise SystemExit(f"{cfg.MODEL.KP}: a joint type's map has no positive peaks")
+    return model
+
+
+def phase_valid_hr(card, rendered, dataset):
+    """The AE-grouping entry point at full width (valid_hr.evaluate, batches
+    of 8, f32): hg_512 (4 stacks 256 wide, 512, long-side scaling) with the
+    hg and hg2 parsers, and w32/512 with flip and the hr parser, on the 16
+    rendered images, weights from ae_full_width_model. Per configuration
+    the card's maps are held against the CPU's on two images (1e-4 of each
+    one's largest); per parser a run with each stage timed, whose outputs
+    are kept: the results files (AE grouping and correlation clustering)
+    must hold persons and equal the host's parse of the card's maps, and a
+    timed run (img/s). Returns {config: {parser: numbers}}."""
+    import os
+    import tempfile
+
+    from pemp_tpu_torch import valid_hr
+    from pemp_tpu_torch.config import hg_512, w32_512
+    from pemp_tpu_torch.models.ae_group import build_ae_group_model
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+
+    numbers = {}
+    same = [im for im in rendered if im.shape == rendered[0].shape]
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered, dataset)
+        n = len(eval_set)
+        for name, cfg, parsers in (("hg_512", hg_512(), ("hg", "hg2")),
+                                   ("w32_512", w32_512(), ("hr",))):
+            t_phase = time.perf_counter()
+            cfg.LOG_DIR = os.path.join(tmp, name)
+            model = ae_full_width_model(cfg, same)
+            cpu_model = build_ae_group_model(cfg, device="cpu")
+            cpu_model.load_state_dict(model.state_dict())
+            card_out = TTAPipeline(model, cfg, maps_only=True).run_batched(rendered[:2], 2)
+            cpu_out = TTAPipeline(cpu_model, cfg, maps_only=True).run_batched(rendered[:2], 2)
+            del cpu_model
+            # f32 on both sides (TF32 off), sums in other orders
+            errs = {key: max(float((c[key] - g[key].cpu()).abs().max() / c[key].abs().max())
+                             for c, g in zip(cpu_out, card_out)) for key in ("scoremaps", "tags")}
+            if not all(v <= 1e-4 for v in errs.values()):
+                raise SystemExit(f"valid_hr {name}: CPU and card maps differ {errs}")
+            log(f"valid_hr {name}: card against CPU maps on two images, relative errors {errs}; "
+                f"canvas {card_out[0]['canvas_size']}, scaling {card_out[0]['scaling_type']}")
+            numbers[name] = {}
+            for parser in parsers:
+                kept = []
+                real = TTAPipeline.run_batched
+
+                def recording(self, images, batch_size=8):
+                    outs = real(self, images, batch_size)
+                    kept.extend({k: v.cpu() if torch.is_tensor(v) else v for k, v in o.items()}
+                                for o in outs)
+                    return outs
+
+                stage_times = {}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                TTAPipeline.run_batched = recording
+                try:
+                    valid_hr.evaluate(cfg, model, eval_set, f"{parser}_staged.txt",
+                                      parser=parser, batch_size=8, stage_times=stage_times)
+                finally:
+                    TTAPipeline.run_batched = real
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                # the card's persons against the host's parse of the same maps
+                ae_parser = valid_hr.make_parser(parser, cfg)
+                want = {"dt_ae.json": [], "dt_cc.json": []}
+                for i, out in enumerate(kept):
+                    det, tags = valid_hr.host_maps(out)
+                    grouped, persons_cc = valid_hr.group(parser, ae_parser, det, tags, cfg)
+                    for key, persons in (("dt_ae.json", grouped), ("dt_cc.json", persons_cc)):
+                        ann = valid_hr.to_anns(persons, out, int(eval_set.img_ids[i]), cfg)
+                        want[key].extend(ann or [])
+                found = {}
+                for key, anns in want.items():
+                    with open(os.path.join(cfg.LOG_DIR, key)) as f:
+                        got = json.load(f)
+                    if not got or got != json.loads(json.dumps(anns)):
+                        raise SystemExit(f"valid_hr {name} {parser}: {key} holds {len(got)} "
+                                         f"persons, the host's parse of the card's maps "
+                                         f"{len(anns)}, or they differ")
+                    found[key] = len(got)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats_ae, stats_cc = valid_hr.evaluate(cfg, model, eval_set, f"{parser}.txt",
+                                                       parser=parser, batch_size=8)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                with open(os.path.join(cfg.LOG_DIR, f"{parser}.txt")) as f:
+                    kpt = [line.split()[-1] for line in f if line.startswith("kpt_forward")][0]
+                split_ms = ", ".join(f"{k} {v * 1e3 / n:.1f}" for k, v in stage_times.items())
+                log(f"valid_hr {name} {parser}: {n} images in {dt:.3f} s: {n / dt:.2f} img/s "
+                    f"with the host parse on {card} (kpt_forward {float(kpt) * 1e3:.2f} ms an "
+                    f"image); persons AE {found['dt_ae.json']}, clustering "
+                    f"{found['dt_cc.json']}, equal to the host's parse of the card's maps; AP "
+                    f"AE {stats_ae[0]:.4f}, clustering {stats_cc[0]:.4f}; peak memory "
+                    f"{peak:.2f} GiB; stages timed (the card synchronised at each stage's "
+                    f"end), ms an image: {split_ms}")
+                numbers[name][parser] = dict(img_s=n / dt, stages=stage_times, peak=peak)
+            del model
+            torch.cuda.empty_cache()
+            log(f"valid_hr {name}: done in {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
+def phase_model_81_1_2(card, sizes):
+    """Phases 25-27: model_81_1_2 at full width. 25: K1 against its plain
+    version on the step-0 inputs of its eval path (bf16, batch 8 at
+    480x640, T = 14), K2 and K2b on its training path's (f32, batch 8). 26:
+    valid.evaluate with GAEC on 16 rendered images with 14 joints (K1 10
+    times a batch). 27: 1 warm-up and 3 timed training steps (K2, K2b and
+    G1 10 times each a step). Returns the errors and the launch counts."""
+    import tempfile
+
+    from pemp_tpu_torch.config import model_81_1_2
+    from pemp_tpu_torch.data.synthetic import eval_scenes, make_batch
+    from pemp_tpu_torch.ops import fused_step, typed_message
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+    from pemp_tpu_torch.tta.multi_scale import TTAPipeline
+
+    out = {}
+    t0 = time.perf_counter()
+    rendered14, dataset14 = eval_scenes(np.random.RandomState(11), sizes, num_joints=14)
+    cfg81 = model_81_1_2()
+    cfg81.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid score passes it
+    model81 = full_width_model(cfg81, [im for im in rendered14
+                                       if im.shape == rendered14[0].shape])
+    tta81 = TTAPipeline(model81, cfg81, with_decode=False)
+    args = capture_eval_inputs(lambda ims: tta81.run_batched(ims, batch_size=8),
+                               rendered14[0::2], "fused_mpn_step", steps=(0,))[0]
+    if args[4].shape[1] != 14 or args[0].shape[0] != 8 * 14 * cfg81.TPU.NODES_PER_TYPE:
+        raise SystemExit(f"model_81_1_2 eval path: K1's a is {tuple(args[4].shape)}, "
+                         f"p {tuple(args[0].shape)}")
+    out["K1 err"] = check_k1("model_81_1_2 step 0 bf16 (T 14)", args[:13], args[13:], 2e-2,
+                             fused_step)[0]
+    del tta81, args
+    train81 = model_81_1_2()
+    rng = np.random.RandomState(12)
+    size = train81.DATASET.INPUT_SIZE
+    batches81 = [batch_to_torch(make_batch(rng, train81.TRAIN.BATCH_SIZE, size,
+                                           tuple(train81.DATASET.OUTPUT_SIZE), 14,
+                                           train81.DATASET.MAX_NUM_PEOPLE), "cuda")
+                 for _ in range(4)]
+    trainer = build_trainer(train81, device="cuda", seed=0)
+    args, g = capture_train_inputs(trainer, batches81[0], "fused_typed_message_aggregate",
+                                   steps=(0,))[0]
+    if args[1].shape[1] != 14:
+        raise SystemExit(f"model_81_1_2 train path: K2's a is {tuple(args[1].shape)}")
+    numbers = check_k2("model_81_1_2 train path step 0 (T 14)", args[:6], g, args[6:],
+                       typed_message)
+    out["K2 errs"] = {way: v[0] for way, v in numbers.items()}
+    log(f"K2/K2b groups and blocks, model_81_1_2 train path step 0: "
+        f"{k2_group_stats(args, args[6:], typed_message._CHUNK)}")
+    del args, g
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: phase 25 done in {time.perf_counter() - t0:.1f} s")
+
+    # 26. through the eval entry point: one scale, GAEC on the host,
+    # CrowdPose scoring; two shapes, so two batches of 8
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered14, dataset14)
+        out["K1"], times, dt = drive_valid("valid model_81_1_2 GAEC", cfg81, eval_set, 2, card,
+                                           tmp, model=model81)
+    del model81
+    torch.cuda.empty_cache()
+    log(f"valid model_81_1_2 GAEC: host clustering and its decode {times['cluster']:.3f} s "
+        f"of the staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
+    log(f"chip_smoke: phase 26 done in {time.perf_counter() - t0:.1f} s")
+
+    # 27. training: 1 warm-up step and 3 timed
+    t0 = time.perf_counter()
+    steps = train81.MODEL.MPN.STEPS
+    counts = drive_train("model_81_1_2 training", trainer, batches81,
+                         {"K2": steps, "K2b": steps, "G1": steps}, card, model="model_81_1_2")
+    out.update({k: counts[k] for k in ("K2", "K2b", "G1")})
+    del trainer, batches81
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: phase 27 done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1901,6 +2217,37 @@ def main() -> int:
     k2_fwd += counts["K2"]
     k2_bwd += counts["K2b"]
     g1_launches += counts["G1"]
+    log(f"chip_smoke: phases 1-23 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 24. the small Hourglass maps_only slice and the small model_81_1_2
+    # slices (fused-step eval, pallas training step; T = 14), CPU against card
+    from pemp_tpu_torch.config import small_81_1_2
+
+    t0 = time.perf_counter()
+    phase_small_hg()
+    cut = small_81_1_2()
+    cut.merge_from_other({"MODEL": {"PRETRAINED": "", "GC": {"CC_METHOD": "threshold"},
+                                    "MPN": {"NODE_THRESHOLD": 0.1}}})
+    phase_small_slice("auto", cut, "small model_81_1_2 slice")
+    phase_small_train("auto", small_81_1_2(), "small model_81_1_2 train")
+    log(f"chip_smoke: phase 24 done in {time.perf_counter() - t0:.1f} s")
+
+    # 25-27. model_81_1_2 at full width: K1, K2 and K2b at T = 14, the eval
+    # entry point, training
+    numbers81 = phase_model_81_1_2(card, sizes)
+    errs.append(numbers81["K1 err"])
+    for way in k2_errs:
+        k2_errs[way].append(numbers81["K2 errs"][way])
+    launches += numbers81["K1"]
+    k2_fwd += numbers81["K2"]
+    k2_bwd += numbers81["K2b"]
+    g1_launches += numbers81["G1"]
+
+    # 28. the AE-grouping entry point at full width: hg_512 (hg, hg2) and
+    # w32/512 with flip (hr) on phase 19's 16 rendered images
+    t0 = time.perf_counter()
+    phase_valid_hr(card, rendered, dataset)
+    log(f"chip_smoke: phase 28 done in {time.perf_counter() - t0:.1f} s")
 
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
@@ -1939,7 +2286,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-23 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-28 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
 from pemp_tpu_torch.config.defaults import (
+    PRESETS,
     check_path,
     get_config,
+    hg_512,
     load_config,
+    model_81_1_2,
     small,
+    small_81_1_2,
+    small_hg,
     small_train,
     update_config,
     update_config_command,
+    w32_512,
     w32_512_train,
     w48_640,
 )
 from pemp_tpu_torch.config.node import ConfigNode
 
-__all__ = ["ConfigNode", "check_path", "get_config", "load_config", "small", "small_train",
-           "update_config", "update_config_command", "w32_512_train", "w48_640"]
+__all__ = ["PRESETS", "ConfigNode", "check_path", "get_config", "hg_512", "load_config",
+           "model_81_1_2", "small", "small_81_1_2", "small_hg", "small_train", "update_config",
+           "update_config_command", "w32_512", "w32_512_train", "w48_640"]

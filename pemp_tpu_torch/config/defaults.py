@@ -10,8 +10,8 @@ A YAML file of the repo's ``configs/`` loads through :func:`update_config`
   passing forms): a file giving another value raises
   ``NotImplementedError``;
 * a key of :data:`NOT_READ`, which no path reads (device and run
-  settings, the other backbone, the loss terms and heads the port
-  refuses, the stages after decode): dropped.
+  settings, the loss terms and heads the port refuses, the stages after
+  decode): dropped.
 
 Any other key raises ``KeyError``, and so does setting a key the tree does
 not hold. The ``MODEL.MPN`` subtree takes new keys, as in the JAX package;
@@ -19,13 +19,14 @@ the model checks it (``models.mpn.models._check_flagship``).
 
 Each path then checks the values it implements for one setting only:
 :func:`check_path` with ``"eval"`` (the bench's pipeline), ``"valid"`` (the
-eval entry point, ``python -m pemp_tpu_torch.valid``) or ``"train"`` (the
-trainer), against :data:`EVAL_FIXED`, :data:`VALID_FIXED` or
-:data:`TRAIN_FIXED` and :func:`msg_pass_route`. :func:`w48_640` and
-:func:`w32_512_train` carry ``configs/hrnet/w48_640.yaml`` and
-``configs/hybrid_class_agnostic_end2end/model_58_4.yaml`` as Python, for
-machines without PyYAML; :func:`load_config` resolves a ``--config`` name
-to a preset or a file.
+eval entry point, ``python -m pemp_tpu_torch.valid``), ``"valid_hr"`` (the
+AE-grouping entry point, ``python -m pemp_tpu_torch.valid_hr``) or
+``"train"`` (the trainer), against :data:`EVAL_FIXED`, :data:`VALID_FIXED`,
+:data:`VALID_HR_FIXED` or :data:`TRAIN_FIXED` and :func:`msg_pass_route`.
+The presets (:data:`PRESETS`: :func:`w48_640`, :func:`w32_512_train`,
+:func:`model_81_1_2`, :func:`hg_512` and :func:`w32_512`) carry five files
+of ``configs/`` as Python, for machines without PyYAML;
+:func:`load_config` resolves a ``--config`` name to a preset or a file.
 """
 
 import ast
@@ -59,6 +60,7 @@ _C = CN({
         "FLIP": 0.5,
     },
     "MODEL": {
+        "KP": "hrnet",
         "PRETRAINED": "",
         "FEATURE_GATHER_KERNEL": 3,
         "LOSS": {
@@ -73,6 +75,9 @@ _C = CN({
             "EDGE_BCE_POS_WEIGHT": 1.0,
             "INCLUDE_BORDERING_NODES": False,
         },
+        # the 4-stack Hourglass (MODEL.KP hourglass): stacks, width, head
+        # channels (17 heatmaps, 17 tags, 34 unused)
+        "HG": {"NSTACK": 4, "INPUT_DIM": 256, "OUTPUT_DIM": 68},
         "HRNET": {
             "NUM_JOINTS": 17,
             "TAG_PER_JOINT": True,
@@ -182,12 +187,14 @@ _C = CN({
     },
 })
 
-# Values no path of the port implements otherwise: HigherHRNet with the
-# standard blocks, the target-major kNN graph on detections, per-step MPN
-# outputs only where training asks for them, and the message-passing forms
-# with kernels (``ROUTES``). Refused when a file is loaded.
+# Values no path of the port implements otherwise: the three backbones
+# (HigherHRNet, the same network under mmpose's checkpoint names, the
+# 4-stack Hourglass), HigherHRNet's standard blocks, the target-major kNN
+# graph on detections, per-step MPN outputs only where training asks for
+# them, and the message-passing forms with kernels (``ROUTES``). Refused
+# when a file is loaded.
 FIXED = {
-    "MODEL.KP": ("hrnet",),
+    "MODEL.KP": ("hrnet", "mmpose_hrnet", "hourglass"),
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.FUSE_METHOD": ("SUM",) for i in (2, 3, 4)},
     "MODEL.GC.GRAPH_TYPE": ("knn",),
@@ -221,12 +228,20 @@ EVAL_FIXED = {
 }
 
 # The eval entry point (valid.py) runs multi-scale + flip test-time
-# augmentation and groups by threshold on the card or by correlation
-# clustering on the host; the greedy grouping (decode/greedy.py) and the
-# hourglass's long-side scaling are not ported.
+# augmentation, short- or long-side scaling, and groups by threshold on the
+# card or by correlation clustering on the host; the greedy grouping
+# (decode/greedy.py) is not ported.
 VALID_FIXED = {
     "MODEL.GC.CC_METHOD": ("threshold", "GAEC", "KL", "MUT"),
-    "DATASET.SCALING_TYPE": ("short",),
+    "DATASET.SCALING_TYPE": ("short", "long"),
+    "TPU.S2D_DECONV": (-1, 0),
+}
+
+# The AE-grouping entry point (valid_hr.py): the backbone alone under the
+# same test-time augmentation, grouped on the host by the AE parsers and by
+# correlation clustering on the tags.
+VALID_HR_FIXED = {
+    "DATASET.SCALING_TYPE": ("short", "long"),
     "TPU.S2D_DECONV": (-1, 0),
 }
 
@@ -270,11 +285,11 @@ NOT_READ = frozenset({
     # names and sizes the JAX package does not read either
     *_under("MODEL", "KP_OUTPUT_DIM FEATURE_GATHER_PADDING"),
     *_under("MODEL.HRNET", "NAME INPUT_SIZE OUTPUT_SIZE"),
+    *_under("MODEL.HG", "NAME PRETRAINED"),
     "MODEL.GC.NAME",
-    # the other backbone (MODEL.KP is fixed to hrnet)
-    "MODEL.HG",
-    # evaluation settings of the JAX package's other tools (valid_hr.py,
-    # the upper bounds) and the reference's dead keys
+    # evaluation settings of the JAX package's other tools (the upper
+    # bounds; valid_hr.py reads REFINE_COMP as ``REFINE_COMP or True``,
+    # always refining) and the reference's dead keys
     *_under("TEST", "NUM_EVAL PROJECT_TO_IMAGE REFINE_COMP WITH_HEATMAPS WITH_AE "
                     "WITH_POSE_FILTER"),
     # how the JAX package runs on a TPU; the working type is the entry
@@ -335,14 +350,23 @@ def msg_pass_route(msg_pass: str, train: bool) -> str:
 
 def check_path(cfg, path: str) -> None:
     """Raises ``NotImplementedError`` unless ``cfg`` asks the ``"eval"``,
-    ``"valid"`` or ``"train"`` path for what the port implements there."""
-    fixed = {"eval": EVAL_FIXED, "valid": VALID_FIXED, "train": TRAIN_FIXED}[path]
+    ``"valid"``, ``"valid_hr"`` or ``"train"`` path for what the port
+    implements there."""
+    fixed = {"eval": EVAL_FIXED, "valid": VALID_FIXED, "valid_hr": VALID_HR_FIXED,
+             "train": TRAIN_FIXED}[path]
     for key, allowed in fixed.items():
         value = _lookup(cfg, key)
         if value not in allowed:
             raise NotImplementedError(
                 f"{key}={value!r}: the port's {path} path implements only {allowed}")
-    msg_pass_route(cfg.TPU.MSG_PASS, path == "train")
+    if cfg.DATASET.SCALING_TYPE == "long" and cfg.DATASET.INPUT_SIZE != 512:
+        # pemp_tpu/geometry/affine.py:200-215 asserts it: the reference maps
+        # back through a transform fixed at 512
+        raise NotImplementedError(
+            f"DATASET.SCALING_TYPE='long' at DATASET.INPUT_SIZE="
+            f"{cfg.DATASET.INPUT_SIZE}: the long-side reverse map is fixed at 512")
+    if path != "valid_hr":
+        msg_pass_route(cfg.TPU.MSG_PASS, path == "train")
 
 
 def get_config():
@@ -382,13 +406,12 @@ CONFIGS = pathlib.Path(__file__).resolve().parents[2] / "configs"
 
 
 def load_config(name: str):
-    """The configuration a ``--config`` name gives: the two files the port
-    carries as presets come from them (no PyYAML needed), any other name is
-    ``configs/<name>.yaml`` (or a path ending in ``.yaml``)."""
-    presets = {"hrnet/w48_640": w48_640,
-               "hybrid_class_agnostic_end2end/model_58_4": w32_512_train}
-    if name in presets:
-        return presets[name]()
+    """The configuration a ``--config`` name gives: the files the port
+    carries as presets (:data:`PRESETS`) come from them (no PyYAML needed),
+    any other name is ``configs/<name>.yaml`` (or a path ending in
+    ``.yaml``)."""
+    if name in PRESETS:
+        return PRESETS[name]()
     path = name if name.endswith(".yaml") else str(CONFIGS / f"{name}.yaml")
     return update_config(get_config(), path)
 
@@ -523,6 +546,123 @@ def w32_512_train():
     return cfg
 
 
+# configs/crowdpose/model_81_1_2.yaml, the keys of it that the port reads:
+# the CrowdPose flagship, HigherHRNet-w32 at 512 under mmpose's checkpoint
+# names, 14 joint types, the flagship MPN at T = 14 (EDGE_INPUT_DIM 14 + 2),
+# no crowd masking, trained as model_58_4
+MODEL_81_1_2 = {
+    "LOG_DIR": "log/PoseEstimationBaseline/Real_node/81_1_2",
+    "DATASET": {"ROOT": "data/crowd_pose", "DATASET": "crowd_pose", "NUM_JOINTS": 14,
+                "MAX_NUM_PEOPLE": 30, "SCALING_TYPE": "short", "MAX_ROTATION": 30,
+                "MIN_SCALE": 0.75, "MAX_SCALE": 1.5, "MAX_TRANSLATE": 40, "FLIP": 0.5},
+    "MODEL": {
+        "KP": "mmpose_hrnet",
+        "PRETRAINED": "log/PoseEstimationBaseline/Real_node/81_1_2/pose_estimation.ckpt",
+        "HRNET": {
+            "NUM_JOINTS": 14,
+            "TAG_PER_JOINT": True,
+            "FEATURE_FUSION": "small",
+            "LOSS": {"AE_LOSS_TYPE": "exp", "WITH_AE_LOSS": [True, False],
+                     "PUSH_LOSS_FACTOR": [0.001, 0.001], "PULL_LOSS_FACTOR": [0.001, 0.001],
+                     "WITH_HEATMAPS_LOSS": [True, True], "HEATMAPS_LOSS_FACTOR": [1.0, 1.0]},
+        },
+        "MPN": {**_FLAGSHIP_MPN, "NUM_JOINTS": 14, "EDGE_INPUT_DIM": 16,
+                "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 14]}, "NODE_THRESHOLD": 1.0},
+        "GC": {
+            "USE_NEIGHBOURS": False,
+            "POOL_KERNEL_SIZE": 3,
+            "EDGE_LABEL_METHOD": 6,
+            "MASK_CROWDS": False,
+            "DETECT_THRESHOLD": 0.1,
+            "MATCHING_RADIUS": 0.5,
+            "INCLUSION_RADIUS": 0.75,
+            "CC_METHOD": "GAEC",
+            "NORM_NODE_DISTANCE": True,
+        },
+        "LOSS": {"NAME": ["edge", "node", "class", "heatmap"], "USE_FOCAL": True,
+                 "FOCAL_GAMMA": 2.0, "FOCAL_ALPHA": 1.0},
+    },
+    "TEST": {"SPLIT": "crowd_pose_test", "ADJUST": True, "FLIP_TEST": False,
+             "WITH_REFINE": True, "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": True},
+    "TRAIN": {
+        "SPLIT": "crowd_pose_trainval",
+        "LR": 3.0e-4,
+        "KP_LR": 1.0e-6,
+        "KP_W_DECAY": 0.0001,
+        "LR_FACTOR": 0.1,
+        "LR_STEP": [10, 30],
+        "BATCH_SIZE": 8,
+        "END_EPOCH": 11,
+        "END_TO_END": True,
+        "FREEZE_BN": True,
+        "KP_FREEZE_MODE": "nothing",
+    },
+}
+
+
+def model_81_1_2():
+    """The CrowdPose flagship as ``update_config(get_config(),
+    "configs/crowdpose/model_81_1_2.yaml")`` gives it, built without
+    PyYAML."""
+    cfg = get_config()
+    cfg.merge_from_other(MODEL_81_1_2)
+    return cfg
+
+
+# configs/hourglass/hg_512.yaml, the keys of it that the port reads: the
+# 4-stack Hourglass at 512 with long-side scaling. The file names no MPN,
+# so the tree's default VanillaMPN stands: it runs through valid_hr only.
+HG_512 = {
+    "LOG_DIR": "log/hourglass/hg_512",
+    "DATASET": {"ROOT": "data/coco", "MAX_NUM_PEOPLE": 30, "SCALING_TYPE": "long",
+                "INPUT_SIZE": 512, "OUTPUT_SIZE": [128, 128, 128, 128], "MAX_ROTATION": 0,
+                "MIN_SCALE": 1.0, "MAX_SCALE": 1.0, "MAX_TRANSLATE": 0, "FLIP": 0.0},
+    "MODEL": {"KP": "hourglass", "HG": {"NSTACK": 4, "INPUT_DIM": 256, "OUTPUT_DIM": 68}},
+    "TEST": {"SPLIT": "coco_17_full", "ADJUST": True, "WITH_REFINE": True, "FLIP_TEST": False,
+             "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": False},
+}
+
+
+def hg_512():
+    """The Hourglass AE baseline as ``update_config(get_config(),
+    "configs/hourglass/hg_512.yaml")`` gives it, built without PyYAML."""
+    cfg = get_config()
+    cfg.merge_from_other(HG_512)
+    return cfg
+
+
+# configs/hrnet/w32_512.yaml, the keys of it that the port reads:
+# HigherHRNet-w32 at 512 with flip, the backbone-parity configuration of
+# the AE-grouping entry point (its MPN is the tree's default, VanillaMPN)
+W32_512 = {
+    "LOG_DIR": "log/hrnet/w32_512",
+    "DATASET": {"ROOT": "data/coco", "INPUT_SIZE": 512, "OUTPUT_SIZE": [128, 256],
+                "SCALING_TYPE": "short", "MAX_NUM_PEOPLE": 30},
+    "MODEL": {"KP": "hrnet",
+              "HRNET": {"NUM_JOINTS": 17, "TAG_PER_JOINT": True, "FEATURE_FUSION": "small"}},
+    "TEST": {"SPLIT": "coco_17_full", "ADJUST": True, "WITH_REFINE": True, "FLIP_TEST": True,
+             "SCALE_FACTOR": [1.0], "PROJECT2IMAGE": True},
+}
+
+
+def w32_512():
+    """HigherHRNet-w32 at 512 as ``update_config(get_config(),
+    "configs/hrnet/w32_512.yaml")`` gives it, built without PyYAML."""
+    cfg = get_config()
+    cfg.merge_from_other(W32_512)
+    return cfg
+
+
+# the ``--config`` names that resolve to a preset
+PRESETS = {
+    "hrnet/w48_640": w48_640,
+    "hybrid_class_agnostic_end2end/model_58_4": w32_512_train,
+    "crowdpose/model_81_1_2": model_81_1_2,
+    "hourglass/hg_512": hg_512,
+    "hrnet/w32_512": w32_512,
+}
+
+
 # A narrow HigherHRNet (widths 8-32, one block per branch) at 64x64 with the
 # flagship MPN widths, K = 8 detections per type and 3 MPN steps: the size
 # the CPU parity tests and the card's CPU-against-card checks run at. K = 8
@@ -561,4 +701,29 @@ def small_train():
     cfg.merge_from_other(SMALL)
     cfg.merge_from_other({"DATASET": {"INPUT_SIZE": 64, "OUTPUT_SIZE": [16, 32]},
                           "TRAIN": {"BATCH_SIZE": 2}})
+    return cfg
+
+
+def small_81_1_2():
+    """:data:`MODEL_81_1_2` cut to :data:`SMALL`'s size: 64x64 input with
+    output maps of 16 and 32, batch 2, 14 joint types (14 * K = 112 keeps
+    the JAX package's Pallas tiling)."""
+    cfg = model_81_1_2()
+    cfg.merge_from_other(SMALL)
+    cfg.merge_from_other({"DATASET": {"INPUT_SIZE": 64, "OUTPUT_SIZE": [16, 32]},
+                          "TRAIN": {"BATCH_SIZE": 2}})
+    return cfg
+
+
+# The Hourglass at 512 cut in width and depth: 2 stacks 16 wide (the stem's
+# fixed 64 and 128 channels and the nested blocks' 128 more each level
+# stay). The long-side reverse map holds the input at 512.
+SMALL_HG = {"MODEL": {"HG": {"NSTACK": 2, "INPUT_DIM": 16}},
+            "DATASET": {"OUTPUT_SIZE": [128, 128]}}
+
+
+def small_hg():
+    """:data:`HG_512` cut to :data:`SMALL_HG`'s size."""
+    cfg = hg_512()
+    cfg.merge_from_other(SMALL_HG)
     return cfg

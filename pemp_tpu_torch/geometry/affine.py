@@ -1,6 +1,5 @@
 """Affine geometry of resizing, training augmentation and output-coordinate
-mapping (numpy copy of pemp_tpu.geometry.affine; the short-side scaling
-only).
+mapping (numpy copy of pemp_tpu.geometry.affine).
 
 This math defines output-coordinate correctness against COCO evaluation, so
 it follows the reference exactly:
@@ -8,13 +7,15 @@ it follows the reference exactly:
   * get_transform            reference: src/Utils/transformations.py:142-167
   * get_affine_transform     reference: src/Utils/transformations.py:170-213
   * get_multi_scale_size     reference: src/Utils/transformations.py:216-237
+  * get_multi_scale_size_hourglass
+                             reference: src/Utils/hr_utils/multi_scales_testing.py:32-39
   * kpt_affine               reference: src/Utils/transformations.py:131-135
   * factor_affine            reference: src/Utils/transformations.py:138-139
   * reverse_affine_map       reference: src/Utils/transformations.py:7-76
   * three_point_affine       replaces cv2.getAffineTransform
 
-The hourglass's long-side scaling (``DATASET.SCALING_TYPE: long``) is not
-ported: config.check_path refuses it on the eval entry point.
+The reverse map's ``short_mine`` scaling, which no configuration selects,
+is not copied.
 """
 
 from __future__ import annotations
@@ -143,6 +144,19 @@ def get_multi_scale_size(img_h: int, img_w: int, input_size: int, current_scale:
     return (w_resized, h_resized), center, np.array([scale_w, scale_h])
 
 
+def get_multi_scale_size_hourglass(img_h: int, img_w: int, input_size: int,
+                                   current_scale: float, min_scale: float):
+    """The Hourglass's long-side sizing: a square input of the scale's
+    64-multiple, centred, the long side in 200px units.
+
+    reference: src/Utils/hr_utils/multi_scales_testing.py:32-39
+    """
+    center = np.array([img_w / 2.0, img_h / 2.0])
+    scale = max(img_h, img_w) / 200.0
+    inp_res = int((current_scale * input_size + 63) // 64 * 64)
+    return (inp_res, inp_res), center, np.array([scale, scale])
+
+
 def kpt_affine(kpt: np.ndarray, mat: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine to (..., 2) points.
 
@@ -174,14 +188,26 @@ def reverse_affine_map(
 
     ``keypoints``: (P, J, 3), modified in place and returned.
     ``img_size_orig``: (width, height) of the image the scaling starts from.
-    ``scaling_type``: ``short`` (keypoints at score-map resolution) or
-    ``short_with_resize`` (at input resolution).
+    ``scaling_type``: ``short`` (keypoints at score-map resolution),
+    ``short_with_resize`` (at input resolution), ``long`` or
+    ``long_with_multiscale`` (the Hourglass's, at input / 4 on a 512 or
+    1024 square canvas; the reference fixes ``input_size`` at 512).
 
     reference: src/Utils/transformations.py:7-76
     """
+    if scaling_type in ("long", "long_with_multiscale"):
+        if input_size != 512:
+            raise NotImplementedError(f"scaling type {scaling_type!r} at input size "
+                                      f"{input_size}: the reference maps back at 512 only")
+        gt_width, gt_height = img_size_orig[0], img_size_orig[1]
+        scale = np.array([max(gt_height, gt_width) / 200.0] * 2)
+        res = 512 if scaling_type == "long" else 1024
+        mat = get_transform(np.array((gt_width / 2, gt_height / 2)), scale, (res, res))
+        inv_mat = np.linalg.pinv(mat)[:2]
+        keypoints[:, :, :2] = kpt_affine(keypoints[:, :, :2] * 4, inv_mat)
+        return keypoints
     if scaling_type not in ("short", "short_with_resize"):
-        raise NotImplementedError(f"scaling type {scaling_type!r}: the port maps back only "
-                                  f"the short-side scalings")
+        raise NotImplementedError(f"scaling type {scaling_type!r}")
     resized_img, center, scale = get_multi_scale_size(
         img_size_orig[1], img_size_orig[0], input_size, 1.0, min_scale
     )
@@ -195,9 +221,14 @@ def reverse_affine_map(
 
 def get_scaling_type(config) -> str:
     """The eval scaling type. reference: src/valid.py:25-33"""
-    if config.DATASET.SCALING_TYPE != "short":
-        raise NotImplementedError(f"DATASET.SCALING_TYPE={config.DATASET.SCALING_TYPE!r}: "
-                                  f"the port scales the short side only")
-    if len(config.TEST.SCALE_FACTOR) > 1 and not config.TEST.PROJECT2IMAGE:
-        raise ValueError("several TEST.SCALE_FACTOR values need TEST.PROJECT2IMAGE")
-    return "short_with_resize" if config.TEST.PROJECT2IMAGE else "short"
+    scaling, several = config.DATASET.SCALING_TYPE, len(config.TEST.SCALE_FACTOR) > 1
+    if scaling == "short":
+        if several and not config.TEST.PROJECT2IMAGE:
+            raise ValueError("several TEST.SCALE_FACTOR values need TEST.PROJECT2IMAGE")
+        return "short_with_resize" if config.TEST.PROJECT2IMAGE else "short"
+    if scaling == "long":
+        if config.TEST.PROJECT2IMAGE:
+            raise ValueError("DATASET.SCALING_TYPE long aggregates at score-map resolution: "
+                             "it needs TEST.PROJECT2IMAGE false")
+        return "long_with_multiscale" if several else "long"
+    raise NotImplementedError(f"DATASET.SCALING_TYPE={scaling!r}")

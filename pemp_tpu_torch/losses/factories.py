@@ -132,8 +132,15 @@ class ClassMultiLossFactory:
             # the reference raises for a non-focal node loss here too
             # (loss.py:618-621)
             raise NotImplementedError("MODEL.LOSS.NODE_USE_FOCAL=False")
-        self.with_heatmaps_loss = tuple(config.MODEL.HRNET.LOSS.WITH_HEATMAPS_LOSS)
-        self.heatmaps_loss_factor = tuple(config.MODEL.HRNET.LOSS.HEATMAPS_LOSS_FACTOR)
+        if config.MODEL.KP in ("hrnet", "mmpose_hrnet"):
+            self.with_heatmaps_loss = tuple(config.MODEL.HRNET.LOSS.WITH_HEATMAPS_LOSS)
+            self.heatmaps_loss_factor = tuple(config.MODEL.HRNET.LOSS.HEATMAPS_LOSS_FACTOR)
+        else:
+            # the Hourglass: every stack's heatmaps, weight 1
+            # (pemp_tpu/losses/factories.py:325-332)
+            nstack = config.MODEL.HG.NSTACK
+            self.with_heatmaps_loss = (True,) * nstack
+            self.heatmaps_loss_factor = (1.0,) * nstack
         self.with_ae = tuple(config.TRAIN.WITH_AE_LOSS)
         self.ae_loss_type = config.MODEL.HRNET.LOSS.AE_LOSS_TYPE
         self.push_factor = tuple(config.MODEL.HRNET.LOSS.PUSH_LOSS_FACTOR)

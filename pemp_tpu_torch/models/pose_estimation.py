@@ -1,10 +1,12 @@
 """Composite model: backbone -> graph constructor -> MPN (counterpart of
-pemp_tpu.models.pose_estimation with the hrnet backbone), for eval and for
-training.
+pemp_tpu.models.pose_estimation), for eval and for training.
 
 reference: src/Models/PoseEstimation/PoseEstimation.py:53-111. Submodule
 names (``backbone``, ``feature_gather``, ``mpn``) follow the reference, so
-its composite ``state_dict`` loads unchanged.
+its composite ``state_dict`` loads unchanged. The backbone is
+``MODEL.KP``'s: HigherHRNet (``hrnet``, and ``mmpose_hrnet``, the same
+network whose checkpoints carry mmpose's names; train.checkpoint renames
+them) or the 4-stack Hourglass (``hourglass``).
 
 ``TPU.MSG_PASS`` picks the MPN's route (models.mpn.models) and, for
 ``hybrid`` and ``einsum``, the symmetric kNN layout (graph.constructor).
@@ -20,6 +22,7 @@ from torch import nn
 
 from pemp_tpu_torch.config import check_path
 from pemp_tpu_torch.graph.constructor import GCConfig, construct_graph_batch
+from pemp_tpu_torch.models.hourglass import PoseNet, hg_process_output, hg_spec
 from pemp_tpu_torch.models.hrnet import (
     Conv2d,
     HRNetSpec,
@@ -28,24 +31,61 @@ from pemp_tpu_torch.models.hrnet import (
 )
 from pemp_tpu_torch.models.mpn.models import NodeClassificationMPN, mpn_cfg_from_config
 
+BACKBONES = ("hrnet", "mmpose_hrnet", "hourglass")
+
+
+def backbone_from_config(config):
+    """(``MODEL.KP``, its backbone module, the channels of its feature
+    map): HigherHRNet's fused map for ``hrnet`` and ``mmpose_hrnet``, the
+    last stack's ``INPUT_DIM``-wide feature for ``hourglass``
+    (pemp_tpu/models/pose_estimation.py:41-47, 186-196)."""
+    name = config.MODEL.KP
+    if name in ("hrnet", "mmpose_hrnet"):
+        spec = HRNetSpec.from_config(config)
+        return name, PoseHigherResolutionNet(spec), spec.feature_channels()
+    if name == "hourglass":
+        nstack, inp_dim, oup_dim = hg_spec(config)
+        return name, PoseNet(nstack, inp_dim, oup_dim), inp_dim
+    raise NotImplementedError(f"MODEL.KP={name!r}: one of {BACKBONES}")
+
+
+def process_output(backbone_name, final_outputs, feat, num_joints, scoremap_mode):
+    """The backbone's NCHW outputs as NHWC (scoremaps, features, tags):
+    HigherHRNet's two heads resized and averaged by ``scoremap_mode``, or
+    the Hourglass's last stack (which takes no mode)."""
+    if backbone_name == "hourglass":
+        return hg_process_output(final_outputs, feat, num_joints)
+    return hr_process_output(final_outputs, feat, num_joints, scoremap_mode)
+
+
+def to_nchw(imgs, dtype):
+    """(B, H, W, 3) images as the backbone's NCHW input in ``dtype``,
+    channels-last in memory on the card."""
+    x = imgs.to(dtype).permute(0, 3, 1, 2)
+    if x.is_cuda:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
 
 class PoseEstimationBaseline(nn.Module):
     """backbone + feature_gather conv + graph constructor + MPN."""
 
-    def __init__(self, hrnet_spec: HRNetSpec, gc: GCConfig, mpn_cfg: dict,
-                 num_joints: int = 17, feature_gather_kernel: int = 3,
-                 node_input_dim: int = 128, scoremap_mode: str = "avg",
-                 dtype: torch.dtype = torch.float32, backbone_train: bool = False):
+    def __init__(self, backbone_name: str, backbone: nn.Module, feature_channels: int,
+                 gc: GCConfig, mpn_cfg: dict, num_joints: int = 17,
+                 feature_gather_kernel: int = 3, node_input_dim: int = 128,
+                 scoremap_mode: str = "avg", dtype: torch.dtype = torch.float32,
+                 backbone_train: bool = False):
         super().__init__()
         self.gc = gc
         self.backbone_train = backbone_train
+        self.backbone_name = backbone_name
         self.num_joints = num_joints
         self.scoremap_mode = scoremap_mode
         self.dtype = dtype
-        self.backbone = PoseHigherResolutionNet(hrnet_spec)
+        self.backbone = backbone
         # reference: PoseEstimation.py:63-66
         self.feature_gather = Conv2d(
-            hrnet_spec.feature_channels(), node_input_dim, feature_gather_kernel,
+            feature_channels, node_input_dim, feature_gather_kernel,
             padding=feature_gather_kernel // 2, bias=True,
         )
         self.mpn = NodeClassificationMPN(mpn_cfg)
@@ -61,15 +101,13 @@ class PoseEstimationBaseline(nn.Module):
     def backbone_forward(self, imgs):
         """imgs (B, H, W, 3) -> (per-stage outputs NHWC, scoremaps,
         features, tags), the last three NHWC float32. Gradients flow
-        through the backbone whatever its BatchNorm mode."""
-        x = imgs.to(self.dtype).permute(0, 3, 1, 2)
-        if x.is_cuda:
-            x = x.contiguous(memory_format=torch.channels_last)
-        final_outputs, feat = self.backbone(x)
-        feat = self.feature_gather(feat)
-        scoremaps, features, tags = hr_process_output(
-            final_outputs, feat, self.num_joints, self.scoremap_mode
-        )
+        through the backbone whatever its BatchNorm mode. The output is
+        processed first, then the features gathered, as in the JAX package
+        (both process functions pass the feature map through)."""
+        final_outputs, feat = self.backbone(to_nchw(imgs, self.dtype))
+        scoremaps, features, tags = process_output(
+            self.backbone_name, final_outputs, feat, self.num_joints, self.scoremap_mode)
+        features = self.feature_gather(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         stages = [y.permute(0, 2, 3, 1) for y in final_outputs]
         return stages, scoremaps.float(), features.float(), tags.float()
 
@@ -146,7 +184,8 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
     """Factory from the config tree (reference get_pose_model:
     PoseEstimation.py:14-38), for the bench's eval path, the eval entry
     point (``"valid"``) or the training path (``"train"``); raises on
-    settings that path does not implement (config.check_path). Returned in
+    settings that path does not implement (config.check_path) and on an MPN
+    other than the flagship (``MODEL.MPN.NAME``, models.mpn.models). Returned in
     eval mode; ``.train()`` switches the
     forward to the training path. The weights are PyTorch's
     default initialisation; load real ones with ``load_state_dict`` or
@@ -154,6 +193,7 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
     device = resolve_device(device)
     check_path(config, path)
     gc = GCConfig.from_config(config)
+    backbone_name, backbone, feature_channels = backbone_from_config(config)
     mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
     # edges arrive in target-major blocks of C slots and nodes are
     # type-blocked, as the JAX package's build_pose_model records them
@@ -161,7 +201,7 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
     mpn_cfg["_NODES_PER_TYPE"] = gc.nodes_per_type
     mpn_cfg["_MSG_PASS"] = config.TPU.MSG_PASS
     model = PoseEstimationBaseline(
-        HRNetSpec.from_config(config), gc, mpn_cfg,
+        backbone_name, backbone, feature_channels, gc, mpn_cfg,
         num_joints=config.DATASET.NUM_JOINTS,
         feature_gather_kernel=config.MODEL.FEATURE_GATHER_KERNEL,
         node_input_dim=config.MODEL.MPN.NODE_INPUT_DIM,

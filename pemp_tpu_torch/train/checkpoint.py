@@ -46,13 +46,38 @@ def load_checkpoint(path, model: torch.nn.Module, optimizer=None):
     return int(payload["epoch"]), int(payload["step"])
 
 
+def from_mmpose_names(sd: dict) -> dict:
+    """A ``state_dict`` in mmpose's names in the port's: mmpose's
+    BottomUp HigherHRNet keeps the network under ``backbone.*`` and its
+    heads (``final_layers``, ``deconv_layers``) under ``keypoint_head.*``,
+    and the reference's composite holds that model as its ``backbone``
+    (``backbone.backbone.*``, ``backbone.keypoint_head.*``); the port's
+    HigherHRNet holds both under ``backbone.*``. The network is the same
+    (pemp_tpu/train/convert.py:168-188 strips the same prefixes)."""
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("backbone.backbone.", "backbone.keypoint_head.", "keypoint_head."):
+            if k.startswith(prefix):
+                k = "backbone." + k[len(prefix):]
+                break
+        out[k] = v
+    return out
+
+
 def load_params_only(path, model: torch.nn.Module) -> None:
     """Model weights only, from a checkpoint of this module, a file with a
     ``state_dict`` entry or a plain ``state_dict`` (the reference's ``.pth``
     files, read with keys unchanged as pemp_tpu/train/convert.py:155-166's
-    ``plain`` scheme reads them)."""
+    ``plain`` scheme reads them, and mmpose's, whose names
+    :func:`from_mmpose_names` maps). Only the entries under the model's own
+    submodules are read, so the backbone-only model of the AE-grouping
+    entry point takes a composite checkpoint's ``backbone.*``; every weight
+    of the model must be there."""
     sd = _read(path)
     for key in ("state_dict", "model_state_dict"):
         if isinstance(sd, dict) and key in sd:
             sd = sd[key]
-    model.load_state_dict(sd)
+    if any(".keypoint_head." in f".{k}" for k in sd):
+        sd = from_mmpose_names(sd)
+    children = {name for name, _ in model.named_children()}
+    model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] in children})

@@ -16,6 +16,13 @@ Tag channels follow the reference: the scale-1 pass (or the only scale)
 contributes its original and flipped tag maps as separate channels, so
 tags are (H, W, J, S) with S = 2 with flip and 1 without
 (multi_scales_testing.py:148-161).
+
+With long-side scaling (the Hourglass's, ``DATASET.SCALING_TYPE: long``)
+every scale is a square input of its 64-multiple and the canvas is the
+largest scale's, at score-map resolution (``INPUT_SIZE / max(OUTPUT_SIZE)``,
+4 for the Hourglass; reference: PoseEstimationHourglass.py:111-147).
+``maps_only`` stops at the aggregated heat and tag maps, for the
+AE-grouping entry point, whose model has no graph or MPN.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from pemp_tpu_torch.decode.assembly import decode_poses
 from pemp_tpu_torch.geometry.affine import (
     get_affine_transform,
     get_multi_scale_size,
+    get_multi_scale_size_hourglass,
     get_scaling_type,
 )
 from pemp_tpu_torch.geometry.warp import warp_affine
@@ -86,20 +94,23 @@ def project_region(x, src_h, src_w, out_h: int, out_w: int, tgt_h=None, tgt_w=No
 
 
 class TTAPipeline:
-    """Host preparation and the batched device pass of the eval entry point.
+    """Host preparation and the batched device pass of the eval entry points.
 
     ``model`` is a :class:`~pemp_tpu_torch.models.pose_estimation.
-    PoseEstimationBaseline`; it runs on the device its parameters are on.
-    ``with_decode`` decodes on the device (threshold grouping); without it
-    the outputs stop at the MPN's probabilities, for host clustering.
+    PoseEstimationBaseline`, or with ``maps_only`` any model with a
+    ``backbone_forward`` (models.ae_group); it runs on the device its
+    parameters are on. ``with_decode`` decodes on the device (threshold
+    grouping); without it the outputs stop at the MPN's probabilities, for
+    host clustering. ``maps_only`` stops at the aggregated maps.
     ``stage_times``, when a dict, gathers the seconds each stage takes
     (``warp``; per scale s ``backbone s`` with the flipped pass and
     ``projection s``; ``graph_mpn``, ``decode``), the device synchronised
     at each stage's end.
     """
 
-    def __init__(self, model, config, with_decode: bool = True):
+    def __init__(self, model, config, with_decode: bool = True, maps_only: bool = False):
         self.model = model
+        self.maps_only = maps_only
         self.device = next(model.parameters()).device
         self.config = config
         self.input_size = config.DATASET.INPUT_SIZE
@@ -114,9 +125,13 @@ class TTAPipeline:
         self.with_decode = with_decode
         self.node_threshold = config.MODEL.MPN.NODE_THRESHOLD
         # PROJECT2IMAGE: aggregate at input resolution and map back with
-        # "short_with_resize"; otherwise at score-map resolution ("short")
+        # "short_with_resize"; otherwise at score-map resolution ("short",
+        # "long"): input / 2 for HigherHRNet, input / 4 for the Hourglass
         self.project2image = bool(config.TEST.PROJECT2IMAGE)
         self.scaling_type = get_scaling_type(config)
+        self.scaling_long = config.DATASET.SCALING_TYPE == "long"
+        self.size_fn = (get_multi_scale_size_hourglass if self.scaling_long
+                        else get_multi_scale_size)
         self.out_ratio = self.input_size / float(max(config.DATASET.OUTPUT_SIZE))
         self.stage_times = None
 
@@ -132,18 +147,18 @@ class TTAPipeline:
     # ------------------------------------------------------------------ host
     def _prepare(self, image: np.ndarray):
         """Per scale the resized, normalised image padded to its bucket, and
-        its valid (hs, ws); and the base size (h, w) at scale 1."""
+        its valid (hs, ws); and the base size (h, w): at scale 1, or with
+        long-side scaling at the largest scale."""
         h, w = image.shape[:2]
-        base_size, center, _ = get_multi_scale_size(h, w, self.input_size, 1.0,
-                                                    self.min_scale)
+        base_scale = max(self.scales) if self.scaling_long else 1.0
+        base_size, center, _ = self.size_fn(h, w, self.input_size, base_scale, self.min_scale)
         base_w, base_h = base_size
         prepared = []
         # keyed on the input dtype, not its values: a near-black uint8 image
         # is still scaled by 255 (the reference's ToTensor)
         is_uint = np.issubdtype(image.dtype, np.integer)
         for s in self.scales:
-            size_resized, _, sc = get_multi_scale_size(h, w, self.input_size, s,
-                                                       self.min_scale)
+            size_resized, _, sc = self.size_fn(h, w, self.input_size, s, self.min_scale)
             mat = get_affine_transform(center, sc, size_resized)
             img_r = warp_affine(image.astype(np.float32), mat, size_resized)
             if is_uint:
@@ -207,7 +222,8 @@ class TTAPipeline:
                                       canvas[:, 0], canvas[:, 1])
 
             heat_acc = proj(sm) if heat_acc is None else heat_acc + proj(sm)
-            feat_acc = proj(feat) if feat_acc is None else feat_acc + proj(feat)
+            if not self.maps_only:
+                feat_acc = proj(feat) if feat_acc is None else feat_acc + proj(feat)
             # only the scale-1 pass contributes tags (reference
             # aggregate_results_mpn: multi_scales_testing.py:148-150)
             if scale == 1.0 or len(self.scales) == 1 or (
@@ -217,6 +233,8 @@ class TTAPipeline:
             del sm, feat, tg, tag_vars
             t0 = self._mark(f"projection {scale:g}", t0)
         heat_acc = heat_acc / float(len(self.scales))
+        if self.maps_only:
+            return dict(scoremaps=heat_acc, tags=tag_acc)
         feat_acc = feat_acc / float(len(self.scales))
 
         yy = torch.arange(bh, dtype=torch.float32, device=dev)[None, :, None]
@@ -271,11 +289,12 @@ class TTAPipeline:
         and run ``batch_size`` at a time (the last batch of a group may be
         smaller: nothing is compiled per shape, so it is not padded as the
         JAX package pads it). Returns one dict per image, its tensors on the
-        device: nodes, node_features, node_scores, detector_scores, node_valid,
-        edge_index (per-image ids), edge_valid, edge_pred, class_prob, the
-        aggregated scoremaps (H, W, J) and tags (H, W, J, S) on the padded
-        canvas, persons and person_valid with the decode, and base_size
-        (w, h), canvas_size (h, w) and scaling_type.
+        device: the aggregated scoremaps (H, W, J) and tags (H, W, J, S) on
+        the padded canvas; unless ``maps_only``, nodes, node_features,
+        node_scores, detector_scores, node_valid, edge_index (per-image ids),
+        edge_valid, edge_pred, class_prob, and persons and person_valid with
+        the decode; and base_size (w, h), canvas_size (h, w) and
+        scaling_type.
         """
         t0 = time.perf_counter()
         preps, metas = [], []

@@ -1,13 +1,14 @@
 """Carries the JAX model's weights into the port.
 
 :func:`from_jax_variables` takes the variables of a ``pemp_tpu``
-composite model (``params`` and ``batch_stats`` as nested dicts of numpy
-arrays) and returns a ``state_dict`` for
-:class:`pemp_tpu_torch.models.pose_estimation.PoseEstimationBaseline`.
+composite model or AE-grouping model (``params`` and ``batch_stats`` as
+nested dicts of numpy arrays) and returns a ``state_dict`` for
+:class:`pemp_tpu_torch.models.pose_estimation.PoseEstimationBaseline` or
+:class:`pemp_tpu_torch.models.ae_group.PoseEstimationAeGroup`.
 
 The port's modules carry the original reference's ``state_dict`` names, so
 this is the inverse of ``pemp_tpu.train.convert.convert_composite_state_dict``
-(its layout maps, inverted here):
+and ``convert_hourglass_state_dict`` (their layout maps, inverted here):
 
   Conv2d        HWIO           -> OIHW
   ConvTranspose (k, k, out, in) -> (in, out, k, k)
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pemp_tpu_torch.models.hourglass import hg_spec
 from pemp_tpu_torch.models.hrnet import HRNetSpec
 from pemp_tpu_torch.models.mpn.models import mpn_cfg_from_config
 
@@ -121,6 +123,35 @@ def _hrnet(cr, spec: HRNetSpec, pre="backbone"):
                    (1, 2), False)
 
 
+def _hourglass(cr, nstack, pre="backbone"):
+    """Inverse of convert.convert_hourglass_state_dict (same walk, depth-4
+    hourglasses): the flax ``ConvBnRelu`` scopes' ``conv`` onto the
+    reference's ``Conv`` modules' ``conv``."""
+    P = ("backbone",)
+
+    def conv(key, name):
+        cr.conv(f"{pre}.{key}.conv", (*P, *name, "conv"), bias=True)
+
+    def block(key, path, n):
+        for name in ("up1", "low1", "low3"):
+            conv(f"{key}.{name}", (*path, name))
+        if n > 1:
+            block(f"{key}.low2", (*path, "low2"), n - 1)
+        else:
+            conv(f"{key}.low2", (*path, "low2"))
+
+    for flax_i, torch_i in zip(range(4), (0, 1, 3, 4)):
+        conv(f"pre.{torch_i}", (f"pre_{flax_i}",))
+    for i in range(nstack):
+        block(f"features.{i}.0", (f"hg_{i}",), 4)
+        conv(f"features.{i}.1", (f"feat_{i}_0",))
+        conv(f"features.{i}.2", (f"feat_{i}_1",))
+        conv(f"outs.{i}", (f"outs_{i}",))
+        if i != nstack - 1:
+            conv(f"merge_preds.{i}.conv", (f"merge_preds_{i}",))
+            conv(f"merge_features.{i}.conv", (f"merge_features_{i}",))
+
+
 def _mlp(cr, key, path, dims, bn, end_with_relu=False):
     """flax MLP lin{i}/bn{i} -> reference _make_mlp Sequential indices."""
     seq = 0
@@ -161,15 +192,21 @@ def mpn_from_jax_variables(params, batch_stats, mpn_cfg: dict) -> dict:
 
 
 def from_jax_variables(params, batch_stats, cfg) -> dict:
-    """JAX composite variables -> the port's ``state_dict``.
+    """JAX composite or AE-grouping variables -> the port's ``state_dict``.
 
     ``params`` / ``batch_stats``: the ``"params"`` and ``"batch_stats"``
-    collections of ``pemp_tpu``'s PoseEstimationBaseline (hrnet backbone,
-    flagship MPN), as nested dicts of arrays. ``cfg``: the config tree both
-    models were built from.
+    collections of ``pemp_tpu``'s PoseEstimationBaseline (``MODEL.KP``'s
+    backbone, flagship MPN) or PoseEstimationAeGroup (the backbone alone),
+    as nested dicts of arrays. ``cfg``: the config tree both models were
+    built from.
     """
     cr = _Carrier(params, batch_stats)
-    _hrnet(cr, HRNetSpec.from_config(cfg))
+    if cfg.MODEL.KP == "hourglass":
+        _hourglass(cr, hg_spec(cfg)[0])
+    else:
+        _hrnet(cr, HRNetSpec.from_config(cfg))
+    if "mpn" not in params:
+        return cr.sd
     cr.conv("feature_gather", ("feature_gather",), bias=True)
     mpn = mpn_from_jax_variables(params["mpn"], batch_stats.get("mpn", {}),
                                  mpn_cfg_from_config(cfg.MODEL.MPN))

@@ -1,6 +1,6 @@
-"""The port's entry points: the w48/640 and model_58_4 presets, the
-per-path configuration checks, the CUDA requirement and chip_smoke.py's
-refusal to run without a card."""
+"""The port's entry points: the presets (w48/640, model_58_4,
+model_81_1_2, hg_512, w32/512), the per-path configuration checks, the
+CUDA requirement and chip_smoke.py's refusal to run without a card."""
 
 import os
 import pathlib
@@ -13,11 +13,16 @@ import torch
 from pemp_tpu.config import get_config as jax_get_config
 from pemp_tpu.config import update_config as jax_update_config
 from pemp_tpu_torch.config import (
+    PRESETS,
     check_path,
     get_config,
+    hg_512,
+    load_config,
+    model_81_1_2,
     small,
     small_train,
     update_config,
+    w32_512,
     w32_512_train,
     w48_640,
 )
@@ -33,9 +38,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = ROOT / "configs"
 W48_YAML = str(CONFIGS / "hrnet" / "w48_640.yaml")
 M58_YAML = str(CONFIGS / "hybrid_class_agnostic_end2end" / "model_58_4.yaml")
-# the config files of the repo whose settings a path of the port implements
+# the config files of the repo whose settings a path of the port implements,
+# besides the AE-grouping entry point, which runs the backbone of every file
+# that loads
 LOADS = {"hrnet/w48_640.yaml": {"eval", "valid"},
-         "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train", "valid"}}
+         "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train", "valid"},
+         "crowdpose/model_81_1_2.yaml": {"train", "valid"},
+         "test/tiny.yaml": {"train", "valid"}}
 
 
 def _project(full: dict, like: dict) -> dict:
@@ -61,6 +70,50 @@ def test_model_58_4_preset_matches_yaml():
     small_cfg = small_train()
     assert small_cfg.MODEL.LOSS == w32_512_train().MODEL.LOSS
     assert small_cfg.TRAIN.KP_FREEZE_MODE == "nothing" and small_cfg.DATASET.INPUT_SIZE == 64
+
+
+@pytest.mark.parametrize("name", ["crowdpose/model_81_1_2", "hourglass/hg_512",
+                                  "hrnet/w32_512"])
+def test_backbone_presets_match_yaml(name):
+    """The presets of the other two backbones and the AE-grouping entry
+    point are their files, as the JAX package and the port's loader read
+    them; load_config resolves each name to its preset."""
+    got = PRESETS[name]().to_dict()
+    path = str(CONFIGS / f"{name}.yaml")
+    assert got == _project(jax_update_config(jax_get_config(), path).to_dict(), got)
+    assert update_config(get_config(), path).to_dict() == got
+    assert load_config(name).to_dict() == got
+
+
+def test_long_scaling_is_accepted_on_valid_and_valid_hr():
+    """Long-side scaling runs on both eval entry points at input size 512
+    (the reference's reverse map is fixed there) and is refused elsewhere."""
+    for preset in (hg_512, w32_512_train, model_81_1_2):
+        cfg = preset()
+        cfg.DATASET.SCALING_TYPE, cfg.TEST.PROJECT2IMAGE = "long", False
+        check_path(cfg, "valid_hr")
+        if preset is not hg_512:
+            check_path(cfg, "valid")
+        cfg.DATASET.INPUT_SIZE = 640
+        for path in ("valid", "valid_hr"):
+            with pytest.raises(NotImplementedError, match="DATASET.SCALING_TYPE"):
+                check_path(cfg, path)
+    cfg = w32_512()
+    check_path(cfg, "valid_hr")
+    cfg.TPU.S2D_DECONV = 1
+    with pytest.raises(NotImplementedError, match="TPU.S2D_DECONV"):
+        check_path(cfg, "valid_hr")
+
+
+def test_vanilla_mpn_is_refused_at_model_build():
+    """hg_512 and w32_512 name no MPN, so the tree's VanillaMPN stands: the
+    MPN zoo is not ported, and the composite model refuses it at build,
+    naming the key (their path checks pass: they run on valid_hr)."""
+    for preset in (hg_512, w32_512):
+        cfg = preset()
+        check_path(cfg, "valid")
+        with pytest.raises(NotImplementedError, match="NAME='VanillaMPN'"):
+            build_pose_model(cfg, device="cpu", path="valid")
 
 
 def _jax_keys(tree: dict, prefix: str = ""):
@@ -94,13 +147,15 @@ def test_every_jax_key_is_read_fixed_or_not_read():
 
 def _paths(cfg) -> set:
     """The paths of the port that run ``cfg``: its checks, the flagship MPN
-    and, for training, the loss."""
+    (but on the AE-grouping entry point, which runs the backbone alone) and,
+    for training, the loss."""
     ok = set()
     mpn = {**mpn_cfg_from_config(cfg.MODEL.MPN), "_BLOCKED_C": 80, "_NODES_PER_TYPE": 40}
-    for path in ("eval", "valid", "train"):
+    for path in ("eval", "valid", "valid_hr", "train"):
         try:
             check_path(cfg, path)
-            _check_flagship(mpn)
+            if path != "valid_hr":
+                _check_flagship(mpn)
             if path == "train":
                 dispatch_loss_func(cfg)
         except NotImplementedError:
@@ -124,7 +179,7 @@ def test_repo_yaml_loads_or_is_refused(path):
         return
     got = cfg.to_dict()
     assert got == _project(jax_update_config(jax_get_config(), str(path)).to_dict(), got)
-    assert _paths(cfg) == LOADS.get(name, set())
+    assert _paths(cfg) == LOADS.get(name, set()) | {"valid_hr"}
 
 
 @pytest.mark.parametrize("text,error", [
@@ -146,13 +201,12 @@ def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
 
 @pytest.mark.parametrize("key,value", [
     ("MODEL.GC.CC_METHOD", "greedy"),
-    ("DATASET.SCALING_TYPE", "long"),
     ("TPU.S2D_DECONV", 1),
 ])
 def test_valid_path_refuses_what_it_does_not_do(key, value):
     """The eval entry point takes any scales, flip, grouping by threshold,
-    GAEC, KL or MUT and a checkpoint, and refuses the greedy grouping, the
-    hourglass's long-side scaling and the space-to-depth deconvolution."""
+    GAEC, KL or MUT and a checkpoint, and refuses the greedy grouping and
+    the space-to-depth deconvolution."""
     for name, preset in (("w48_640", w48_640), ("model_58_4", w32_512_train)):
         cfg = preset()
         check_path(cfg, "valid")

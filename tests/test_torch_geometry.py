@@ -1,6 +1,6 @@
 """The port's eval geometry against pemp_tpu.geometry, exactly: the
-short-side multi-scale sizing, the affine transforms, the host warp and
-the reverse map to image coordinates."""
+short-side and the Hourglass's long-side multi-scale sizing, the affine
+transforms, the host warp and the reverse map to image coordinates."""
 
 import numpy as np
 import pytest
@@ -44,7 +44,8 @@ def test_warp_affine(hw, dtype):
                                   jgeo.warp_affine(gray, mat, size))
 
 
-@pytest.mark.parametrize("scaling_type", ["short", "short_with_resize"])
+@pytest.mark.parametrize("scaling_type",
+                         ["short", "short_with_resize", "long", "long_with_multiscale"])
 @pytest.mark.parametrize("min_scale", [1.0, 0.5])
 def test_reverse_affine_map(scaling_type, min_scale):
     rng = np.random.RandomState(1)
@@ -64,8 +65,30 @@ def test_scaling_type_and_refusals():
     cfg.TEST.SCALE_FACTOR = [1.0, 2.0]
     with pytest.raises(ValueError, match="PROJECT2IMAGE"):
         affine.get_scaling_type(cfg)
+    # long-side scaling aggregates at score-map resolution (the JAX
+    # package asserts it) and maps back only at input size 512
     cfg.DATASET.SCALING_TYPE = "long"
-    with pytest.raises(NotImplementedError, match="short side"):
+    cfg.TEST.PROJECT2IMAGE = True
+    with pytest.raises(ValueError, match="PROJECT2IMAGE"):
         affine.get_scaling_type(cfg)
-    with pytest.raises(NotImplementedError, match="short-side"):
-        affine.reverse_affine_map(np.zeros((1, 17, 3)), (64, 64), 512, "long")
+    cfg.TEST.PROJECT2IMAGE = False
+    for scales, want in (([1.0, 2.0], "long_with_multiscale"), ([1.0], "long")):
+        cfg.TEST.SCALE_FACTOR = scales
+        assert affine.get_scaling_type(cfg) == want == jgeo.get_scaling_type(cfg)
+    with pytest.raises(NotImplementedError, match="512"):
+        affine.reverse_affine_map(np.zeros((1, 17, 3)), (64, 64), 256, "long")
+    with pytest.raises(NotImplementedError, match="short_mine"):
+        affine.reverse_affine_map(np.zeros((1, 17, 3)), (64, 64), 512, "short_mine")
+
+
+@pytest.mark.parametrize("hw", SIZES, ids=str)
+@pytest.mark.parametrize("scale,min_scale", [(1.0, 1.0), (2.0, 0.5), (0.5, 0.5)])
+def test_multi_scale_size_hourglass(hw, scale, min_scale):
+    """The long-side sizing and its transform, exactly."""
+    got = affine.get_multi_scale_size_hourglass(*hw, 512, scale, min_scale)
+    want = jgeo.get_multi_scale_size_hourglass(*hw, 512, scale, min_scale)
+    assert got[0] == want[0] and got[0][0] == got[0][1]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(affine.get_affine_transform(got[1], got[2], got[0]),
+                                  jgeo.get_affine_transform(want[1], want[2], want[0]))
