@@ -1,5 +1,7 @@
 from pemp_tpu_torch.config.defaults import (
+    ABLATIONS,
     PRESETS,
+    ablation,
     check_path,
     get_config,
     hg_512,
@@ -17,6 +19,7 @@ from pemp_tpu_torch.config.defaults import (
 )
 from pemp_tpu_torch.config.node import ConfigNode
 
-__all__ = ["PRESETS", "ConfigNode", "check_path", "get_config", "hg_512", "load_config",
-           "model_81_1_2", "small", "small_81_1_2", "small_hg", "small_train", "update_config",
-           "update_config_command", "w32_512", "w32_512_train", "w48_640"]
+__all__ = ["ABLATIONS", "PRESETS", "ConfigNode", "ablation", "check_path", "get_config",
+           "hg_512", "load_config", "model_81_1_2", "small", "small_81_1_2", "small_hg",
+           "small_train", "update_config", "update_config_command", "w32_512", "w32_512_train",
+           "w48_640"]

@@ -22,7 +22,9 @@ Each path then checks the values it implements for one setting only:
 eval entry point, ``python -m pemp_tpu_torch.valid``), ``"valid_hr"`` (the
 AE-grouping entry point, ``python -m pemp_tpu_torch.valid_hr``) or
 ``"train"`` (the trainer), against :data:`EVAL_FIXED`, :data:`VALID_FIXED`,
-:data:`VALID_HR_FIXED` or :data:`TRAIN_FIXED` and :func:`msg_pass_route`.
+:data:`VALID_HR_FIXED` or :data:`TRAIN_FIXED` and :func:`msg_pass_route`
+(with :func:`plain_route`: the routes with kernels need the target-major
+kNN graph and the per-type layer).
 The presets (:data:`PRESETS`: :func:`w48_640`, :func:`w32_512_train`,
 :func:`model_81_1_2`, :func:`hg_512` and :func:`w32_512`) carry five files
 of ``configs/`` as Python, for machines without PyYAML;
@@ -118,6 +120,7 @@ _C = CN({
             "EDGE_EMB": {},
             "CLASS": {},
             "BN": True,
+            "AGGR": "max",
             "AGGR_SUB": "None",
             "UPDATE_TYPE": "mlp",
             "SKIP": False,
@@ -131,6 +134,7 @@ _C = CN({
             "MASK_CROWDS": True,
             "DETECT_THRESHOLD": 0.005,
             "HYBRID_K": 5,
+            "GRAPH_TYPE": "knn",
             "NORM_NODE_DISTANCE": False,
             "EDGE_FEATURES_TO_USE": ["position", "connection_type"],
             "CC_METHOD": "GAEC",
@@ -187,17 +191,24 @@ _C = CN({
     },
 })
 
+# The graphs graph.constructor builds (pemp_tpu/graph/constructor.py:143-170)
+# that a file of configs/ sets: the target-major kNN graph, fully
+# connected, and the two root-joint graphs. ``topk``, ``feature_knn`` and
+# the kNN edge list (``TPU.TARGET_MAJOR`` false) wait for a configuration
+# that runs them.
+GRAPH_TYPES = ("knn", "fully", "score_based", "score_based_per_type")
+
 # Values no path of the port implements otherwise: the three backbones
 # (HigherHRNet, the same network under mmpose's checkpoint names, the
-# 4-stack Hourglass), HigherHRNet's standard blocks, the target-major kNN
-# graph on detections, per-step MPN outputs only where training asks for
-# them, and the message-passing forms with kernels (``ROUTES``). Refused
-# when a file is loaded.
+# 4-stack Hourglass), HigherHRNet's standard blocks, graphs on detections
+# (not on the GT joints), per-step MPN outputs only where training asks
+# for them, and the message-passing routes (``ROUTES``). Refused when a
+# file is loaded.
 FIXED = {
     "MODEL.KP": ("hrnet", "mmpose_hrnet", "hourglass"),
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.FUSE_METHOD": ("SUM",) for i in (2, 3, 4)},
-    "MODEL.GC.GRAPH_TYPE": ("knn",),
+    "MODEL.GC.GRAPH_TYPE": GRAPH_TYPES,
     "MODEL.GC.USE_GT": (False,),
     "TPU.TARGET_MAJOR": (True,),
     "TPU.COLLECT_AUX": (False,),
@@ -328,13 +339,48 @@ def _lookup(cfg, key: str):
     return cfg
 
 
-def msg_pass_route(msg_pass: str, train: bool) -> str:
+# The routes that run no kernel, as the JAX package runs no Pallas kernel
+# there (pemp_tpu/models/pose_estimation.py:205-214): ``segment`` on an
+# edge list (every graph but the target-major kNN one), whose scatters are
+# plain XLA (pemp_tpu/ops/segment.py:21-103), and ``agnostic``, the
+# type-agnostic MPLayer (pemp_tpu/models/mpn/layers.py:293-351).
+PLAIN_ROUTES = {
+    "segment": "the kernels need the target-major blocked kNN layout, and these edges "
+               "are an edge list",
+    "agnostic": "the type-agnostic MPLayer (MODEL.MPN.AGGR_TYPE agnostic, VanillaMPN) "
+                "runs no kernel",
+}
+
+
+def plain_route(cfg):
+    """The kernel-free route ``cfg``'s MPN runs (:data:`PLAIN_ROUTES`), or
+    None where it runs the kernel routes: ``agnostic`` for VanillaMPN and
+    ``MODEL.MPN.AGGR_TYPE`` agnostic, else ``segment`` unless the graph is
+    the target-major kNN one."""
+    mpn = cfg.MODEL.MPN
+    if mpn.NAME == "VanillaMPN" or mpn.AGGR_TYPE == "agnostic":
+        return "agnostic"
+    if cfg.MODEL.GC.GRAPH_TYPE != "knn":
+        return "segment"
+    return None
+
+
+def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None) -> str:
     """``TPU.MSG_PASS`` as the JAX package resolves it on a TPU
     (pemp_tpu.models.pose_estimation.build_pose_model): ``auto`` is the
     fused step (K1) at eval, where per-step outputs are off, and the
     per-op kernel with its backward (K2, K2b) in training, which collects
-    them; any other value names its route. Raises ``NotImplementedError``
-    for a route the port does not run on that path."""
+    them; any other value names its route. On a kernel-free path
+    (``plain``, from :func:`plain_route`) ``auto`` is that route and any
+    kernel route raises: the JAX package ignores it there, the port does
+    not fall back silently. Raises ``NotImplementedError`` for a route the
+    port does not run on that path."""
+    if plain is not None:
+        if msg_pass != "auto":
+            raise NotImplementedError(
+                f"TPU.MSG_PASS={msg_pass!r}: {PLAIN_ROUTES[plain]}; only 'auto' (the "
+                f"{plain} route) runs here")
+        return plain
     route = msg_pass
     if route == "auto":
         route = "pallas" if train else "fused_step"
@@ -366,7 +412,7 @@ def check_path(cfg, path: str) -> None:
             f"DATASET.SCALING_TYPE='long' at DATASET.INPUT_SIZE="
             f"{cfg.DATASET.INPUT_SIZE}: the long-side reverse map is fixed at 512")
     if path != "valid_hr":
-        msg_pass_route(cfg.TPU.MSG_PASS, path == "train")
+        msg_pass_route(cfg.TPU.MSG_PASS, path == "train", plain_route(cfg))
 
 
 def get_config():
@@ -661,6 +707,48 @@ PRESETS = {
     "hourglass/hg_512": hg_512,
     "hrnet/w32_512": w32_512,
 }
+
+
+def _features(sets, width, agnostic=False):
+    mpn = {"EDGE_INPUT_DIM": width, **({"AGGR_TYPE": "agnostic"} if agnostic else {})}
+    return {"MODEL": {"GC": {"EDGE_FEATURES_TO_USE": sets}, "MPN": mpn,
+                      "LOSS": {"NAME": ["edge", "node", "class", "heatmap"]}}}
+
+
+_FROZEN = {"END_TO_END": False, "KP_FREEZE_MODE": "complete"}
+
+# The ablation files of configs/ as Python, but their LOG_DIR: deltas over
+# the flagship (their header says so). Loaded alone they leave the tree's
+# VanillaMPN without sizes; both packages run them as model_58_4 with the
+# delta's keys as KEY VALUE options, which :func:`ablation` gives without
+# PyYAML.
+ABLATIONS = {
+    "connectivity/fully": {"MODEL": {"GC": {"GRAPH_TYPE": "fully"}}},
+    "connectivity/score_based": {"MODEL": {"GC": {"GRAPH_TYPE": "score_based"}}},
+    "connectivity/score_based_per_type": {"MODEL": {"GC": {"GRAPH_TYPE":
+                                                           "score_based_per_type"}}},
+    "feature_importance/model_nothing": _features(["nothing"], 1),
+    "feature_importance/model_position": _features(["position"], 2),
+    "feature_importance/model_type": _features(["connection_type"], 17),
+    "feature_importance/model_gostic_nothing": _features(["nothing"], 1, True),
+    "feature_importance/model_gostic_position": _features(["position"], 2, True),
+    "feature_importance/model_gostic_type": _features(["connection_type"], 17, True),
+    "train/model_50_4": {"MODEL": {"MPN": {"NAME": "VanillaMPN", "AGGR_TYPE": "agnostic"},
+                                   "LOSS": {"NAME": ["edge"]}}, "TRAIN": _FROZEN},
+    "train/model_56_2": {"MODEL": {"GC": {"EDGE_LABEL_METHOD": 4, "USE_NEIGHBOURS": True},
+                                   "LOSS": {"NAME": ["edge", "node"]}}, "TRAIN": _FROZEN},
+    "class_agnostic_end2end/model_57_1": {"MODEL": {"LOSS": {"NAME": ["edge", "node",
+                                                                      "heatmap"]}},
+                                          "TRAIN": {"END_TO_END": True}},
+}
+
+
+def ablation(name: str, base=None):
+    """``base`` (the model_58_4 preset when None) with the ablation delta
+    ``name`` (a key of :data:`ABLATIONS`) merged over it."""
+    cfg = w32_512_train() if base is None else base
+    cfg.merge_from_other(ABLATIONS[name])
+    return cfg
 
 
 # A narrow HigherHRNet (widths 8-32, one block per branch) at 64x64 with the

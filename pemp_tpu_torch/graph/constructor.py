@@ -3,10 +3,14 @@ pemp_tpu.graph.constructor), with the training labels of edge label
 methods 3-6 when ground truth is given.
 
 Detection (NMS + per-type top-K) gives J*K padded nodes per image; the
-target-major kNN builder gives C = k + cap_in in-edge slots per node. The
+target-major kNN builder gives C = k + cap_in in-edge slots per node, the
+other graphs of ``MODEL.GC.GRAPH_TYPE`` (fully connected, the root-joint
+graphs) an edge list of fixed length with a validity mask (ops.knn). The
 per-image graphs are flattened into one disjoint graph by offsetting node
 ids (reference: src/graph_constructor/ConstructGraph.py:221-231), so the MPN
-runs once over (B*N, B*N*C).
+runs once over (B*N, B*E). Edge features are the sets of
+``MODEL.GC.EDGE_FEATURES_TO_USE`` that the files of configs/ use:
+position and connection type together or alone, or nothing.
 
 Labels (reference ConstructGraph.py:577-942): an OKS-style similarity
 between every GT joint and every detection, thresholded at the matching
@@ -28,7 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.detection import joint_det_from_scoremaps
-from pemp_tpu_torch.ops.knn import knn_edges_target_major
+from pemp_tpu_torch.ops.knn import (
+    fully_connected_edges,
+    knn_edges_target_major,
+    score_based_edges,
+    score_based_per_type_edges,
+)
 from pemp_tpu_torch.ops.matching import auction_assignment, greedy_assignment
 
 
@@ -36,16 +45,18 @@ from pemp_tpu_torch.ops.matching import auction_assignment, greedy_assignment
 class GCConfig:
     """Static graph settings from config.MODEL.GC and the TPU sizing keys.
 
-    Only what the port's paths read. The kNN layout is symmetric exactly
-    when ``TPU.MSG_PASS`` is ``hybrid`` or ``einsum``, whose reverse-edge
-    permutation needs it (pemp_tpu/graph/constructor.py:74-82,104); ``auto``
-    runs the asymmetric layout of ``fused_step`` and ``pallas``.
+    Only what the port's paths read. The target-major kNN layout is
+    symmetric exactly when ``TPU.MSG_PASS`` is ``hybrid`` or ``einsum``,
+    whose reverse-edge permutation needs it
+    (pemp_tpu/graph/constructor.py:74-82,104); ``auto`` runs the asymmetric
+    layout of ``fused_step`` and ``pallas``.
     """
 
     num_joints: int = 17
     nodes_per_type: int = 40
     knn_k: int = 50
     knn_cap_in: int = 30
+    graph_type: str = "knn"
     pool_kernel: int = 3
     detect_threshold: float | None = 0.1
     hybrid_k: int = 5
@@ -63,8 +74,7 @@ class GCConfig:
 
     @classmethod
     def from_config(cls, config) -> "GCConfig":
-        # the config fixes the target-major kNN graph on detections
-        # (config.defaults.FIXED)
+        # the config fixes graphs on detections (config.defaults.FIXED)
         gc = config.MODEL.GC
         cap_in = config.TPU.KNN_CAP_IN
         return cls(
@@ -72,6 +82,7 @@ class GCConfig:
             nodes_per_type=config.TPU.NODES_PER_TYPE,
             knn_k=config.TPU.KNN_K,
             knn_cap_in=cap_in if cap_in > 0 else config.TPU.KNN_K,
+            graph_type=gc.GRAPH_TYPE,
             pool_kernel=gc.POOL_KERNEL_SIZE,
             detect_threshold=gc.DETECT_THRESHOLD if gc.DETECT_THRESHOLD <= 1.5 else None,
             hybrid_k=gc.HYBRID_K,
@@ -89,18 +100,32 @@ class GCConfig:
         )
 
     @property
+    def blocked(self) -> bool:
+        """Whether the edges come in target-major blocks (the kNN graph);
+        every other graph is an edge list."""
+        return self.graph_type == "knn"
+
+    @property
     def slots(self) -> int:
-        """C: in-edge slots per node (mirrors the builder's k clamp)."""
+        """C: in-edge slots per node of the blocked layout (mirrors the
+        builder's k clamp)."""
         n = self.num_joints * self.nodes_per_type
         return min(self.knn_k, max(n - 1, 1)) + self.knn_cap_in
+
+    @property
+    def blocked_c(self) -> int:
+        """C on the blocked layout, 0 on an edge list: the decode's and the
+        MPN's layout argument (pemp_tpu/tta/multi_scale.py:66-78)."""
+        return self.slots if self.blocked else 0
 
 
 @dataclasses.dataclass
 class GraphBatch:
-    """Flattened batch graph. Shapes: N* = B*J*K, E* = B*N*C."""
+    """Flattened batch graph. Shapes: N* = B*J*K, E* = B*E (E = N*C on the
+    blocked layout)."""
 
     x: Any                 # (N*, F) node features
-    edge_attr: Any         # (E*, 2 + J)
+    edge_attr: Any         # (E*, width of the edge-feature set)
     edge_index: Any        # (2, E*) into flattened node ids
     joint_det: Any         # (N*, 3) x, y, type
     joint_scores: Any      # (N*,)
@@ -119,28 +144,61 @@ class GraphBatch:
     class_mask: Any = None       # (N*,)
 
 
-def _edge_features(cfg: GCConfig, det, edge_index, hw):
-    """Position offsets + connection-type hot vector per edge.
+def _build_edges(cfg: GCConfig, det, valid, scores):
+    """The graph ``cfg.graph_type`` names, per image
+    (pemp_tpu/graph/constructor.py:143-170): det (B, N, 3), valid and
+    scores (B, N). Returns edge_index (B, 2, E) and edge_valid (B, E)."""
+    pos = det[..., :2].float()
+    kind = cfg.graph_type
+    if kind == "knn":
+        return knn_edges_target_major(pos, valid, cfg.knn_k, cfg.knn_cap_in, cfg.knn_symmetric)
+    if kind == "fully":
+        return fully_connected_edges(valid)
+    if kind == "score_based":
+        return score_based_edges(pos, valid, scores, 75)
+    if kind == "score_based_per_type":
+        return score_based_per_type_edges(pos, valid, det[..., 2], scores, cfg.num_joints, 2,
+                                          cfg.nodes_per_type)
+    raise NotImplementedError(f"MODEL.GC.GRAPH_TYPE={kind!r}")
 
-    reference: ConstructGraph.py:288-359. Types are index arithmetic on the
-    type-blocked layout (type(n) == (n // K) mod J); the target of slot s is
-    s // C, so its row is a repeat.
+
+def _edge_features(cfg: GCConfig, det, edge_index, hw):
+    """The edge features ``cfg.edge_features`` names, on the flat graph:
+    position offsets and the connection-type hot vector, either alone, or a
+    zero column for ``nothing``.
+
+    reference: ConstructGraph.py:288-359 (pemp_tpu/graph/constructor.py:
+    173-269). det (N*, 3), edge_index (2, E*). Types are index arithmetic
+    on the type-blocked layout (type(n) == (n // K) mod J). On the blocked
+    layout the target of slot s is s // C, so its row is a repeat; on an
+    edge list a gather. The angle and tag-distance sets wait for a
+    configuration that uses them.
     """
     feats = set(cfg.edge_features)
-    if feats != {"position", "connection_type"}:
-        raise NotImplementedError(cfg.edge_features)
     src, dst = edge_index[0].long(), edge_index[1].long()
+    e = src.shape[0]
+    if feats == {"nothing"}:
+        return torch.zeros((e, 1), dtype=torch.float32, device=det.device)
+    if not feats or not feats <= {"position", "connection_type"}:
+        raise NotImplementedError(f"MODEL.GC.EDGE_FEATURES_TO_USE={list(cfg.edge_features)}")
     norm = float(max(hw)) if cfg.norm_node_distance else 1.0
     j = cfg.num_joints
     row = det[:, :2].float()
     rs = row[src]
-    rd = torch.repeat_interleave(row, edge_index.shape[1] // row.shape[0], dim=0)
+    if cfg.blocked:
+        rd = torch.repeat_interleave(row, e // row.shape[0], dim=0)
+    else:
+        rd = row[dst]
     dx = (rd[:, 0] - rs[:, 0]) / norm
     dy = (rd[:, 1] - rs[:, 1]) / norm
     hot_s = F.one_hot((src // cfg.nodes_per_type) % j, j).float()
     hot_d = F.one_hot((dst // cfg.nodes_per_type) % j, j).float()
+    # a same-type edge keeps a single hot at its type (the reference sets
+    # the same position twice)
     conn = torch.clamp(hot_s + hot_d, 0.0, 1.0)
-    return torch.cat([dx[:, None], dy[:, None], conn], dim=-1)
+    parts = {"position": [dx[:, None], dy[:, None]], "connection_type": [conn]}
+    return torch.cat([p for name in ("position", "connection_type") if name in feats
+                      for p in parts[name]], dim=-1)
 
 
 def _similarity(det, det_valid, joints_gt, factors, hw):
@@ -313,9 +371,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
     xs, ys, ts = det[..., 0].long(), det[..., 1].long(), det[..., 2].long()
     node_feats = features[bi, ys, xs]                       # (B, N, F)
     tags_at = tagmaps[bi, ys, xs, ts]                       # (B, N[, S])
-    ei, ev = knn_edges_target_major(
-        det[..., :2].float(), valid, cfg.knn_k, cfg.knn_cap_in, cfg.knn_symmetric
-    )                                                       # (B, 2, E), (B, E)
+    ei, ev = _build_edges(cfg, det, valid, scores)          # (B, 2, E), (B, E)
     e = ei.shape[-1]
     offsets = (torch.arange(b, dtype=torch.int32, device=det.device) * n)[:, None, None]
     edge_index = (ei + offsets).transpose(0, 1).reshape(2, b * e)

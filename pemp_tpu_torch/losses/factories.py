@@ -2,11 +2,14 @@
 reference: src/Utils/loss.py).
 
 All losses take explicit masks, which also carry node and edge validity,
-so padding is inert. Only the flagship factory is ported:
-``ClassMultiLossFactory`` with the edge, node, class and heatmap losses and
-the associative-embedding loss on the tag maps (``tagmap``; the per-node
-``tag_loss`` term, which needs the MPN zoo's tag outputs, is refused), and
-``dispatch_loss_func`` routes to it alone.
+so padding is inert. Ported: ``ClassMultiLossFactory`` (the flagship) with
+the edge, node, class and heatmap losses and the associative-embedding
+loss on the tag maps (``tagmap``; the per-node ``tag_loss`` term, which
+needs the MPN zoo's tag outputs, is refused), and the edge-only factories
+``MPNLossFactory`` and ``MultiLossFactory``. ``dispatch_loss_func`` routes
+to them as the JAX package does; ``ClassMPNLossFactory`` (the legacy
+``node_edge_loss``), which no file of configs/ selects, and the background
+and tag factories wait.
 """
 
 from __future__ import annotations
@@ -218,12 +221,74 @@ class ClassMultiLossFactory:
         return total, logging
 
 
+def _per_step(x, i):
+    """A per-step list's entry ``i``, or ``x`` itself when it is one tensor."""
+    return x[i] if isinstance(x, (list, tuple)) else x
+
+
+class MPNLossFactory:
+    """Edge-only focal loss, the mean over the steps' edge logits
+    (pemp_tpu.losses.factories.MPNLossFactory; reference loss.py:761-783)."""
+
+    def __init__(self, config):
+        if not config.MODEL.LOSS.USE_FOCAL:
+            raise NotImplementedError("MODEL.LOSS.USE_FOCAL=False with the edge-only loss")
+        self.alpha = config.MODEL.LOSS.FOCAL_ALPHA
+        self.gamma = config.MODEL.LOSS.FOCAL_GAMMA
+
+    def __call__(self, outputs, labels, masks):
+        preds = outputs["edge"]
+        total = 0.0
+        for i, p in enumerate(preds):
+            total = total + focal_loss(p, _per_step(labels["edge"], i),
+                                       _per_step(masks["edge"], i), self.alpha, self.gamma)
+        total = total / max(len(preds), 1)
+        return total, {"loss": total}
+
+
+class MultiLossFactory:
+    """The edge + heatmap list of the older configs: the edge-only loss, as
+    in the JAX package (pemp_tpu.losses.factories.MultiLossFactory; reference
+    loss.py:162-215)."""
+
+    def __init__(self, config):
+        self.inner = MPNLossFactory(config)
+
+    def __call__(self, outputs, labels, masks):
+        return self.inner(outputs, labels, masks)
+
+
+# the legacy string names of MODEL.LOSS.NAME (pemp_tpu/losses/factories.py:
+# 639-645); None: a factory not ported (no file of configs/ names one)
+_BY_NAME = {"edge_loss": MPNLossFactory, "node_edge_loss": None,
+            "node_with_background_edge_loss": None, "tag_loss": None, "pure_tag_loss": None}
+
+
 def dispatch_loss_func(config):
-    """reference: src/train.py:186-204. Of the JAX package's routes
-    (pemp_tpu/losses/factories.py:630-657) only the flagship one is ported:
-    a loss list holding ``node`` goes to ClassMultiLossFactory."""
+    """The loss factory ``MODEL.LOSS.NAME`` selects (reference:
+    src/train.py:186-204; pemp_tpu/losses/factories.py:630-657): a plain
+    string through the legacy table; a list holding ``node`` to
+    ClassMultiLossFactory, ``{edge, heatmap}`` to MultiLossFactory,
+    ``{edge}`` (or ``{edge_loss}``) to MPNLossFactory. The other legacy
+    factories (``node_edge_loss``, ``node_with_background_edge_loss``,
+    ``tag_loss``, ``pure_tag_loss``) and ``{heatmap, tag}`` raise
+    ``NotImplementedError``, as does any other name."""
     name = config.MODEL.LOSS.NAME
-    if not isinstance(name, str) and "node" in set(name):
+    if isinstance(name, str):
+        factory = _BY_NAME.get(name)
+        if factory is None:
+            have = sorted(k for k, v in _BY_NAME.items() if v)
+            raise NotImplementedError(f"MODEL.LOSS.NAME={name!r}: the port has {have}; the "
+                                      f"background and tag losses wait for the MPN zoo, "
+                                      f"node_edge_loss for a configuration that selects it")
+        return factory(config)
+    losses = set(name)
+    if "node" in losses:
         return ClassMultiLossFactory(config)
-    raise NotImplementedError(f"MODEL.LOSS.NAME={name!r}: only the flagship multi-loss "
-                              "(a list with 'node') is ported")
+    if losses == {"edge", "heatmap"}:
+        return MultiLossFactory(config)
+    if losses in ({"edge"}, {"edge_loss"}):
+        return MPNLossFactory(config)
+    raise NotImplementedError(f"MODEL.LOSS.NAME={sorted(losses)}: the port has the lists with "
+                              f"'node', [edge, heatmap] and [edge]; the tag losses wait for the "
+                              f"MPN zoo")

@@ -13,8 +13,15 @@ aggregation (``hybrid``: K3, backward K3b), by the same projection and the
 blocked aggregate (``einsum``: K4, backward K4b), or by the all-types
 projection and the blocked aggregate (``dots``). All five read the same
 parameters. The split forms gather the edge MLP's source rows through
-ops.gather_mm (G1 in the backward). Every layer computes in its input's
-dtype.
+ops.gather_mm (G1 in the backward). On an edge list (every graph but the
+target-major kNN one) the layer's ``forward_segment`` runs the JAX
+package's unfused form of the same flagship layer. ``MPLayer`` is the
+type-agnostic layer (``MPN.AGGR_TYPE: agnostic``, VanillaMPN), on either
+layout. Neither of the last two runs a kernel: the JAX package computes
+them in plain XLA. Every layer computes in its input's dtype. The JAX
+package's other variants (the per-type edge MLP, ``AGGR_SUB`` other than
+``node_edge_attn``, the ``hierarch_mlp`` update, the node update MLP)
+wait for a configuration that sets them.
 """
 
 from __future__ import annotations
@@ -27,6 +34,11 @@ from pemp_tpu_torch.ops.attn_aggregate import fused_attn_aggregate
 from pemp_tpu_torch.ops.blocked_attn import blocked_attn_aggregate
 from pemp_tpu_torch.ops.fused_step import fused_mpn_step
 from pemp_tpu_torch.ops.gather_mm import gather_plan, gather_rows_mm_or_plain
+from pemp_tpu_torch.ops.segment import (
+    blocked_aggregate,
+    per_type_attention_aggregate,
+    segment_aggregate,
+)
 from pemp_tpu_torch.ops.typed_message import fused_typed_message_aggregate
 
 # COCO joint order: nose, eye_l, eye_r, ear_l, ear_r, sho_l, sho_r, elb_l,
@@ -141,8 +153,9 @@ class Linear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over the element axis with a validity mask, in float32,
-    cast back (pemp_tpu.models.mpn.layers.MaskedBatchNorm).
+    """BatchNorm1d over the element axis with a validity mask, in float32
+    (float64 for float64 input), cast back
+    (pemp_tpu.models.mpn.layers.MaskedBatchNorm).
 
     In training mode the statistics are taken over the rows ``valid``
     marks: the biased variance normalises, the unbiased one enters the
@@ -154,9 +167,9 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x, valid=None):
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if self.training:
-            w = valid.to(torch.float32)[:, None]
+            w = valid.to(xf.dtype)[:, None]
             count = torch.clamp(w.sum(), min=1.0)
             mean = (xf * w).sum(dim=0) / count
             var = (torch.square(xf - mean) * w).sum(dim=0) / count
@@ -213,15 +226,118 @@ class _TypedNodeMLP(nn.Module):
         return w, b
 
 
+def typed_projection(x, weight, order):
+    """Row e of ``x`` (E, Din) times the weight of its type t(e):
+    ``x[e] @ weight[t(e)].T`` for weight (T, Dout, Din), without the
+    (E, T, Dout) tensor of every type (pemp_tpu/models/mpn/layers.py:
+    236-239 builds it). ``order`` is :func:`type_order` of the types: the
+    rows sorted by type, one matmul per type, then put back. Returns
+    (E, Dout)."""
+    perm, inverse, counts = order
+    parts = [rows @ weight[t].t() for t, rows in enumerate(x[perm].split(counts))]
+    return torch.cat(parts)[inverse]
+
+
+def type_order(types, num_types: int):
+    """(perm, inverse, counts) of :func:`typed_projection`: the rows of
+    each type together, in type order (a stable sort), the permutation
+    back, and each type's row count (on the host: computed once per
+    forward, as the types do not change from step to step)."""
+    perm = torch.sort(types.long(), stable=True)[1]
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.arange(perm.numel(), device=perm.device)
+    counts = torch.bincount(types.long(), minlength=num_types).tolist()
+    return perm, inverse, counts
+
+
+def _aggregate(m, pre, num_nodes: int, kind: str):
+    """``kind`` over each node's valid in-edges: blocked over its C slots,
+    else a segment op on the targets."""
+    if pre["blocked_c"]:
+        return blocked_aggregate(m, num_nodes, kind, pre["valid"])
+    return segment_aggregate(m, pre["dst"], num_nodes, kind, pre["valid"])
+
+
+def _split_edge_mlp(lin0, x, edges, pre):
+    """lin0 of [x_i, x_j, edges] for every edge, as node-level products
+    gathered per edge (x_i's repeated on the blocked layout) plus the edge
+    part: x (N, node_in), edges (E, edge_in). Returns (E, H)."""
+    dn = x.shape[1]
+    w = lin0.weight.to(x.dtype)
+    tgt = x @ w[:, :dn].t()
+    src = x @ w[:, dn:2 * dn].t()
+    h = src[pre["src"]] + edges @ w[:, 2 * dn:].t() + lin0.bias.to(x.dtype)
+    if pre["blocked_c"]:
+        return h + torch.repeat_interleave(tgt, pre["blocked_c"], dim=0)
+    return h + tgt[pre["dst"]]
+
+
+def _targets_part(lin, x, pre):
+    """lin's weight columns for x_i (its first ``x.shape[1]``), projected
+    per node and taken for each edge's target. Returns (E, Dout)."""
+    y = x @ lin.weight.to(x.dtype)[:, :x.shape[1]].t()
+    if pre["blocked_c"]:
+        return torch.repeat_interleave(y, pre["blocked_c"], dim=0)
+    return y[pre["dst"]]
+
+
+def edge_mlp(node_in: int, edge_in: int, edge_dim: int, edge_hidden: int):
+    """The layers' edge MLP (``MPN.EDGE_MLP: agnostic``):
+    Sequential(Linear, ReLU, Linear, ReLU) on [x_i, x_j, e]."""
+    return nn.Sequential(Linear(2 * node_in + edge_in, edge_hidden), nn.ReLU(),
+                         Linear(edge_hidden, edge_dim), nn.ReLU())
+
+
+def run_edge_mlp(mlp_edge, x, edges, pre):
+    """The new edges of :func:`edge_mlp`'s module: x (N, node_in), edges
+    (E, edge_in), ``pre`` the index columns (MPLayer.forward)."""
+    h = torch.relu(_split_edge_mlp(mlp_edge[0], x, edges, pre))
+    return torch.relu(mlp_edge[2](h))
+
+
+class MPLayer(nn.Module):
+    """Type-agnostic message-passing layer (pemp_tpu.models.mpn.layers.
+    MPLayer; reference layers.py:32-86): the edge MLP on [x_i, x_j, e]
+    (Sequential(Linear, ReLU, Linear, ReLU) as ``mlp_edge``), the message
+    relu(mlp_node([x_i, e'])) and ``aggr`` over each node's valid in-edges
+    (``add``, ``max``, ``mean``; blocked on the target-major layout, a
+    segment op on an edge list). State-dict names are the reference's
+    (pemp_tpu/train/convert.py:354-381). Products with x_i and x_j are
+    taken per node and gathered."""
+
+    def __init__(self, node_in: int, edge_in: int, node_dim: int, edge_dim: int,
+                 edge_hidden: int, aggr: str = "max"):
+        super().__init__()
+        self.aggr = aggr
+        self.mlp_edge = edge_mlp(node_in, edge_in, edge_dim, edge_hidden)
+        self.mlp_node = nn.Sequential(Linear(node_in + edge_dim, node_dim), nn.ReLU())
+
+    def forward(self, x, edges, pre):
+        """x (N, node_in) nodes, edges (E, edge_in); ``pre`` the
+        loop-invariant index columns (``src``, ``dst`` (E,) each edge's
+        source and target, ``blocked_c`` (C, or 0 on an edge list),
+        ``valid``). Returns (new nodes (N, node_dim), new edges (E,
+        edge_dim))."""
+        n = x.shape[0]
+        new_edge = run_edge_mlp(self.mlp_edge, x, edges, pre)
+        lin = self.mlp_node[0]
+        w = lin.weight.to(x.dtype)
+        m = torch.relu(_targets_part(lin, x, pre) + new_edge @ w[:, x.shape[1]:].t()
+                       + lin.bias.to(x.dtype))
+        return _aggregate(m, pre, n, self.aggr), new_edge
+
+
 class TypeAwareMPNLayer(nn.Module):
     """Flagship layer. reference: layers.py:157-258. ``forward`` is the
     fused-step form (K1); ``forward_typed`` (K2, differentiable through
     K2b), ``forward_hybrid`` (K3, through K3b) and ``forward_einsum`` (K4,
-    through K4b; the ``einsum`` and ``dots`` routes) are the split forms.
+    through K4b; the ``einsum`` and ``dots`` routes) are the split forms;
+    ``forward_segment`` is the edge-list form.
 
     ``node_in`` / ``edge_in`` are the widths of the skip-concatenated node
     and edge inputs; ``init_edge_dim`` is the width of their loop-invariant
-    first half.
+    first half. The layer is the flagship's: agnostic edge MLP,
+    ``node_edge_attn`` aggregation, ``mlp`` update.
     """
 
     def __init__(self, node_in: int, edge_in: int, init_edge_dim: int,
@@ -231,10 +347,7 @@ class TypeAwareMPNLayer(nn.Module):
         self.init_edge_dim = init_edge_dim
         self.num_types = num_types
         self.node_dim = node_dim
-        self.mlp_edge = nn.Sequential(
-            Linear(2 * node_in + edge_in, edge_hidden), nn.ReLU(),
-            Linear(edge_hidden, edge_dim), nn.ReLU(),
-        )
+        self.mlp_edge = edge_mlp(node_in, edge_in, edge_dim, edge_hidden)
         self.mlp_node = _TypedNodeMLP(num_types, node_in + edge_dim, node_dim)
         self.attn_net = nn.Sequential(Linear(edge_dim, 1))
         self.update_mlp = nn.Sequential(Linear(num_types * node_dim, node_dim), nn.ReLU())
@@ -340,7 +453,8 @@ class TypeAwareMPNLayer(nn.Module):
         a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
         b = type_blocked_projection(new_edge, wn[:, :, dn:], pre["rev_perm"], *pre["blocks"],
                                     pre["type_sum_map"])
-        logits = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0].float()
+        logits = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0]
+        logits = logits.to(torch.promote_types(dt, torch.float32))
         updates = fused_attn_aggregate(b.contiguous(), a.contiguous(), pre["src_type"],
                                        pre["valid"], logits.contiguous(), n, self.num_types)
         out = self.update_mlp(updates.reshape(n, -1).to(dt))
@@ -366,3 +480,29 @@ class TypeAwareMPNLayer(nn.Module):
                                          self.num_types, pre["valid"])
         out = self.update_mlp(updates.reshape(n, -1))
         return out, new_edge
+
+    def forward_segment(self, x, edges, pre):
+        """One step on an edge list (the ``segment`` route): the JAX
+        package's unfused layer (pemp_tpu/models/mpn/layers.py:526-533,
+        542-544, 630-676) in x's dtype. x (N, node_in), edges (E, edge_in)
+        skip-concatenated; ``pre`` as MPLayer's, with ``src_type`` and
+        ``type_order`` (:func:`type_order` of ``src_type``). The edge MLP's
+        products with x_i and x_j, and the message's with x_i, are taken per
+        node and gathered; the message's edge part is
+        :func:`typed_projection`. Returns (new nodes (N, D), new edges)."""
+        n, dt = x.shape[0], x.dtype
+        dn = self.node_in
+        new_edge = run_edge_mlp(self.mlp_edge, x, edges, pre)
+        wn, bn = self.mlp_node.stacked()                # (T, D, dn + De), (T, D)
+        wn, bn = wn.to(dt), bn.to(dt)
+        t = self.num_types
+        a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
+        a_sel = a.reshape(n * t, -1)[pre["dst"] * t + pre["src_type"]]
+        m = torch.relu(a_sel + typed_projection(new_edge, wn[:, :, dn:], pre["type_order"]))
+        # without the bias, as the kernel routes: the head's bias is one
+        # constant within each (node, source type) softmax group, so the
+        # weights do not depend on it and its gradient is zero
+        scores = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0]
+        updates = per_type_attention_aggregate(m, scores, pre["dst"], pre["src_type"], n, t,
+                                               pre["valid"])
+        return self.update_mlp(updates.reshape(n, -1)), new_edge

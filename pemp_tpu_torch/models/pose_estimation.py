@@ -10,6 +10,7 @@ them) or the 4-stack Hourglass (``hourglass``).
 
 ``TPU.MSG_PASS`` picks the MPN's route (models.mpn.models) and, for
 ``hybrid`` and ``einsum``, the symmetric kNN layout (graph.constructor).
+``MODEL.MPN.NAME`` picks the MPN (NodeClassificationMPN or VanillaMPN).
 Routing to a kernel is by device: on CUDA tensors each kernel of the route
 runs as a hand-written CUDA kernel, on CPU tensors as its plain PyTorch
 version (see ops/).
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from pemp_tpu_torch.config import check_path
+from pemp_tpu_torch.config.defaults import plain_route
 from pemp_tpu_torch.graph.constructor import GCConfig, construct_graph_batch
 from pemp_tpu_torch.models.hourglass import PoseNet, hg_process_output, hg_spec
 from pemp_tpu_torch.models.hrnet import (
@@ -29,7 +31,7 @@ from pemp_tpu_torch.models.hrnet import (
     PoseHigherResolutionNet,
     hr_process_output,
 )
-from pemp_tpu_torch.models.mpn.models import NodeClassificationMPN, mpn_cfg_from_config
+from pemp_tpu_torch.models.mpn.models import get_mpn_model, mpn_cfg_from_config
 
 BACKBONES = ("hrnet", "mmpose_hrnet", "hourglass")
 
@@ -88,7 +90,7 @@ class PoseEstimationBaseline(nn.Module):
             feature_channels, node_input_dim, feature_gather_kernel,
             padding=feature_gather_kernel // 2, bias=True,
         )
-        self.mpn = NodeClassificationMPN(mpn_cfg)
+        self.mpn = get_mpn_model(mpn_cfg)
 
     def train(self, mode: bool = True):
         """Training mode for the graph and MPN; the backbone's BatchNorm
@@ -100,7 +102,8 @@ class PoseEstimationBaseline(nn.Module):
 
     def backbone_forward(self, imgs):
         """imgs (B, H, W, 3) -> (per-stage outputs NHWC, scoremaps,
-        features, tags), the last three NHWC float32. Gradients flow
+        features, tags), the last three NHWC float32 (the features float64
+        in a float64 model). Gradients flow
         through the backbone whatever its BatchNorm mode. The output is
         processed first, then the features gathered, as in the JAX package
         (both process functions pass the feature map through)."""
@@ -109,13 +112,15 @@ class PoseEstimationBaseline(nn.Module):
             self.backbone_name, final_outputs, feat, self.num_joints, self.scoremap_mode)
         features = self.feature_gather(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         stages = [y.permute(0, 2, 3, 1) for y in final_outputs]
-        return stages, scoremaps.float(), features.float(), tags.float()
+        features = features if features.dtype == torch.float64 else features.float()
+        return stages, scoremaps.float(), features, tags.float()
 
     def mpn_forward(self, gb, route=None):
         """The MPN's per-step logits on the graph batch ``gb``; ``route``
         overrides the message-passing route the module's mode resolves."""
         return self.mpn(gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
-                        self.dtype, node_valid=gb.node_valid, route=route)
+                        self.dtype, node_valid=gb.node_valid, route=route,
+                        node_types=gb.joint_det[:, 2])
 
     def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None):
         """reference forward: PoseEstimation.py:71-111.
@@ -170,6 +175,22 @@ class PoseEstimationBaseline(nn.Module):
         return scoremaps, output
 
 
+def head_probs(preds, detector_scores):
+    """(edge_pred, node_pred, class_prob) of the final heads, float32: the
+    sigmoids and the class softmax; an MPN without a node head (VanillaMPN)
+    takes the detector scores as node scores, and without a class head
+    gives class_prob None, so the decode takes the detections' types
+    (pemp_tpu/tta/multi_scale.py:43-63)."""
+    edge_pred = torch.sigmoid(preds["edge"][-1].float())
+    node_logit = preds["node"][-1] if preds["node"] else None
+    node_pred = (detector_scores.float() if node_logit is None
+                 else torch.sigmoid(node_logit.float()))
+    class_prob = None
+    if preds.get("class"):
+        class_prob = torch.softmax(preds["class"][-1].float(), dim=-1)
+    return edge_pred, node_pred, class_prob
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device: CUDA unless the caller asks for the CPU.
     Raises when CUDA is asked for and absent; nothing falls back."""
@@ -179,13 +200,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def mpn_config(config, gc: GCConfig) -> dict:
+    """The MPN's plain-dict config with the layout and route keys the JAX
+    package's build_pose_model records (pemp_tpu/models/pose_estimation.py:
+    205-214): on the target-major kNN layout, edges in blocks of C slots
+    (``_BLOCKED_C``) and type-blocked nodes (``_NODES_PER_TYPE``); on an
+    edge list neither. ``_MSG_PASS`` is ``TPU.MSG_PASS``, ``_PLAIN_ROUTE``
+    the kernel-free route (config.defaults.plain_route) or None."""
+    mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
+    if gc.blocked:
+        mpn_cfg["_BLOCKED_C"] = gc.slots
+        mpn_cfg["_NODES_PER_TYPE"] = gc.nodes_per_type
+    mpn_cfg["_MSG_PASS"] = config.TPU.MSG_PASS
+    mpn_cfg["_PLAIN_ROUTE"] = plain_route(config)
+    return mpn_cfg
+
+
 def build_pose_model(config, dtype=torch.float32, device="cuda",
                      path: str = "eval") -> PoseEstimationBaseline:
     """Factory from the config tree (reference get_pose_model:
     PoseEstimation.py:14-38), for the bench's eval path, the eval entry
     point (``"valid"``) or the training path (``"train"``); raises on
     settings that path does not implement (config.check_path) and on an MPN
-    other than the flagship (``MODEL.MPN.NAME``, models.mpn.models). Returned in
+    the port does not have (``MODEL.MPN.NAME``, models.mpn.models). Returned in
     eval mode; ``.train()`` switches the
     forward to the training path. The weights are PyTorch's
     default initialisation; load real ones with ``load_state_dict`` or
@@ -194,12 +231,7 @@ def build_pose_model(config, dtype=torch.float32, device="cuda",
     check_path(config, path)
     gc = GCConfig.from_config(config)
     backbone_name, backbone, feature_channels = backbone_from_config(config)
-    mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
-    # edges arrive in target-major blocks of C slots and nodes are
-    # type-blocked, as the JAX package's build_pose_model records them
-    mpn_cfg["_BLOCKED_C"] = gc.slots
-    mpn_cfg["_NODES_PER_TYPE"] = gc.nodes_per_type
-    mpn_cfg["_MSG_PASS"] = config.TPU.MSG_PASS
+    mpn_cfg = mpn_config(config, gc)
     model = PoseEstimationBaseline(
         backbone_name, backbone, feature_channels, gc, mpn_cfg,
         num_joints=config.DATASET.NUM_JOINTS,

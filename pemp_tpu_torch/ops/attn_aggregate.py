@@ -63,12 +63,13 @@ def fused_attn_aggregate_plain(b, a, types, valid, logits, num_nodes: int, num_t
     """Plain PyTorch version of K3 (the math of ``_attn_tile``): a[n, t_s]
     selected exactly and added to b in float32, ReLU, then the per-(node,
     type) softmax and weighted sum of ops.segment. Differentiable by
-    autograd. Returns (N, T, D) float32."""
+    autograd. Returns (N, T, D) float32 (float64 for float64 inputs)."""
     e, d = b.shape
     c = e // num_nodes
     node = torch.arange(e, device=b.device) // c
-    a_sel = a.reshape(num_nodes, num_types, d).float()[node, types.reshape(-1).long()]
-    m = torch.relu(a_sel + b.float())
+    wide = torch.promote_types(b.dtype, torch.float32)
+    a_sel = a.reshape(num_nodes, num_types, d).to(wide)[node, types.reshape(-1).long()]
+    m = torch.relu(a_sel + b.to(wide))
     return blocked_per_type_attention_aggregate(m, logits.reshape(-1), types, num_nodes,
                                                 num_types, valid)
 

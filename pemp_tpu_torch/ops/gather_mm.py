@@ -97,11 +97,12 @@ def gather_rows_bwd_plain(g, plan, num_rows: int, dtype):
     """Plain PyTorch version of G1: the rows of ``g`` (E, D) summed in
     float32 by the plan's pieces, then the pieces by their rows
     (``index_add_``, each in slot or piece order on the CPU), cast to
-    ``dtype``. Returns (N, D)."""
+    ``dtype``; float64 rows are summed in float64. Returns (N, D)."""
     d = g.shape[1]
-    parts = torch.zeros((plan["piece_row"].numel(), d), dtype=torch.float32, device=g.device)
-    parts.index_add_(0, plan["piece"], g.float())
-    dx = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    parts = torch.zeros((plan["piece_row"].numel(), d), dtype=acc, device=g.device)
+    parts.index_add_(0, plan["piece"], g.to(acc))
+    dx = torch.zeros((num_rows, d), dtype=acc, device=g.device)
     return dx.index_add_(0, plan["piece_row"], parts).to(dtype)
 
 

@@ -1,17 +1,25 @@
-"""Target-major kNN edges (counterpart of pemp_tpu.ops.knn).
+"""Graph builders on padded detections (counterpart of pemp_tpu.ops.knn).
 
 ``knn_edges_target_major`` in both layouts: the asymmetric one of the
 ``fused_step`` and ``pallas`` message paths and the symmetric one of
 ``hybrid`` and ``einsum``, with ``reverse_edge_perm``, the reverse-edge
-involution those two read.
+involution those two read. The other builders of the files of configs/
+give an edge list of static length with a validity mask (the reference's
+``to_undirected + remove_self_loops`` by masking, ConstructGraph.py:
+376-381, 405-449): ``fully_connected_edges``, ``score_based_edges`` and
+``score_based_per_type_edges``. They take a batch axis: (B, N, ...) in,
+edge_index (B, 2, E) int32 and edge_valid (B, E) out, E the same for every
+image. The JAX package's edge-list kNN, feature kNN and per-type top-k
+builders wait for a configuration that runs them.
 
 Convention as in the reference MPN: ``edge_index[0]`` is the message
 source j, ``edge_index[1]`` the target i (reference layers.py:210).
 
 Tie order is part of the contract: detections sit on integer pixels, so
 equal distances are common. ``lax.top_k(-d2)`` takes the lower index first,
-which a stable ascending sort on ``d2`` reproduces; the transpose edges are
-placed by a stable sort on the target id.
+which a stable ascending sort on ``d2`` reproduces (and ``lax.top_k(s)`` a
+stable descending sort on ``s``); the transpose edges are placed by a
+stable sort on the target id.
 """
 
 from __future__ import annotations
@@ -122,3 +130,85 @@ def reverse_edge_perm(edge_src: torch.Tensor, edge_valid: torch.Tensor, num_node
     match = (cand == dst[:, None]) & edge_valid.reshape(num_nodes, c)[src]
     first = torch.argmax(match.to(torch.uint8), dim=1)   # the first maximum
     return (src * c + first).to(edge_src.dtype)
+
+
+def _largest(s, k: int):
+    """Indices of the k largest along the last axis, lower index first
+    among equals (``lax.top_k(s, k)``)."""
+    return torch.sort(s, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def _gather(x, idx):
+    """x (B, N) at idx (B, ...) per image."""
+    return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+
+
+def _forward_and_reverse(src_fwd, dst_fwd, fwd_valid, rev_valid):
+    """The forward block (src -> dst) and its reverse block as one list."""
+    b = src_fwd.shape[0]
+    src = torch.cat([src_fwd.reshape(b, -1), dst_fwd.reshape(b, -1)], dim=1)
+    dst = torch.cat([dst_fwd.reshape(b, -1), src_fwd.reshape(b, -1)], dim=1)
+    ev = torch.cat([fwd_valid.reshape(b, -1), rev_valid.reshape(b, -1)], dim=1)
+    return torch.stack([src, dst], dim=1).to(torch.int32), ev
+
+
+def fully_connected_edges(valid: torch.Tensor):
+    """All directed pairs without self loops, source major, each source's
+    targets ascending (pemp_tpu.ops.knn.fully_connected_edges; reference
+    ConstructGraph.py:376-381). valid (B, N). Returns edge_index
+    (B, 2, N*(N-1)), edge_valid."""
+    b, n = valid.shape
+    dev = valid.device
+    src = torch.arange(n, device=dev).repeat_interleave(n - 1)
+    rank = torch.arange(n - 1, device=dev).repeat(n)
+    dst = rank + (rank >= src).long()
+    edge_index = torch.stack([src, dst]).to(torch.int32)[None].expand(b, 2, n * (n - 1))
+    return edge_index, valid[:, src] & valid[:, dst]
+
+
+def score_based_edges(pos: torch.Tensor, valid: torch.Tensor, scores: torch.Tensor, k: int):
+    """Root-joint graph (pemp_tpu.ops.knn.score_based_edges; reference
+    ConstructGraph.py:405-422): the k best-scoring nodes connect to all,
+    both ways; a root-root pair is kept once in each direction.
+
+    pos (B, N, 2), valid and scores (B, N). Returns edge_index
+    (B, 2, 2*k*N), edge_valid.
+    """
+    b, n = valid.shape
+    dev = valid.device
+    s = torch.where(valid, scores.float(), torch.full_like(scores, float("-inf"),
+                                                            dtype=torch.float32))
+    roots = _largest(s, min(k, n))                              # (B, k)
+    k = roots.shape[1]
+    src_fwd = roots[:, :, None].expand(b, k, n)
+    dst_fwd = torch.arange(n, device=dev)[None, None, :].expand(b, k, n)
+    is_root = torch.zeros_like(valid).scatter(1, roots, True)
+    root_dst = is_root[:, None, :].expand(b, k, n)
+    fwd_valid = _gather(valid, src_fwd) & valid[:, None, :] & (src_fwd != dst_fwd)
+    # root -> root pairs appear in both roots' blocks: keep the src < dst copy
+    fwd_valid = fwd_valid & ~(root_dst & (src_fwd > dst_fwd))
+    return _forward_and_reverse(src_fwd, dst_fwd, fwd_valid, fwd_valid & ~root_dst)
+
+
+def score_based_per_type_edges(pos: torch.Tensor, valid: torch.Tensor, types: torch.Tensor,
+                               scores: torch.Tensor, num_types: int, k_per_type: int,
+                               nodes_per_type: int, score_threshold: float = 0.1):
+    """Root joints per type (pemp_tpu.ops.knn.score_based_per_type_edges;
+    reference ConstructGraph.py:424-449, k = 2, threshold 0.1): the k best
+    of each type's block and every valid node scoring above the threshold
+    are roots; the fully connected list keeps the edges with a root at
+    either end. Detections are type-blocked (N = T * K). Returns
+    edge_index (B, 2, N*(N-1)), edge_valid."""
+    del pos, types    # the roots come from the scores of each type's block
+    b, n = valid.shape
+    dev = valid.device
+    sc = scores.float()
+    s = torch.where(valid, sc, torch.full_like(sc, float("-inf")))
+    top = _largest(s.reshape(b, num_types, nodes_per_type), k_per_type)     # (B, T, k)
+    base = (torch.arange(num_types, device=dev) * nodes_per_type)[None, :, None]
+    roots = (top + base).reshape(b, -1)
+    is_root = torch.zeros_like(valid).scatter(1, roots, True)
+    is_root = (is_root | (torch.where(valid, sc, torch.zeros_like(sc)) > score_threshold)) & valid
+    edge_index, edge_valid = fully_connected_edges(valid)
+    src, dst = edge_index[0, 0].long(), edge_index[0, 1].long()
+    return edge_index, edge_valid & (is_root[:, src] | is_root[:, dst])

@@ -69,10 +69,11 @@ def fused_typed_message_plain(ef, a, types, valid, we, w_attn, num_nodes: int,
     typed projection onto every type and the selection of each slot's own,
     the logits, then K3's plain version (selection of a, ReLU, per-(node,
     type) softmax and weighted sum). Differentiable by autograd. Returns
-    (N, T, D) float32."""
+    (N, T, D) float32 (float64 for float64 inputs, which the kernels do not
+    take: a reference evaluation on the CPU)."""
     e = ef.shape[0]
     d = a.shape[-1]
-    f32 = torch.float32
+    f32 = torch.promote_types(ef.dtype, torch.float32)
     tv = types.reshape(-1).long()
     b_all = (ef.to(f32) @ we.to(f32)).reshape(e, num_types, d)
     b_sel = torch.gather(b_all, 1, tv[:, None, None].expand(e, 1, d))[:, 0]

@@ -12,7 +12,7 @@ import torch
 
 from pemp_tpu_torch.config import w48_640
 from pemp_tpu_torch.decode.assembly import decode_poses
-from pemp_tpu_torch.models.pose_estimation import build_pose_model, resolve_device
+from pemp_tpu_torch.models.pose_estimation import build_pose_model, head_probs, resolve_device
 
 # the main path's shape: bench.py's batch and input size
 BATCH = 8
@@ -47,22 +47,20 @@ class Pipeline:
         """Model outputs plus the decode; returns (persons, valid, scoremaps, output)."""
         scoremaps, output = self.model(images)
         g = output["graph"]
-        preds = output["preds"]
         b = images.shape[0]
         n = self.num_joints * self.model.gc.nodes_per_type
-        c = self.model.gc.slots
-        edge_pred = torch.sigmoid(preds["edge"][-1].float())
-        node_pred = torch.sigmoid(preds["node"][-1].float())
-        class_prob = torch.softmax(preds["class"][-1].float(), dim=-1)
+        e = g["edge_index"].shape[1] // b
+        edge_pred, node_pred, class_prob = head_probs(output["preds"], g["detector_scores"])
         per_img = lambda t: t.reshape(b, n, *t.shape[1:])  # noqa: E731
         offsets = torch.arange(b, device=images.device)[:, None, None] * n
-        local_index = g["edge_index"].reshape(2, b, n * c).transpose(0, 1) - offsets
+        local_index = g["edge_index"].reshape(2, b, e).transpose(0, 1) - offsets
         persons, valid = decode_poses(
             scoremaps, g["tags"], per_img(g["nodes"]), per_img(node_pred), local_index,
-            g["edge_valid"].reshape(b, n * c), edge_pred.reshape(b, n * c),
+            g["edge_valid"].reshape(b, e), edge_pred.reshape(b, e),
             per_img(g["node_valid"]),
             node_threshold=self.node_threshold, num_joints=self.num_joints,
-            blocked_c=c, class_probs=per_img(class_prob),
+            blocked_c=self.model.gc.blocked_c,
+            class_probs=None if class_prob is None else per_img(class_prob),
         )
         return persons, valid, scoremaps, output
 

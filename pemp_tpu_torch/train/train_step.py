@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pemp_tpu_torch.config.defaults import msg_pass_route
+from pemp_tpu_torch.config.defaults import msg_pass_route, plain_route
 from pemp_tpu_torch.losses.factories import mask_node_connections
 
 
@@ -45,7 +45,7 @@ class TrainStep:
         self.node_threshold = config.MODEL.MPN.NODE_THRESHOLD
         self.include_bordering = config.MODEL.LOSS.INCLUDE_BORDERING_NODES
         # validation runs the training route (msg_pass_route's train path)
-        self.train_route = msg_pass_route(config.TPU.MSG_PASS, True)
+        self.train_route = msg_pass_route(config.TPU.MSG_PASS, True, plain_route(config))
         self.fail_count = 0
         self.steps = 0
         self.last_output = None   # labels and validity of the last step
@@ -64,14 +64,18 @@ class TrainStep:
         labels["heatmap"] = batch["heatmaps"]
         labels["tag"] = batch.get("ae_targets")
         # graph reduction: the edge loss only between predicted or labelled
-        # positive nodes (reference: train.py:140-154)
+        # positive nodes (reference: train.py:140-154); an MPN without a
+        # node head (VanillaMPN: node [None]) keeps every labelled edge
         edge_masks, edge_labels = [], []
         for pred_node in preds["node"]:
+            edge_labels.append(labels["edge"])
+            if pred_node is None:
+                edge_masks.append(masks["edge"])
+                continue
             m = mask_node_connections(
                 torch.sigmoid(pred_node.detach()), output["graph"]["edge_index"],
                 self.node_threshold, labels["node"],
                 include_bordering_nodes=self.include_bordering)
-            edge_labels.append(labels["edge"])
             edge_masks.append(masks["edge"] * m.float())
         labels["edge"] = edge_labels
         masks["edge"] = edge_masks

@@ -42,6 +42,7 @@ from pemp_tpu_torch.geometry.affine import (
 )
 from pemp_tpu_torch.geometry.warp import warp_affine
 from pemp_tpu_torch.graph.constructor import construct_graph_batch
+from pemp_tpu_torch.models.pose_estimation import head_probs
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -250,16 +251,17 @@ class TTAPipeline:
         e = gb.edge_index.shape[1] // b
         per_img = lambda t: t.reshape(b, -1, *t.shape[1:])  # noqa: E731
         offsets = torch.arange(b, device=dev)[:, None, None] * n
+        edge_pred, node_pred, class_prob = head_probs(preds, gb.joint_scores)
         out = dict(
             nodes=per_img(gb.joint_det),
             node_features=per_img(gb.x),
-            node_scores=per_img(torch.sigmoid(preds["node"][-1].float())),
+            node_scores=per_img(node_pred),
             detector_scores=per_img(gb.joint_scores),
             node_valid=per_img(gb.node_valid),
             edge_index=gb.edge_index.reshape(2, b, e).transpose(0, 1) - offsets,
             edge_valid=gb.edge_valid.reshape(b, e),
-            edge_pred=torch.sigmoid(preds["edge"][-1].float()).reshape(b, e),
-            class_prob=per_img(torch.softmax(preds["class"][-1].float(), dim=-1)),
+            edge_pred=edge_pred.reshape(b, e),
+            class_prob=None if class_prob is None else per_img(class_prob),
             scoremaps=heat_acc,
             tags=tag_acc,
         )
@@ -277,7 +279,7 @@ class TTAPipeline:
             out["scoremaps"], out["tags"], out["nodes"], out["node_scores"],
             out["edge_index"], out["edge_valid"], out["edge_pred"], out["node_valid"],
             node_threshold=self.node_threshold, num_joints=self.num_joints,
-            blocked_c=self.model.gc.slots, class_probs=out["class_prob"],
+            blocked_c=self.model.gc.blocked_c, class_probs=out["class_prob"],
             with_fill_mean=test.FILL_MEAN, with_refine=test.WITH_REFINE,
             with_adjust=test.ADJUST,
         )
@@ -318,7 +320,8 @@ class TTAPipeline:
                                       dtype=torch.float32, device=self.device)
                 out = self._run(in_shapes, out_shape, [preps[i] for i in chunk], canvas)
                 for k, idx in enumerate(chunk):
-                    o = {key: value[k] for key, value in out.items()}
+                    o = {key: None if value is None else value[k]
+                         for key, value in out.items()}
                     o["base_size"] = metas[idx]["base"]
                     o["canvas_size"] = tuple(int(c) for c in metas[idx]["canvas"])
                     o["scaling_type"] = self.scaling_type

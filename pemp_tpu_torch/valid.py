@@ -80,7 +80,8 @@ def _host_grouping(out, config):
         one(out["scoremaps"]), one(out["tags"]), one(out["nodes"]), one(out["node_scores"]),
         one(out["edge_index"]), one(out["edge_valid"]), one(out["edge_pred"]),
         one(out["node_valid"]), node_threshold=config.MODEL.MPN.NODE_THRESHOLD,
-        num_joints=config.DATASET.NUM_JOINTS, blocked_c=0, class_probs=one(out["class_prob"]),
+        num_joints=config.DATASET.NUM_JOINTS, blocked_c=0,
+        class_probs=None if out["class_prob"] is None else one(out["class_prob"]),
         with_fill_mean=config.TEST.FILL_MEAN, with_refine=config.TEST.WITH_REFINE,
         with_adjust=config.TEST.ADJUST,
         cluster_labels=torch.from_numpy(labels).to(out["nodes"].device)[None],

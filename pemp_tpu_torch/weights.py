@@ -16,7 +16,9 @@ and ``convert_hourglass_state_dict`` (their layout maps, inverted here):
   BatchNorm     scale/bias + mean/var -> weight/bias/running_mean/running_var
 
 and the fused MPN layer's stacked ``mlp_node`` kernel (T, din, dout) becomes
-the reference's T separate Linears.
+the reference's T separate Linears. The MPN is NodeClassificationMPN (with
+a TypeAwareMPNLayer or, for ``AGGR_TYPE: agnostic``, an MPLayer) or
+VanillaMPN (an MPLayer).
 """
 
 from __future__ import annotations
@@ -166,28 +168,53 @@ def _mlp(cr, key, path, dims, bn, end_with_relu=False):
                 seq += 1
 
 
+def _mp_layer(cr, key, path):
+    """MPLayer (reference layers.py:32-86; pemp_tpu/train/convert.py:
+    354-381): ``mlp_edge_0`` / ``mlp_edge_1`` onto the reference's
+    Sequential(Linear, ReLU, Linear, ReLU), and ``mlp_node.0``."""
+    cr.linear(f"{key}.mlp_edge.0", (*path, "mlp_edge_0"))
+    cr.linear(f"{key}.mlp_edge.2", (*path, "mlp_edge_1"))
+    cr.linear(f"{key}.mlp_node.0", (*path, "mlp_node"))
+
+
+def _type_aware_layer(cr, key, path):
+    """TypeAwareMPNLayer: the edge MLP, the stacked ``mlp_node`` as T
+    Linears, the attention head and the update."""
+    cr.linear(f"{key}.mlp_edge.0", (*path, "mlp_edge_0"))
+    cr.linear(f"{key}.mlp_edge.2", (*path, "mlp_edge_1"))
+    kernel = _get(cr.params, (*path, "mlp_node", "kernel"))
+    bias = _get(cr.params, (*path, "mlp_node", "bias"))
+    for t in range(kernel.shape[0]):
+        cr.put(f"{key}.mlp_node.mlp.{t}.0.weight", kernel[t].T)
+        cr.put(f"{key}.mlp_node.mlp.{t}.0.bias", bias[t])
+    cr.linear(f"{key}.attn_net.0", (*path, "attn_net"))
+    cr.linear(f"{key}.update_mlp.0", (*path, "update_mlp"))
+
+
 def mpn_from_jax_variables(params, batch_stats, mpn_cfg: dict) -> dict:
-    """JAX NodeClassificationMPN variables -> the port's MPN ``state_dict``
-    (inverse of convert.convert_flagship_mpn_state_dict)."""
+    """JAX NodeClassificationMPN or VanillaMPN variables -> the port's MPN
+    ``state_dict`` (for the flagship the inverse of
+    convert.convert_flagship_mpn_state_dict)."""
     cr = _Carrier(params, batch_stats)
     c = mpn_cfg
+    vanilla = c["NAME"] == "VanillaMPN"
     for name, key in (("node_embedding", "NODE_EMB"), ("edge_embedding", "EDGE_EMB")):
-        _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c[key]["BN"],
-             c[key].get("END_WITH_RELU", False))
-    for name, key in (("edge_classification", "EDGE_CLASS"),
-                      ("node_classification", "NODE_CLASS"), ("classification", "CLASS")):
+        if vanilla:   # MPN.BN and the node embedding's END_WITH_RELU for both
+            _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c["BN"],
+                 c["NODE_EMB"].get("END_WITH_RELU", False))
+        else:
+            _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c[key]["BN"],
+                 c[key].get("END_WITH_RELU", False))
+    heads = (("edge_classification", "EDGE_CLASS"),)
+    if not vanilla:
+        heads += (("node_classification", "NODE_CLASS"), ("classification", "CLASS"))
+    for name, key in heads:
         _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c["BN"])
-    L = ("mpn", "layer")   # nn.scan's scope, then the shared layer
-    lk = "mpn_node_cls"
-    cr.linear(f"{lk}.mlp_edge.0", (*L, "mlp_edge_0"))
-    cr.linear(f"{lk}.mlp_edge.2", (*L, "mlp_edge_1"))
-    kernel = _get(cr.params, (*L, "mlp_node", "kernel"))
-    bias = _get(cr.params, (*L, "mlp_node", "bias"))
-    for t in range(kernel.shape[0]):
-        cr.put(f"{lk}.mlp_node.mlp.{t}.0.weight", kernel[t].T)
-        cr.put(f"{lk}.mlp_node.mlp.{t}.0.bias", bias[t])
-    cr.linear(f"{lk}.attn_net.0", (*L, "attn_net"))
-    cr.linear(f"{lk}.update_mlp.0", (*L, "update_mlp"))
+    path = ("mpn", "layer")   # nn.scan's scope, then the shared layer
+    if vanilla or c.get("AGGR_TYPE") == "agnostic":
+        _mp_layer(cr, "mpn_node_cls", path)
+    else:
+        _type_aware_layer(cr, "mpn_node_cls", path)
     return cr.sd
 
 

@@ -28,8 +28,9 @@ from pemp_tpu_torch.config import (
 )
 from pemp_tpu_torch.config.defaults import FIXED, NOT_READ
 from pemp_tpu_torch.losses.factories import dispatch_loss_func
-from pemp_tpu_torch.models.mpn.models import _check_flagship, mpn_cfg_from_config
-from pemp_tpu_torch.models.pose_estimation import build_pose_model
+from pemp_tpu_torch.graph.constructor import GCConfig
+from pemp_tpu_torch.models.mpn.models import get_mpn_model
+from pemp_tpu_torch.models.pose_estimation import build_pose_model, mpn_config
 from pemp_tpu_torch.pipeline import build_pipeline
 from pemp_tpu_torch.train.__main__ import main as train_main
 from pemp_tpu_torch.train.train_step import build_trainer
@@ -41,7 +42,8 @@ M58_YAML = str(CONFIGS / "hybrid_class_agnostic_end2end" / "model_58_4.yaml")
 # the config files of the repo whose settings a path of the port implements,
 # besides the AE-grouping entry point, which runs the backbone of every file
 # that loads
-LOADS = {"hrnet/w48_640.yaml": {"eval", "valid"},
+# (w48_640's default loss, "edge_loss", trains the edge head alone)
+LOADS = {"hrnet/w48_640.yaml": {"eval", "valid", "train"},
          "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train", "valid"},
          "crowdpose/model_81_1_2.yaml": {"train", "valid"},
          "test/tiny.yaml": {"train", "valid"}}
@@ -106,13 +108,14 @@ def test_long_scaling_is_accepted_on_valid_and_valid_hr():
 
 
 def test_vanilla_mpn_is_refused_at_model_build():
-    """hg_512 and w32_512 name no MPN, so the tree's VanillaMPN stands: the
-    MPN zoo is not ported, and the composite model refuses it at build,
-    naming the key (their path checks pass: they run on valid_hr)."""
+    """hg_512 and w32_512 name no MPN, so the tree's VanillaMPN stands
+    without embedding sizes: the composite model raises the missing key at
+    build, as the JAX package raises it at its first call (their path
+    checks pass: they run on valid_hr)."""
     for preset in (hg_512, w32_512):
         cfg = preset()
         check_path(cfg, "valid")
-        with pytest.raises(NotImplementedError, match="NAME='VanillaMPN'"):
+        with pytest.raises(KeyError, match="OUTPUT_SIZES"):
             build_pose_model(cfg, device="cpu", path="valid")
 
 
@@ -146,19 +149,20 @@ def test_every_jax_key_is_read_fixed_or_not_read():
 
 
 def _paths(cfg) -> set:
-    """The paths of the port that run ``cfg``: its checks, the flagship MPN
-    (but on the AE-grouping entry point, which runs the backbone alone) and,
-    for training, the loss."""
+    """The paths of the port that run ``cfg``: its checks, its MPN built
+    (but on the AE-grouping entry point, which runs the backbone alone;
+    a delta file loaded alone leaves VanillaMPN without its sizes, a
+    KeyError) and, for training, the loss."""
     ok = set()
-    mpn = {**mpn_cfg_from_config(cfg.MODEL.MPN), "_BLOCKED_C": 80, "_NODES_PER_TYPE": 40}
+    mpn = mpn_config(cfg, GCConfig.from_config(cfg))
     for path in ("eval", "valid", "valid_hr", "train"):
         try:
             check_path(cfg, path)
             if path != "valid_hr":
-                _check_flagship(mpn)
+                get_mpn_model(mpn)
             if path == "train":
                 dispatch_loss_func(cfg)
-        except NotImplementedError:
+        except (NotImplementedError, KeyError):
             continue
         ok.add(path)
     return ok
@@ -291,11 +295,14 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 def test_builders_check_their_path():
     """The eval builder refuses the training configuration (a checkpoint
-    path, GAEC grouping), and the trainer an eval-only one (no node loss)."""
+    path, GAEC grouping), and the trainer a loss that waits for the MPN
+    zoo (the per-node tag loss)."""
     with pytest.raises(NotImplementedError, match="MODEL.PRETRAINED"):
         build_pose_model(w32_512_train(), device="cpu")
-    with pytest.raises(NotImplementedError, match="only the flagship multi-loss"):
-        build_trainer(small(), device="cpu")
+    cfg = small()
+    cfg.MODEL.LOSS.NAME = "tag_loss"
+    with pytest.raises(NotImplementedError, match="wait for the MPN zoo"):
+        build_trainer(cfg, device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card():
