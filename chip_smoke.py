@@ -205,8 +205,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    model_nothing, no kernel on the others; prints the device time a step
    and peak memory.
 
-Phases 5, 8, 19, 23, 26, 27, 30 and 31 check the counts the same way:
-every kernel not named launches 0 times.
+32. graphs on the GT joints on the small cut, CPU against card, as phase
+   29: training steps with label method 7 and the weighted class loss
+   (pallas) and with USE_GT and method 2 (pallas, dots).
+33. model_58_4 at full width through ``train()`` (w32/512, batch 8, f32,
+   pallas, 4 steps on synthetic batches) with method 7 and the weighted
+   class loss, then with USE_GT and method 2: K2, K2b and G1 10 times a
+   step; prints the device time a step and the peak memory; K2 and K2b
+   held against their plain versions on the USE_GT layout at this width
+   (MPN steps 0 and 9 of one step).
+34. the upper bounds: ``calc_upper_bounds.evaluate`` on phase 19's 16
+   images on the card and on the CPU (the same persons and stats; prints
+   the AP), and UpperBoundModel at full width for the three upper_bound
+   files (graph and labels exact against the CPU's graph on the card's
+   maps; no kernel launches).
+
+Phases 5, 8, 19, 23, 26, 27, 30, 31, 33 and 34 check the counts the same
+way: every kernel not named launches 0 times.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -2031,6 +2046,198 @@ def phase_ablations(card, rendered, dataset):
     return counts
 
 
+# the graph paths on the GT joints that training takes (phases 32-33)
+GT_TRAIN = {"method 7 + WEIGHT_CLASS_LOSS": {"MODEL": {"GC": {"EDGE_LABEL_METHOD": 7,
+                                                              "WEIGHT_CLASS_LOSS": True}}},
+            "USE_GT + method 2": {"MODEL": {"GC": {"USE_GT": True, "EDGE_LABEL_METHOD": 2}}}}
+
+
+def gt_train_cut(label):
+    from pemp_tpu_torch.config import small_train
+
+    cfg = small_train()
+    cfg.merge_from_other(GT_TRAIN[label])
+    return cfg
+
+
+def phase_small_gt():
+    """Phase 32, the small cut CPU against card: training steps with method
+    7 and the weighted class loss on pallas, with USE_GT and method 2 on
+    pallas and dots (phase 29's limits: labels exact, loss parts 1e-4,
+    gradients against the CPU's float64 step)."""
+    for label in GT_TRAIN:
+        phase_small_train("pallas", gt_train_cut(label), f"small {label} train", f64_bound=True)
+    phase_small_train("dots", gt_train_cut("USE_GT + method 2"), "small USE_GT + method 2 train",
+                      f64_bound=True)
+
+
+def phase_gt_train(card):
+    """Phase 33: model_58_4 at full width (w32/512, batch 8, f32, pallas)
+    through ``train()`` on 2 synthetic batches for 2 epochs (4 steps), with
+    method 7 and the weighted class loss, then with USE_GT and method 2;
+    the counts zeroed just before each run and read just after (K2, K2b and
+    G1 10 times a step). Losses finite, no step skipped. Prints the device
+    time a step over the second epoch (CUDA events around each step) and
+    the peak memory. Then K2 and K2b on the USE_GT layout at this width
+    (person-major GT nodes, source types gathered from the nodes, an
+    invalid tail), their inputs taken at MPN steps 0 and 9 of one training
+    step on the first batch, against their plain versions as phase 6 holds
+    them. Returns the launch counts and K2's and K2b's errors."""
+    import tempfile
+
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.ops import typed_message
+    from pemp_tpu_torch.train.__main__ import train
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    rng = np.random.RandomState(21)
+    base = w32_512_train()
+    batches = [make_batch(rng, base.TRAIN.BATCH_SIZE, base.DATASET.INPUT_SIZE,
+                          tuple(base.DATASET.OUTPUT_SIZE), 17, base.DATASET.MAX_NUM_PEOPLE)
+               for _ in range(2)]
+    total = {"K2": 0, "K2b": 0, "G1": 0}
+    steps = base.MODEL.MPN.STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in GT_TRAIN:
+            cfg = w32_512_train()
+            cfg.merge_from_other(GT_TRAIN[label])
+            cfg.merge_from_other({"MODEL": {"PRETRAINED": ""}, "LOG_DIR": f"{tmp}/log",
+                                  "PRINT_FREQ": 100})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            summary = train(cfg, batches, None, cfg.LOG_DIR, schedule_steps=2, epochs=2, seed=0)
+            torch.cuda.synchronize()
+            n = 2 * len(batches)
+            counts = read_counts(f"{label} train", {"K2": steps * n, "K2b": steps * n,
+                                                    "G1": steps * n})
+            losses = summary["losses"]
+            if len(losses) != n or not np.isfinite(losses).all() or summary["fail_count"]:
+                raise SystemExit(f"{label} train: losses {losses}, "
+                                 f"{summary['fail_count']} skipped")
+            timed = summary["epochs"][1]
+            for k in total:
+                total[k] += counts[k]
+            log(f"{label} train: model_58_4 w32/512 batch {cfg.TRAIN.BATCH_SIZE} f32 pallas "
+                f"through train(), {n} steps on {card}: device time a step "
+                f"{1e3 * timed['device_s'] / timed['steps']:.1f} ms (epoch 1, CUDA events "
+                f"around each step), epoch 1 {timed['seconds']:.3f} s; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches K2 "
+                f"{counts['K2']}, K2b {counts['K2b']}, G1 {counts['G1']} (10 a step each); "
+                f"losses {[round(x, 4) for x in losses]}")
+    errs = {"fwd": [], "bwd": []}
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    captured = capture_train_inputs(trainer, batch_to_torch(batches[0], "cuda"),
+                                    "fused_typed_message_aggregate")
+    for step in (0, 9):
+        args, g = captured[step]
+        numbers = check_k2(f"USE_GT train path step {step}", args[:6], g, args[6:],
+                           typed_message)
+        for way in errs:
+            errs[way].append(numbers[way][0])
+    log(f"K2/K2b groups and blocks, USE_GT train path step 0: "
+        f"{k2_group_stats(captured[0][0], captured[0][0][6:], typed_message._CHUNK)}")
+    del trainer, captured, args, g
+    torch.cuda.empty_cache()
+    return total, errs
+
+
+UB_FILES = {"upper_bound/hg": 4, "upper_bound/hrnet": 2, "upper_bound/mmpose_hrnet": 2}
+
+
+def phase_upper_bounds(card, rendered, dataset):
+    """Phase 34: ``calc_upper_bounds.evaluate`` (upper_bound/hrnet: the GT
+    joints as nodes, method 2) on phase 19's 16 images on the card and on
+    the CPU: the same persons per image, keypoints within 2e-3, scores
+    within 1e-6, the same stats; prints the AP and each side's seconds.
+    Then UpperBoundModel at full width for the three upper_bound files
+    (the 4-stack Hourglass at 512, HigherHRNet-w32 at 512, mmpose_hrnet at
+    14 joints; seeded random weights, batch 8 of synthetic scenes, each
+    file's own graph settings): no kernel launches; the graph, labels and
+    masks exact against the CPU's graph on the card's maps."""
+    import tempfile
+
+    from pemp_tpu_torch import calc_upper_bounds as cub
+    from pemp_tpu_torch.config import upper_bound
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.graph.constructor import construct_graph_batch
+    from pemp_tpu_torch.models.upper_bound import build_upper_bound_model
+    from pemp_tpu_torch.pipeline import init_random_weights
+    from pemp_tpu_torch.train.train_step import batch_to_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered, dataset)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            cfg = cub.upper_bound_config(upper_bound("upper_bound/hrnet"))
+            cfg.LOG_DIR = f"{tmp}/{dev}"
+            t0 = time.perf_counter()
+            stats, anns = cub.evaluate(cfg, eval_set, "ub.txt", device=dev)
+            res[dev] = (np.asarray(stats), anns, time.perf_counter() - t0)
+    (s_card, a_card, t_card), (s_cpu, a_cpu, t_cpu) = res["cuda"], res["cpu"]
+    flat = lambda anns, key: [p[key] for image in anns for p in image]  # noqa: E731
+    ids = [[p["image_id"] for p in image] for image in a_card]
+    kp_err = np.abs(np.asarray(flat(a_card, "keypoints")) - np.asarray(flat(a_cpu, "keypoints")))
+    sc_err = np.abs(np.asarray(flat(a_card, "score")) - np.asarray(flat(a_cpu, "score")))
+    if (ids != [[p["image_id"] for p in image] for image in a_cpu] or not len(ids)
+            or not kp_err.max() <= 2e-3 or not sc_err.max() <= 1e-6
+            or not np.array_equal(s_card, s_cpu)):
+        raise SystemExit(f"calc_upper_bounds: card {len(flat(a_card, 'score'))} persons, CPU "
+                         f"{len(flat(a_cpu, 'score'))}; keypoints within {kp_err.max()}, scores "
+                         f"within {sc_err.max()}; stats {s_card} against {s_cpu}")
+    log(f"calc_upper_bounds upper_bound/hrnet on 16 rendered images: AP {s_card[0]:.4f} "
+        f"(AP50 {s_card[1]:.4f}), {len(flat(a_card, 'score'))} persons; card {t_card:.2f} s, "
+        f"CPU {t_cpu:.2f} s; keypoints within {kp_err.max():.1e} of the CPU's, stats equal")
+
+    rng = np.random.RandomState(22)
+    for name, stride in UB_FILES.items():
+        cfg = upper_bound(name)
+        j = cfg.DATASET.NUM_JOINTS
+        model = build_upper_bound_model(cfg, device="cuda")
+        init_random_weights(model, 0)
+        tb = batch_to_torch(make_batch(rng, 8, 512, (512 // stride,), j, 30), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            sm, out = model(tb["imgs"], tb["keypoints"], masks=tb["masks"][-1],
+                            factors=tb["factors"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        read_counts(f"upper bound {name}", {})
+        h, w = sm.shape[1:3]
+        gb = construct_graph_batch(model.gc, sm.cpu(), torch.zeros(8, h, w, 1),
+                                   out["graph"]["tags"].cpu(), masks=tb["masks"][-1].cpu(),
+                                   joints_gt=tb["keypoints"].cpu(), factors=tb["factors"].cpu(),
+                                   testing=True)
+        pairs = {"labels edge": ("labels", "edge", gb.edge_labels),
+                 "labels node": ("labels", "node", gb.node_labels),
+                 "labels class": ("labels", "class", gb.node_classes),
+                 "labels refine": ("labels", "refine", gb.node_persons),
+                 "masks edge": ("masks", "edge", gb.label_mask),
+                 "masks node": ("masks", "node", gb.label_mask_node),
+                 "nodes": ("graph", "nodes", gb.joint_det),
+                 "edge_index": ("graph", "edge_index", gb.edge_index),
+                 "node_valid": ("graph", "node_valid", gb.node_valid),
+                 "edge_valid": ("graph", "edge_valid", gb.edge_valid)}
+        for what, (part, key, want) in pairs.items():
+            if not torch.equal(out[part][key].cpu(), want):
+                raise SystemExit(f"upper bound {name}: {what} differ between card and CPU")
+        if not bool(torch.isfinite(sm).all()):
+            raise SystemExit(f"upper bound {name}: non-finite score maps")
+        log(f"upper bound {name}: UpperBoundModel ({model.backbone_name}) batch 8 at 512, maps "
+            f"{h}x{w}, f32 on {card}: forward {dt:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no kernel launches; graph, "
+            f"labels and masks exact against the CPU's graph on the card's maps (method "
+            f"{model.gc.edge_label_method}, valid nodes {int(gb.node_valid.sum())}/"
+            f"{gb.node_valid.numel()}, label-positive nodes {int(gb.node_labels.sum())}, "
+            f"edges {int(gb.edge_labels.sum())})")
+        del model, sm, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2443,6 +2650,24 @@ def main() -> int:
     k2_fwd += numbers_ab["K2"]
     k2_bwd += numbers_ab["K2b"]
     g1_launches += numbers_ab["G1"]
+    log(f"chip_smoke: phases 1-31 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 32-34. graphs on the GT joints: the small cuts CPU against card,
+    # training at full width through train(), the upper bounds
+    t0 = time.perf_counter()
+    phase_small_gt()
+    log(f"chip_smoke: phase 32 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    numbers_gt, errs_gt = phase_gt_train(card)
+    for way in k2_errs:
+        k2_errs[way] += errs_gt[way]
+    k2_fwd += numbers_gt["K2"]
+    k2_bwd += numbers_gt["K2b"]
+    g1_launches += numbers_gt["G1"]
+    log(f"chip_smoke: phase 33 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_upper_bounds(card, rendered, dataset)
+    log(f"chip_smoke: phase 34 done in {time.perf_counter() - t0:.1f} s")
 
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
@@ -2481,7 +2706,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-31 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-34 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ of ``configs/`` as Python, for machines without PyYAML;
 """
 
 import ast
+import functools
 import pathlib
 
 from pemp_tpu_torch.config.node import ConfigNode as CN
@@ -145,12 +146,16 @@ _C = CN({
             "NODE_MATCHING_RADIUS": 0.5,
             "NODE_INCLUSION_RADIUS": 0.7,
             "USE_NEIGHBOURS": False,
+            # the GT joints as the nodes (training and the upper bounds)
+            "USE_GT": False,
             "WITH_BACKGROUND": False,
             "IMAGE_CENTRIC_SAMPLING": False,
             "WEIGHT_CLASS_LOSS": False,
             "NODE_DROPOUT": 0.0,
         },
     },
+    # the upper-bound model's backbone (models.upper_bound)
+    "UB": {"KP": "hrnet"},
     "TEST": {
         "SPLIT": "coco_17_mini",
         "FLIP_TEST": True,
@@ -200,16 +205,16 @@ GRAPH_TYPES = ("knn", "fully", "score_based", "score_based_per_type")
 
 # Values no path of the port implements otherwise: the three backbones
 # (HigherHRNet, the same network under mmpose's checkpoint names, the
-# 4-stack Hourglass), HigherHRNet's standard blocks, graphs on detections
-# (not on the GT joints), per-step MPN outputs only where training asks
-# for them, and the message-passing routes (``ROUTES``). Refused when a
-# file is loaded.
+# 4-stack Hourglass; also the upper-bound model's ``UB.KP``), HigherHRNet's
+# standard blocks, per-step MPN outputs only where training asks for them,
+# and the message-passing routes (``ROUTES``). Refused when a file is
+# loaded.
 FIXED = {
     "MODEL.KP": ("hrnet", "mmpose_hrnet", "hourglass"),
+    "UB.KP": ("hrnet", "mmpose_hrnet", "hourglass"),
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.FUSE_METHOD": ("SUM",) for i in (2, 3, 4)},
     "MODEL.GC.GRAPH_TYPE": GRAPH_TYPES,
-    "MODEL.GC.USE_GT": (False,),
     "TPU.TARGET_MAJOR": (True,),
     "TPU.COLLECT_AUX": (False,),
     "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum", "dots"),
@@ -224,10 +229,22 @@ FIXED = {
 ROUTES = {"eval": ("fused_step", "pallas", "hybrid", "einsum", "dots"),
           "train": ("pallas", "hybrid", "einsum", "dots")}
 
+# The routes that need type-blocked nodes (type(n) == (n // K) mod J): the
+# fused step's in-kernel types and the reverse-edge permutation's static
+# type blocks. ``MODEL.GC.USE_GT`` makes the GT joints the nodes,
+# person-major, where the JAX package silently takes its plain per-type
+# layer instead (pemp_tpu/models/pose_estimation.py:212-218,
+# pemp_tpu/models/mpn/models.py:147-155); the port refuses them by name.
+TYPE_BLOCKED_ROUTES = ("fused_step", "hybrid", "einsum")
+
 # The eval path is bench.py's: weights from the caller, threshold grouping
 # with fill, refine and quarter adjust, one scale, no flip, the standard
 # deconvolution (-1 picks it off a TPU).
 EVAL_FIXED = {
+    # every eval path builds its graph on detections: the JAX package puts
+    # the GT joints among the nodes only when given them, which no eval
+    # path does
+    "MODEL.GC.USE_GT": (False,),
     "MODEL.PRETRAINED": ("",),
     "MODEL.GC.CC_METHOD": ("threshold",),
     "TPU.S2D_DECONV": (-1, 0),
@@ -243,6 +260,7 @@ EVAL_FIXED = {
 # card or by correlation clustering on the host; the greedy grouping
 # (decode/greedy.py) is not ported.
 VALID_FIXED = {
+    "MODEL.GC.USE_GT": (False,),
     "MODEL.GC.CC_METHOD": ("threshold", "GAEC", "KL", "MUT"),
     "DATASET.SCALING_TYPE": ("short", "long"),
     "TPU.S2D_DECONV": (-1, 0),
@@ -252,22 +270,34 @@ VALID_FIXED = {
 # same test-time augmentation, grouped on the host by the AE parsers and by
 # correlation clustering on the tags.
 VALID_HR_FIXED = {
+    "MODEL.GC.USE_GT": (False,),
     "DATASET.SCALING_TYPE": ("short", "long"),
     "TPU.S2D_DECONV": (-1, 0),
 }
 
-# The training path labels edges by methods 3-6 (with or without the
+# The training path labels edges by methods 1-7 (with or without the
 # neighbour pass, auction or greedy matcher; ``TPU.MATCHER`` values other
-# than greedy are the auction); methods 1, 2 and 7 need the GT joints among
-# the detections, which is not ported. No background class, node dropout,
-# image-centric sampling or weighted class loss.
+# than greedy are the auction), on detections or on the GT joints
+# (``USE_GT``), with or without the weighted class loss. No background
+# class. Node dropout and image-centric sampling act only with a random key,
+# and the JAX trainer passes the model none (pemp_tpu/train/train_step.py:
+# 57-67), so they never act there: refused.
 TRAIN_FIXED = {
-    "MODEL.GC.EDGE_LABEL_METHOD": (3, 4, 5, 6),
+    "MODEL.GC.EDGE_LABEL_METHOD": (1, 2, 3, 4, 5, 6, 7),
     "MODEL.GC.WITH_BACKGROUND": (False,),
     "MODEL.GC.IMAGE_CENTRIC_SAMPLING": (False,),
-    "MODEL.GC.WEIGHT_CLASS_LOSS": (False,),
     "MODEL.GC.NODE_DROPOUT": (0.0,),
 }
+# why a path refuses a value, where the table alone does not say
+_WHY = dict.fromkeys(("MODEL.GC.IMAGE_CENTRIC_SAMPLING", "MODEL.GC.NODE_DROPOUT"),
+                     "; the JAX trainer draws no graph key (pemp_tpu/train/train_step.py:"
+                     "57-67), so this never acts there")
+
+# The upper-bound path (models.upper_bound and calc_upper_bounds): the GT
+# labels as predictions, on the backbone of ``UB.KP``, with any label
+# method but the background class, which the graph constructor does not
+# implement.
+UB_FIXED = {"MODEL.GC.WITH_BACKGROUND": (False,)}
 
 
 def _under(prefix: str, names: str) -> set:
@@ -284,7 +314,9 @@ NOT_READ = frozenset({
     *_under("DATASET", "WITH_CENTER SIGMA HEAT_GENERATOR SCALE_TYPE"),
     # training settings the JAX trainer does not read either
     *_under("TRAIN", "SPLIT_OPTIMIZER LOSS_REDUCTION USE_LABEL_MASK USE_BATCH_INDEX"),
-    "UB",
+    # the upper bounds read UB.KP only (pemp_tpu/models/upper_bound.py,
+    # tools/calc_upper_bounds.py)
+    *_under("UB", "GC NUM_EVAL ADJUST SPLIT REFINE"),
     # read only by the loss factories, label methods and heads the port refuses
     *_under("MODEL", "AUX_STEPS WITH_FLIP_KERNEL FOCAL_LOSS"),
     *_under("MODEL.LOSS", "TAG_WEIGHT SYNC_TAGS SYNC_GT_TAGS EDGE_WITH_LOGITS "
@@ -365,7 +397,8 @@ def plain_route(cfg):
     return None
 
 
-def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None) -> str:
+def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
+                   type_blocked: bool = True) -> str:
     """``TPU.MSG_PASS`` as the JAX package resolves it on a TPU
     (pemp_tpu.models.pose_estimation.build_pose_model): ``auto`` is the
     fused step (K1) at eval, where per-step outputs are off, and the
@@ -373,8 +406,10 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None) -> str:
     them; any other value names its route. On a kernel-free path
     (``plain``, from :func:`plain_route`) ``auto`` is that route and any
     kernel route raises: the JAX package ignores it there, the port does
-    not fall back silently. Raises ``NotImplementedError`` for a route the
-    port does not run on that path."""
+    not fall back silently. Without ``type_blocked`` nodes (``USE_GT``)
+    ``auto`` is ``pallas`` in both modes and :data:`TYPE_BLOCKED_ROUTES`
+    raise. Raises ``NotImplementedError`` for a route the port does not
+    run on that path."""
     if plain is not None:
         if msg_pass != "auto":
             raise NotImplementedError(
@@ -383,7 +418,12 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None) -> str:
         return plain
     route = msg_pass
     if route == "auto":
-        route = "pallas" if train else "fused_step"
+        route = "pallas" if train or not type_blocked else "fused_step"
+    if not type_blocked and route in TYPE_BLOCKED_ROUTES:
+        raise NotImplementedError(
+            f"TPU.MSG_PASS={msg_pass!r} with MODEL.GC.USE_GT: the nodes are the GT joints, "
+            f"person-major, and this route needs type-blocked nodes; 'pallas' and 'dots' "
+            f"run here")
     path = "train" if train else "eval"
     if route not in ROUTES[path]:
         why = ("; the JAX package's backward for the fused step (K1) is a jnp "
@@ -396,23 +436,24 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None) -> str:
 
 def check_path(cfg, path: str) -> None:
     """Raises ``NotImplementedError`` unless ``cfg`` asks the ``"eval"``,
-    ``"valid"``, ``"valid_hr"`` or ``"train"`` path for what the port
-    implements there."""
+    ``"valid"``, ``"valid_hr"``, ``"train"`` or ``"upper_bound"`` path for
+    what the port implements there."""
     fixed = {"eval": EVAL_FIXED, "valid": VALID_FIXED, "valid_hr": VALID_HR_FIXED,
-             "train": TRAIN_FIXED}[path]
+             "train": TRAIN_FIXED, "upper_bound": UB_FIXED}[path]
     for key, allowed in fixed.items():
         value = _lookup(cfg, key)
         if value not in allowed:
-            raise NotImplementedError(
-                f"{key}={value!r}: the port's {path} path implements only {allowed}")
+            raise NotImplementedError(f"{key}={value!r}: the port's {path} path implements "
+                                      f"only {allowed}{_WHY.get(key, '')}")
     if cfg.DATASET.SCALING_TYPE == "long" and cfg.DATASET.INPUT_SIZE != 512:
         # pemp_tpu/geometry/affine.py:200-215 asserts it: the reference maps
         # back through a transform fixed at 512
         raise NotImplementedError(
             f"DATASET.SCALING_TYPE='long' at DATASET.INPUT_SIZE="
             f"{cfg.DATASET.INPUT_SIZE}: the long-side reverse map is fixed at 512")
-    if path != "valid_hr":
-        msg_pass_route(cfg.TPU.MSG_PASS, path == "train", plain_route(cfg))
+    if path in ("eval", "valid", "train"):
+        msg_pass_route(cfg.TPU.MSG_PASS, path == "train", plain_route(cfg),
+                       not cfg.MODEL.GC.USE_GT)
 
 
 def get_config():
@@ -699,6 +740,43 @@ def w32_512():
     return cfg
 
 
+# configs/upper_bound/*.yaml, the keys of them that the port reads: the
+# upper bounds' backbones (``UB.KP``) and graph settings over the default
+# tree, as tools/calc_upper_bounds.py loads each file alone
+UPPER_BOUNDS = {
+    "upper_bound/hg": {
+        "LOG_DIR": "log/upper_bound/hg",
+        "DATASET": {"ROOT": "data/coco", "SCALING_TYPE": "long",
+                    "OUTPUT_SIZE": [128, 128, 128, 128]},
+        "MODEL": {"KP": "hourglass", "HG": {"NSTACK": 4, "INPUT_DIM": 256, "OUTPUT_DIM": 68}},
+        "UB": {"KP": "hourglass"},
+    },
+    "upper_bound/hrnet": {
+        "LOG_DIR": "log/upper_bound/hrnet",
+        "DATASET": {"ROOT": "data/coco", "SCALING_TYPE": "short"},
+        "MODEL": {"KP": "hrnet",
+                  "GC": {"EDGE_LABEL_METHOD": 6, "GRAPH_TYPE": "knn", "MATCHING_RADIUS": 0.5}},
+        "UB": {"KP": "hrnet"},
+    },
+    "upper_bound/mmpose_hrnet": {
+        "LOG_DIR": "log/upper_bound/mmpose_hrnet",
+        "DATASET": {"DATASET": "crowd_pose", "ROOT": "data/crowdpose", "NUM_JOINTS": 14},
+        "MODEL": {"KP": "mmpose_hrnet", "HRNET": {"NUM_JOINTS": 14},
+                  "MPN": {"NUM_JOINTS": 14, "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 14]}}},
+        "UB": {"KP": "mmpose_hrnet"},
+    },
+}
+
+
+def upper_bound(name: str):
+    """The upper-bound file ``name`` (a key of :data:`UPPER_BOUNDS`) as
+    ``update_config(get_config(), "configs/<name>.yaml")`` gives it, built
+    without PyYAML."""
+    cfg = get_config()
+    cfg.merge_from_other(UPPER_BOUNDS[name])
+    return cfg
+
+
 # the ``--config`` names that resolve to a preset
 PRESETS = {
     "hrnet/w48_640": w48_640,
@@ -706,6 +784,7 @@ PRESETS = {
     "crowdpose/model_81_1_2": model_81_1_2,
     "hourglass/hg_512": hg_512,
     "hrnet/w32_512": w32_512,
+    **{name: functools.partial(upper_bound, name) for name in UPPER_BOUNDS},
 }
 
 
@@ -740,6 +819,13 @@ ABLATIONS = {
     "class_agnostic_end2end/model_57_1": {"MODEL": {"LOSS": {"NAME": ["edge", "node",
                                                                       "heatmap"]}},
                                           "TRAIN": {"END_TO_END": True}},
+    "matching_th/matching_03": {"MODEL": {"GC": {"MATCHING_RADIUS": 0.3}}},
+    "matching_th/matching_07": {"MODEL": {"GC": {"MATCHING_RADIUS": 0.7}}},
+    "semi_vs_pure/pure": {"MODEL": {"GC": {"EDGE_LABEL_METHOD": 6}}},
+    # their KP_OUTPUT_DIM is read by neither package (NOT_READ); ``cat``
+    # is refused by both (models.hrnet)
+    **{f"node_feature_selection/hrnet_{mode}": {"MODEL": {"HRNET": {"FEATURE_FUSION": mode}}}
+       for mode in ("avg", "large", "small")},
 }
 
 

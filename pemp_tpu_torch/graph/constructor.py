@@ -1,8 +1,10 @@
 """Batched, static-shape graph construction (counterpart of
 pemp_tpu.graph.constructor), with the training labels of edge label
-methods 3-6 when ground truth is given.
+methods 1-7 when ground truth is given.
 
-Detection (NMS + per-type top-K) gives J*K padded nodes per image; the
+Detection (NMS + per-type top-K) gives J*K padded nodes per image, or under
+``MODEL.GC.USE_GT`` the GT joints themselves (person-major, padded or cut
+to J*K; reference ConstructGraph.py:76-87); the
 target-major kNN builder gives C = k + cap_in in-edge slots per node, the
 other graphs of ``MODEL.GC.GRAPH_TYPE`` (fully connected, the root-joint
 graphs) an edge list of fixed length with a validity mask (ops.knn). The
@@ -19,8 +21,22 @@ same-type pairs, then cross-type pairs for the rows the first pass left
 unmatched); matched detections take their GT row's person and type, an
 optional neighbour pass adds the unmatched detections near exactly one
 matched GT joint, and an edge is positive when both ends belong to one
-person. Methods 1, 2 and 7 (GT joints as or among the detections) are not
-ported.
+person. Methods 1 and 2 (the ``USE_GT`` labels) are one same-type pass at
+the node or edge matching radius; method 7 slots the GT joints into the
+free padded slots of their type block (reference ConstructGraph.py:88-98
+concatenates them) and matches the real detections type-agnostically.
+
+The JAX package's ablations that draw from a graph key (method 7's +-2 px
+jitter of the injected joints, image-centric sampling, node dropout) never
+act in its trainer, which passes the model no key
+(pemp_tpu/train/train_step.py:57-67): method 7 injects without jitter
+here, and the training path refuses the other two by name.
+``WEIGHT_CLASS_LOSS`` weights the class loss by the GT heatmap at each
+node.
+
+Map lookups at a node clamp each index into its axis, as XLA's gather does:
+GT joints are clamped to ``max(H, W) - 1`` on both axes, which passes the
+shorter one on a map that is not square.
 """
 
 from __future__ import annotations
@@ -71,10 +87,11 @@ class GCConfig:
     use_neighbours: bool = False
     matcher: str = "auction"   # auction | greedy
     knn_symmetric: bool = False
+    use_gt: bool = False
+    weight_class_loss: bool = False
 
     @classmethod
     def from_config(cls, config) -> "GCConfig":
-        # the config fixes graphs on detections (config.defaults.FIXED)
         gc = config.MODEL.GC
         cap_in = config.TPU.KNN_CAP_IN
         return cls(
@@ -97,6 +114,8 @@ class GCConfig:
             use_neighbours=gc.USE_NEIGHBOURS,
             matcher="greedy" if config.TPU.MATCHER == "greedy" else "auction",
             knn_symmetric=config.TPU.MSG_PASS in ("hybrid", "einsum"),
+            use_gt=gc.USE_GT,
+            weight_class_loss=gc.WEIGHT_CLASS_LOSS,
         )
 
     @property
@@ -169,9 +188,10 @@ def _edge_features(cfg: GCConfig, det, edge_index, hw):
 
     reference: ConstructGraph.py:288-359 (pemp_tpu/graph/constructor.py:
     173-269). det (N*, 3), edge_index (2, E*). Types are index arithmetic
-    on the type-blocked layout (type(n) == (n // K) mod J). On the blocked
-    layout the target of slot s is s // C, so its row is a repeat; on an
-    edge list a gather. The angle and tag-distance sets wait for a
+    on the type-blocked layout of detections (type(n) == (n // K) mod J),
+    and the nodes' own under ``use_gt`` (person-major GT joints). On the
+    blocked layout the target of slot s is s // C, so its row is a repeat;
+    on an edge list a gather. The angle and tag-distance sets wait for a
     configuration that uses them.
     """
     feats = set(cfg.edge_features)
@@ -191,8 +211,13 @@ def _edge_features(cfg: GCConfig, det, edge_index, hw):
         rd = row[dst]
     dx = (rd[:, 0] - rs[:, 0]) / norm
     dy = (rd[:, 1] - rs[:, 1]) / norm
-    hot_s = F.one_hot((src // cfg.nodes_per_type) % j, j).float()
-    hot_d = F.one_hot((dst // cfg.nodes_per_type) % j, j).float()
+    if cfg.use_gt:
+        types = det[:, 2].long()
+        ts = types[src]
+        td = torch.repeat_interleave(types, e // types.shape[0]) if cfg.blocked else types[dst]
+    else:
+        ts, td = (src // cfg.nodes_per_type) % j, (dst // cfg.nodes_per_type) % j
+    hot_s, hot_d = F.one_hot(ts, j).float(), F.one_hot(td, j).float()
     # a same-type edge keeps a single hot at its type (the reference sets
     # the same position twice)
     conn = torch.clamp(hot_s + hot_d, 0.0, 1.0)
@@ -217,7 +242,11 @@ def _similarity(det, det_valid, joints_gt, factors, hw):
     gt_xy = torch.clamp(torch.round(gt[..., :2]), 0, float(max(hw)))
     diff = gt_xy[:, :, None, :] - det[:, None, :, :2].float()
     d2 = torch.sum(diff ** 2, dim=-1)
-    sim = torch.exp(-d2 / torch.clamp(fac[:, :, None], min=1e-12))
+    # exp in float64, rounded once to float32: the same bits on the CPU and
+    # on the card (their float32 exp differ in the last place, and the
+    # agnostic matching of method 7 turns on such near-ties), and closer to
+    # XLA's float32 exp than torch's own
+    sim = torch.exp((-d2 / torch.clamp(fac[:, :, None], min=1e-12)).double()).float()
     sim = torch.where(gt_valid[:, :, None] & det_valid[:, None, :], sim, torch.zeros_like(sim))
     same_type = gt_type[None, :, None] == det[:, None, :, 2]
     return sim, same_type, gt_valid, gt_person, gt_type
@@ -276,8 +305,9 @@ def _neighbour_pass(sim, col, matched_row, gt_person, gt_type, inclusion_radius,
     return node_labels, node_persons, node_classes, ambiguous
 
 
-def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, factors, hw):
-    """Edge label methods 3-6 for the images of a batch at once
+def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, factors, hw,
+                      injected=None):
+    """Edge label methods 1-7 for the images of a batch at once
     (pemp_tpu.graph.constructor._construct_labels); edge_index (B, 2, E)
     holds per-image node ids. Returns per-image labels and masks.
 
@@ -288,18 +318,27 @@ def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, fact
     and edge losses. Methods 3, 4 and 5: one same-type pass (5 at the node
     matching radius), the neighbour pass, the edge loss only between
     label-positive nodes (3), and nodes whose best same-type similarity
-    lies in [0.1, 0.8] out of the node loss (5).
+    lies in [0.1, 0.8] out of the node loss (5). Methods 1 and 2: one
+    same-type pass at the node (1) or edge (2) matching radius, the edge
+    loss only in an image with two GT joints or more. Method 7: one
+    type-agnostic pass over the real detections; ``injected`` (mask,
+    person, class), each (B, N), labels the injected GT slots with their own
+    person and class (None: no slot is injected).
     """
     b, n = det.shape[:2]
     method = cfg.edge_label_method
-    if method not in (3, 4, 5, 6):
+    if method not in range(1, 8):
         raise NotImplementedError(f"MODEL.GC.EDGE_LABEL_METHOD={method}")
     sim, same_type, gt_valid, gt_person, gt_type = _similarity(
         det, det_valid, joints_gt, factors, hw)
     zero = torch.zeros_like(sim)
+
+    def cut(s, radius):
+        return torch.where(s < radius, zero, s)
+
     sim_same = torch.where(same_type, sim, zero)
+    radius, inclusion = cfg.matching_radius, cfg.inclusion_radius
     if method == 6:
-        radius, inclusion = cfg.matching_radius, cfg.inclusion_radius
         sim_diff = torch.where(same_type, zero, sim)
         sims = torch.cat([sim_same, sim_diff], dim=0)
         # both passes of every image in one batched matching
@@ -307,17 +346,28 @@ def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, fact
         col = torch.where(cols[:b] >= 0, cols[:b], cols[b:])
         matched_row = gt_valid & (col >= 0)
         col = torch.where(matched_row, col, torch.full_like(col, -1))
+    elif method == 7:
+        # the real detections only; the injected slots carry their GT
+        if injected is not None:
+            cut_sim = torch.where(injected[0][:, None, :], zero, cut(sim, radius))
+        else:
+            cut_sim = cut(sim, radius)
+        col = _assign(cfg, cut_sim)
     else:
-        five = method == 5
-        radius = cfg.node_matching_radius if five else cfg.matching_radius
-        inclusion = cfg.node_inclusion_radius if five else cfg.inclusion_radius
-        col = _assign(cfg, torch.where(sim_same < radius, zero, sim_same))
+        if method in (1, 5):
+            radius, inclusion = cfg.node_matching_radius, cfg.node_inclusion_radius
+        col = _assign(cfg, cut(sim_same, radius))
         matched_row = gt_valid & (col >= 0)
 
     node_labels, node_persons, node_classes = _labels_from_matching(
         n, col, gt_valid, gt_person, gt_type)
+    if method == 7 and injected is not None:
+        mask, person, cls = injected
+        node_labels = torch.where(mask, 1.0, node_labels)
+        node_persons = torch.where(mask, person, node_persons)
+        node_classes = torch.where(mask, cls, node_classes)
     ambiguous = torch.zeros_like(det_valid)
-    if cfg.use_neighbours:
+    if cfg.use_neighbours and method in (3, 4, 5, 6):
         node_labels, node_persons, node_classes, ambiguous = _neighbour_pass(
             sim, col, matched_row, gt_person, gt_type, inclusion,
             node_labels, node_persons, node_classes)
@@ -328,6 +378,8 @@ def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, fact
     # loss in an image without a positive edge
     bad = torch.gather(ambiguous, 1, src) | torch.gather(ambiguous, 1, dst)
     any_pos = edge_labels.amax(dim=1, keepdim=True) > 0
+    if method in (1, 2):
+        any_pos = any_pos & (gt_valid.sum(dim=1, keepdim=True) >= 2)
     label_mask = (~bad & any_pos).float()
     node_mask = (~ambiguous).float()
     if method == 3:
@@ -349,31 +401,138 @@ def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, fact
                 label_mask_node=label_mask_node, class_mask=node_labels)
 
 
+def _gt_grid(b, p, j, device):
+    """(type, person) of each person-major GT row (B, P*J), int32."""
+    types = torch.arange(j, dtype=torch.int32, device=device).repeat(p)
+    persons = torch.arange(p, dtype=torch.int32, device=device).repeat_interleave(j)
+    return types.expand(b, p * j), persons.expand(b, p * j)
+
+
+def _gt_as_detections(joints_gt, hw, n):
+    """``USE_GT``: the GT joints (B, P, J, 3) as the node set
+    (pemp_tpu/graph/constructor.py:715-733): P*J person-major nodes,
+    rounded and clamped to ``max(H, W) - 1`` on both axes, score 1 where
+    visible, zero-padded (type 0, invalid) or cut to ``n``. Returns det
+    (B, n, 3) int32, scores (B, n), valid (B, n)."""
+    b, p, j = joints_gt.shape[:3]
+    gt = joints_gt.reshape(b, p * j, 3).float()
+    valid = gt[..., 2] > 0
+    xy = torch.clamp(torch.round(gt[..., :2]), 0, max(hw) - 1).to(torch.int32)
+    types, _ = _gt_grid(b, p, j, gt.device)
+    det = torch.cat([xy, types[..., None]], dim=-1)
+    scores = valid.float()
+    m = p * j
+    if m < n:
+        det = torch.cat([det, det.new_zeros((b, n - m, 3))], dim=1)
+        scores = torch.cat([scores, scores.new_zeros((b, n - m))], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((b, n - m))], dim=1)
+    return det[:, :n], scores[:, :n], valid[:, :n]
+
+
+def _inject_gt_detections(cfg: GCConfig, det, scores, valid, sm, joints_gt):
+    """Method 7's GT injection (pemp_tpu/graph/constructor.py:736-800, with
+    no key: no jitter): each visible GT joint of type t, rounded and
+    clamped to ``max(H, W) - 1``, takes the next free
+    padded slot of type block t, in GT order (a stable sort by type and
+    the rank within the type); the joints a full block has no slot for are
+    dropped. Injected slots become valid with the score map's value at
+    their position. sm (B, J, H, W). Returns det, scores, valid and
+    ``(mask, person, class)`` of the injected slots, each (B, N)."""
+    b, j, h, w = sm.shape
+    k = cfg.nodes_per_type
+    p = joints_gt.shape[1]
+    m, nslots = p * j, j * k
+    dev = det.device
+    gt = joints_gt.reshape(b, m, 3).float()
+    gt_valid = gt[..., 2] > 0
+    gt_type, gt_person = _gt_grid(b, p, j, dev)
+    xy = torch.clamp(torch.round(gt[..., :2]).to(torch.int32), 0, max(h, w) - 1)
+
+    # rank of each GT row within its type, among the visible rows
+    key = torch.where(gt_valid, gt_type, j).long()
+    order = torch.argsort(key, dim=1, stable=True)
+    t_sorted = torch.gather(key, 1, order)
+    counts = torch.zeros((b, j + 1), dtype=torch.long, device=dev).scatter_add_(
+        1, t_sorted, torch.ones_like(t_sorted))
+    starts = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(m, device=dev) - torch.gather(starts, 1, t_sorted)
+    # the free slots of each type block, in slot order
+    vb = valid.reshape(b, j, k)
+    free_order = torch.argsort(vb.to(torch.int8), dim=2, stable=True)
+    n_free = (~vb).sum(dim=2)
+    t_safe = t_sorted.clamp(0, j - 1)
+    slot = free_order.reshape(b, nslots).gather(1, t_safe * k + rank.clamp(0, k - 1))
+    ok = (t_sorted < j) & (rank < torch.gather(n_free, 1, t_safe)) & (rank < k)
+    # JAX's mode="drop" scatters: the rows with no slot go to a spare one
+    dest = torch.where(ok, t_safe * k + slot, nslots)
+    xy_sorted = torch.gather(xy, 1, order[..., None].expand(b, m, 2))
+    person_sorted = torch.gather(gt_person, 1, order)
+    spare = torch.cat([det, det.new_zeros((b, 1, 3))], dim=1)
+    for axis in (0, 1):
+        spare[..., axis].scatter_(1, dest, torch.where(ok, xy_sorted[..., axis], 0))
+    det_new = spare[:, :nslots]
+    inj = torch.zeros((b, nslots + 1), dtype=torch.bool, device=dev).scatter_(1, dest, ok)[:, :nslots]
+    inj_person = torch.full((b, nslots + 1), -1, dtype=torch.int32, device=dev).scatter_(
+        1, dest, torch.where(ok, person_sorted, -1))[:, :nslots]
+    sc_at = _at(sm.permute(0, 2, 3, 1), det_new, types=True)
+    return (det_new, torch.where(inj, sc_at, scores), valid | inj,
+            (inj, inj_person, det_new[..., 2].to(torch.int32)))
+
+
+def _at(maps, det, types=False):
+    """``maps`` (B, H, W, ...) at each node of det (B, N, 3), and with
+    ``types`` at its type's channel: each index clamped into its axis, as
+    XLA clamps a gather (the GT joints may pass the shorter axis)."""
+    b, h, w = maps.shape[:3]
+    bi = torch.arange(b, device=det.device)[:, None]
+    ys = det[..., 1].long().clamp(0, h - 1)
+    xs = det[..., 0].long().clamp(0, w - 1)
+    if types:
+        return maps[bi, ys, xs, det[..., 2].long().clamp(0, maps.shape[3] - 1)]
+    return maps[bi, ys, xs]
+
+
 def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=None,
-                          joints_gt=None, factors=None):
+                          joints_gt=None, factors=None, testing: bool = False,
+                          gt_heatmaps=None):
     """Graph construction, with training labels when ``joints_gt`` is given.
 
     scoremaps (B, H, W, J), features (B, H, W, F), tagmaps (B, H, W, J) or
     (B, H, W, J, S) with test-time augmentation's S tag channels (original
     and flipped), masks (B, H, W) crowd masks (or the canvas's valid region
     at test time) or None, joints_gt (B, P, J, 3) GT joints in
-    map coordinates, factors (B, P, J) their OKS factors. Returns the
-    flattened GraphBatch.
+    map coordinates, factors (B, P, J) their OKS factors. Under
+    ``use_gt`` the GT joints are the nodes. ``testing`` (the JAX package's
+    eval mode) turns off method 7's injection.
+    ``gt_heatmaps`` (B, h, w, J), the last scale's GT heatmaps, weight the
+    class loss under ``weight_class_loss``. Returns the flattened
+    GraphBatch.
     """
     b, h, w, j = scoremaps.shape
     n = j * cfg.nodes_per_type
+    sm = scoremaps.permute(0, 3, 1, 2)
     det, scores, valid = joint_det_from_scoremaps(
-        scoremaps.permute(0, 3, 1, 2), cfg.nodes_per_type, cfg.detect_threshold,
+        sm, cfg.nodes_per_type, cfg.detect_threshold,
         cfg.pool_kernel, mask=masks if cfg.mask_crowds else None,
         hybrid_k=cfg.hybrid_k,
     )
-    bi = torch.arange(b, device=det.device)[:, None]
-    xs, ys, ts = det[..., 0].long(), det[..., 1].long(), det[..., 2].long()
-    node_feats = features[bi, ys, xs]                       # (B, N, F)
-    tags_at = tagmaps[bi, ys, xs, ts]                       # (B, N[, S])
+    dev = det.device
+    training = joints_gt is not None and not testing
+    if cfg.use_gt and joints_gt is not None:
+        # reference: ConstructGraph.py:76-87
+        det, scores, valid = _gt_as_detections(joints_gt, (h, w), n)
+    injected = None
+    if cfg.edge_label_method == 7 and training and not cfg.use_gt:
+        det, scores, valid, injected = _inject_gt_detections(
+            cfg, det, scores, valid, sm, joints_gt)
+    node_feats = _at(features, det)                         # (B, N, F)
+    tags_at = _at(tagmaps, det, types=True)                 # (B, N[, S])
     ei, ev = _build_edges(cfg, det, valid, scores)          # (B, 2, E), (B, E)
+    labels = None
+    if joints_gt is not None:
+        labels = _construct_labels(cfg, det, valid, ei, joints_gt, factors, (h, w), injected)
     e = ei.shape[-1]
-    offsets = (torch.arange(b, dtype=torch.int32, device=det.device) * n)[:, None, None]
+    offsets = (torch.arange(b, dtype=torch.int32, device=dev) * n)[:, None, None]
     edge_index = (ei + offsets).transpose(0, 1).reshape(2, b * e)
     det_flat = det.reshape(b * n, 3)
     gb = GraphBatch(
@@ -383,13 +542,22 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
         joint_det=det_flat,
         joint_scores=scores.reshape(b * n),
         joint_tags=tags_at.reshape(b * n, *tags_at.shape[2:]),
-        batch_index=torch.arange(b, device=det.device).repeat_interleave(n),
+        batch_index=torch.arange(b, device=dev).repeat_interleave(n),
         node_valid=valid.reshape(b * n),
         edge_valid=ev.reshape(b * e),
         edge_src_local=ei[:, 0].reshape(b * e),
     )
-    if joints_gt is not None:
-        labels = _construct_labels(cfg, det, valid, ei, joints_gt, factors, (h, w))
-        for name, value in labels.items():
-            setattr(gb, name, value.reshape(-1))
+    if labels is None:
+        return gb
+    for name, value in labels.items():
+        setattr(gb, name, value.reshape(-1))
+    if cfg.weight_class_loss and gt_heatmaps is not None:
+        # the GT heatmap at each node's class, at least 0.1
+        # (reference: ConstructGraph.py:171-176)
+        cls = gb.node_classes.long().clamp(0, cfg.num_joints - 1)
+        hh, ww = gt_heatmaps.shape[1:3]
+        yy = det_flat[:, 1].long().clamp(0, hh - 1)
+        xx = det_flat[:, 0].long().clamp(0, ww - 1)
+        weights = gt_heatmaps[gb.batch_index, yy, xx, cls].float()
+        gb.class_mask = gb.class_mask * torch.clamp(weights, min=0.1)
     return gb

@@ -25,8 +25,12 @@ reverse-edge involution of the symmetric layout, built once per forward;
 flow, the plans of G1 (ops.gather_mm.gather_plan) are built once per
 forward too: the source gather's, and on ``einsum`` and ``dots`` the
 projection's selections'. These kernel routes need the target-major
-blocked kNN layout with type-blocked nodes (``_BLOCKED_C``,
-``_NODES_PER_TYPE``) and the flagship layer. The kernel-free routes
+blocked kNN layout (``_BLOCKED_C``, ``_NODES_PER_TYPE`` nodes of each
+type an image) and the flagship layer; under ``MODEL.GC.USE_GT``
+(``_GT_NODES``) the nodes are the GT joints, person-major, so the source
+types are gathered, ``auto`` is ``pallas`` in both modes and the routes
+that need type-blocked nodes (``fused_step``, ``hybrid``, ``einsum``)
+raise. The kernel-free routes
 (``_PLAIN_ROUTE``, config.defaults.PLAIN_ROUTES) run everything else:
 ``segment`` (the per-type layer on an edge list) and ``agnostic``
 (MPLayer on either layout); an explicit kernel route there raises. The module's mode decides the rest: training collects per-step
@@ -178,15 +182,19 @@ class NodeClassificationMPN(nn.Module):
         image; ``dtype`` is the working type; ``node_valid`` (N,) masks the
         BatchNorm statistics in training; ``node_types`` (N,) the raw joint
         types, which the kernel-free routes read (on the kernel routes'
-        type-blocked layout they are index arithmetic). The route is
-        ``route`` when given, else ``_MSG_PASS`` resolved for the module's
-        mode (module docstring)."""
+        type-blocked layout they are index arithmetic, but for the GT
+        joints of ``_GT_NODES``). The route is ``route`` when given, else
+        ``_MSG_PASS`` resolved for the module's mode (module docstring)."""
         c = self.cfg
         plain = c.get("_PLAIN_ROUTE")
+        gt_nodes = bool(c.get("_GT_NODES"))
         if route is None or (plain and route != plain):
-            route = msg_pass_route(route or c.get("_MSG_PASS", "auto"), self.training, plain)
+            route = msg_pass_route(route or c.get("_MSG_PASS", "auto"), self.training, plain,
+                                   not gt_nodes)
         elif not plain and route in PLAIN_ROUTES:
             raise NotImplementedError(f"route {route!r}: this MPN runs the kernel routes")
+        elif gt_nodes:
+            msg_pass_route(route, self.training, None, False)   # refuses type-blocked routes
         if plain:
             types = None
             if node_types is not None:
@@ -199,8 +207,12 @@ class NodeClassificationMPN(nn.Module):
         node_features = self.node_embedding(x.to(dtype), node_valid)
 
         # loop-invariant inputs of every step (_run_steps' ``pre``): source
-        # types are index arithmetic on the type-blocked layout
-        raw = (edge_index[0].long() // npt) % c["NUM_JOINTS"]
+        # types are index arithmetic on the type-blocked layout, a gather on
+        # the GT joints (pemp_tpu/models/mpn/models.py:147-155)
+        if gt_nodes:
+            raw = node_types.long()[edge_index[0].long()]
+        else:
+            raw = (edge_index[0].long() // npt) % c["NUM_JOINTS"]
         pre = {
             "src_type": sum_node_types(c["NODE_TYPE_SUMMARY"], raw).to(torch.int32).reshape(e),
             "valid": edge_valid.to(torch.int32).reshape(e),

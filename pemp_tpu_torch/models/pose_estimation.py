@@ -36,12 +36,12 @@ from pemp_tpu_torch.models.mpn.models import get_mpn_model, mpn_cfg_from_config
 BACKBONES = ("hrnet", "mmpose_hrnet", "hourglass")
 
 
-def backbone_from_config(config):
-    """(``MODEL.KP``, its backbone module, the channels of its feature
-    map): HigherHRNet's fused map for ``hrnet`` and ``mmpose_hrnet``, the
-    last stack's ``INPUT_DIM``-wide feature for ``hourglass``
-    (pemp_tpu/models/pose_estimation.py:41-47, 186-196)."""
-    name = config.MODEL.KP
+def backbone_from_config(config, name=None):
+    """(``MODEL.KP`` or ``name``, its backbone module, the channels of its
+    feature map): HigherHRNet's fused map for ``hrnet`` and
+    ``mmpose_hrnet``, the last stack's ``INPUT_DIM``-wide feature for
+    ``hourglass`` (pemp_tpu/models/pose_estimation.py:41-47, 186-196)."""
+    name = name or config.MODEL.KP
     if name in ("hrnet", "mmpose_hrnet"):
         spec = HRNetSpec.from_config(config)
         return name, PoseHigherResolutionNet(spec), spec.feature_channels()
@@ -122,7 +122,8 @@ class PoseEstimationBaseline(nn.Module):
                         self.dtype, node_valid=gb.node_valid, route=route,
                         node_types=gb.joint_det[:, 2])
 
-    def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None):
+    def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None,
+                heatmaps=None):
         """reference forward: PoseEstimation.py:71-111.
 
         Returns (scoremaps (B, H, W, J), output) with output["preds"] (MPN
@@ -133,11 +134,17 @@ class PoseEstimationBaseline(nn.Module):
         output["labels"] and output["masks"], with output["preds"]["heatmap"]
         the backbone's per-stage outputs
         (pemp_tpu/models/pose_estimation.py:109-171). The module's mode
-        picks the MPN's route unless ``route`` names one.
+        picks the MPN's route unless ``route`` names one, and eval mode is
+        the graph's ``testing``. ``heatmaps`` [per scale (B, h, w, J)], the
+        GT heatmaps, weight the class loss by the last scale's under
+        ``WEIGHT_CLASS_LOSS``. The graph draws nothing at random, as the
+        JAX package without ``gc_rng``, which its trainer never passes.
         """
         stages, scoremaps, features, tags = self.backbone_forward(imgs)
+        gt_heatmaps = heatmaps[-1] if heatmaps is not None and self.gc.weight_class_loss else None
         gb = construct_graph_batch(self.gc, scoremaps.detach(), features, tags.detach(),
-                                   masks=masks, joints_gt=keypoints_gt, factors=factors)
+                                   masks=masks, joints_gt=keypoints_gt, factors=factors,
+                                   testing=not self.training, gt_heatmaps=gt_heatmaps)
         preds = self.mpn_forward(gb, route)
         graph = {
             "nodes": gb.joint_det,
@@ -205,12 +212,17 @@ def mpn_config(config, gc: GCConfig) -> dict:
     package's build_pose_model records (pemp_tpu/models/pose_estimation.py:
     205-214): on the target-major kNN layout, edges in blocks of C slots
     (``_BLOCKED_C``) and type-blocked nodes (``_NODES_PER_TYPE``); on an
-    edge list neither. ``_MSG_PASS`` is ``TPU.MSG_PASS``, ``_PLAIN_ROUTE``
-    the kernel-free route (config.defaults.plain_route) or None."""
+    edge list neither; under ``USE_GT`` the nodes are the GT joints,
+    person-major (``_GT_NODES``), where the JAX package drops
+    ``_NODES_PER_TYPE`` (:212-218) and the port keeps it for the nodes an
+    image. ``_MSG_PASS`` is ``TPU.MSG_PASS``, ``_PLAIN_ROUTE`` the
+    kernel-free route (config.defaults.plain_route) or None."""
     mpn_cfg = mpn_cfg_from_config(config.MODEL.MPN)
     if gc.blocked:
         mpn_cfg["_BLOCKED_C"] = gc.slots
         mpn_cfg["_NODES_PER_TYPE"] = gc.nodes_per_type
+    if gc.use_gt:
+        mpn_cfg["_GT_NODES"] = True
     mpn_cfg["_MSG_PASS"] = config.TPU.MSG_PASS
     mpn_cfg["_PLAIN_ROUTE"] = plain_route(config)
     return mpn_cfg

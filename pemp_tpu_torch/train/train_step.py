@@ -45,7 +45,8 @@ class TrainStep:
         self.node_threshold = config.MODEL.MPN.NODE_THRESHOLD
         self.include_bordering = config.MODEL.LOSS.INCLUDE_BORDERING_NODES
         # validation runs the training route (msg_pass_route's train path)
-        self.train_route = msg_pass_route(config.TPU.MSG_PASS, True, plain_route(config))
+        self.train_route = msg_pass_route(config.TPU.MSG_PASS, True, plain_route(config),
+                                          not config.MODEL.GC.USE_GT)
         self.fail_count = 0
         self.steps = 0
         self.last_output = None   # labels and validity of the last step
@@ -54,11 +55,13 @@ class TrainStep:
         """Forward and loss (pemp_tpu/train/train_step.py:56-96); returns
         (loss, logging, output). Puts the model in training mode, or with
         ``train=False`` in eval mode on the training route, as
-        make_eval_step (:134-175) does."""
+        make_eval_step (:134-175) does. The GT heatmaps go to the model (for
+        ``WEIGHT_CLASS_LOSS``); no graph draws, as make_train_step passes
+        the model no key: method 7 injects the GT joints without jitter."""
         self.model.train(train)
         _, output = self.model(batch["imgs"], keypoints_gt=batch["keypoints"],
                                masks=batch["masks"][-1], factors=batch["factors"],
-                               route=self.train_route)
+                               route=self.train_route, heatmaps=batch["heatmaps"])
         labels, masks, preds = output["labels"], output["masks"], output["preds"]
         masks["heatmap"] = batch["masks"]
         labels["heatmap"] = batch["heatmaps"]

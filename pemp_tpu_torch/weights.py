@@ -218,17 +218,19 @@ def mpn_from_jax_variables(params, batch_stats, mpn_cfg: dict) -> dict:
     return cr.sd
 
 
-def from_jax_variables(params, batch_stats, cfg) -> dict:
-    """JAX composite or AE-grouping variables -> the port's ``state_dict``.
+def from_jax_variables(params, batch_stats, cfg, backbone=None) -> dict:
+    """JAX composite, AE-grouping or upper-bound variables -> the port's
+    ``state_dict``.
 
     ``params`` / ``batch_stats``: the ``"params"`` and ``"batch_stats"``
     collections of ``pemp_tpu``'s PoseEstimationBaseline (``MODEL.KP``'s
-    backbone, flagship MPN) or PoseEstimationAeGroup (the backbone alone),
-    as nested dicts of arrays. ``cfg``: the config tree both models were
-    built from.
+    backbone, flagship MPN), PoseEstimationAeGroup or UpperBoundModel (the
+    backbone alone), as nested dicts of arrays. ``cfg``: the config tree
+    the models were built from; ``backbone`` names the backbone when it is
+    not ``MODEL.KP`` (the upper-bound model's ``UB.KP``).
     """
     cr = _Carrier(params, batch_stats)
-    if cfg.MODEL.KP == "hourglass":
+    if (backbone or cfg.MODEL.KP) == "hourglass":
         _hourglass(cr, hg_spec(cfg)[0])
     else:
         _hrnet(cr, HRNetSpec.from_config(cfg))

@@ -94,7 +94,8 @@ def test_kernel_rejects_what_it_does_not_take():
         fused_step.fused_mpn_step(*tens, n, t, n_img)
 
 
-def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None, empty_type=None):
+def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None, empty_type=None,
+               gt_persons=None):
     rng = np.random.RandomState(seed)
     e = n * c
     f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
@@ -102,6 +103,16 @@ def _k2_inputs(seed=3, n=40, c=80, t=17, w=64, full_node=None, empty_type=None):
     types[: 2 * c] = 0            # nodes 0-1 see one type only: empty groups
     valid = (rng.rand(e) > 0.3).astype(np.int32)
     valid[3 * c: 4 * c] = 0       # node 3 (where there is one) has no valid slot at all
+    if gt_persons is not None:
+        # the USE_GT layout, two images: gt_persons * t person-major GT
+        # nodes (type = index mod t), then an invalid padded tail; each
+        # valid node's slots name sources among its image's GT nodes
+        n_img, m = n // 2, gt_persons * t
+        node = np.arange(e) // c
+        local = node % n_img
+        src = node - local + rng.randint(0, m, e)
+        types = (src % n_img % t).astype(np.int32)
+        valid = ((local < m) & (rng.rand(e) > 0.3)).astype(np.int32)
     if full_node is not None:     # every slot valid and of type 1: a group of C rows
         types[full_node * c: (full_node + 1) * c] = 1
         valid[full_node * c: (full_node + 1) * c] = 1
@@ -127,6 +138,9 @@ K2_CASES = {
     "empty_type": dict(seed=10, n=150, empty_type=4),
     # fewer nodes than one chunk: one block a type, of 3 nodes
     "n3_one_chunk": dict(seed=11, n=3),
+    # the USE_GT layout: 2 images of 17 * 8 nodes, 5 persons' GT joints
+    # person-major (types cycling 0-16), then 51 invalid padded nodes each
+    "use_gt_layout": dict(seed=12, n=272, gt_persons=5),
 }
 
 

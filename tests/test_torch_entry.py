@@ -41,12 +41,18 @@ W48_YAML = str(CONFIGS / "hrnet" / "w48_640.yaml")
 M58_YAML = str(CONFIGS / "hybrid_class_agnostic_end2end" / "model_58_4.yaml")
 # the config files of the repo whose settings a path of the port implements,
 # besides the AE-grouping entry point, which runs the backbone of every file
-# that loads
-# (w48_640's default loss, "edge_loss", trains the edge head alone)
+# that loads, and the upper bounds (models.upper_bound, calc_upper_bounds),
+# which run the graph of every file that loads: EVERY
+# (w48_640's default loss, "edge_loss", trains the edge head alone; the
+# upper_bound files run the upper bounds and the backbone alone)
+EVERY = {"valid_hr", "upper_bound"}
 LOADS = {"hrnet/w48_640.yaml": {"eval", "valid", "train"},
          "hybrid_class_agnostic_end2end/model_58_4.yaml": {"train", "valid"},
          "crowdpose/model_81_1_2.yaml": {"train", "valid"},
-         "test/tiny.yaml": {"train", "valid"}}
+         "test/tiny.yaml": {"train", "valid"},
+         "upper_bound/hg.yaml": {"upper_bound"},
+         "upper_bound/hrnet.yaml": {"upper_bound"},
+         "upper_bound/mmpose_hrnet.yaml": {"upper_bound"}}
 
 
 def _project(full: dict, like: dict) -> dict:
@@ -150,15 +156,16 @@ def test_every_jax_key_is_read_fixed_or_not_read():
 
 def _paths(cfg) -> set:
     """The paths of the port that run ``cfg``: its checks, its MPN built
-    (but on the AE-grouping entry point, which runs the backbone alone;
-    a delta file loaded alone leaves VanillaMPN without its sizes, a
-    KeyError) and, for training, the loss."""
+    (but on the AE-grouping entry point, which runs the backbone alone,
+    and the upper bounds, which run no MPN; a delta file loaded alone
+    leaves VanillaMPN without its sizes, a KeyError) and, for training,
+    the loss."""
     ok = set()
     mpn = mpn_config(cfg, GCConfig.from_config(cfg))
-    for path in ("eval", "valid", "valid_hr", "train"):
+    for path in ("eval", "valid", "valid_hr", "train", "upper_bound"):
         try:
             check_path(cfg, path)
-            if path != "valid_hr":
+            if path not in ("valid_hr", "upper_bound"):
                 get_mpn_model(mpn)
             if path == "train":
                 dispatch_loss_func(cfg)
@@ -183,7 +190,7 @@ def test_repo_yaml_loads_or_is_refused(path):
         return
     got = cfg.to_dict()
     assert got == _project(jax_update_config(jax_get_config(), str(path)).to_dict(), got)
-    assert _paths(cfg) == LOADS.get(name, set()) | {"valid_hr"}
+    assert _paths(cfg) == LOADS.get(name, set()) | EVERY
 
 
 @pytest.mark.parametrize("text,error", [
