@@ -29,6 +29,8 @@ The presets (:data:`PRESETS`: :func:`w48_640`, :func:`w32_512_train`,
 :func:`model_81_1_2`, :func:`hg_512` and :func:`w32_512`) carry five files
 of ``configs/`` as Python, for machines without PyYAML;
 :func:`load_config` resolves a ``--config`` name to a preset or a file.
+:data:`ABLATIONS` and :data:`ZOO` hold deltas over model_58_4
+(:func:`ablation`, :func:`zoo`).
 """
 
 import ast
@@ -77,6 +79,11 @@ _C = CN({
             "FOCAL_GAMMA": 2.0,
             "EDGE_BCE_POS_WEIGHT": 1.0,
             "INCLUDE_BORDERING_NODES": False,
+            # the tag-regression, background and node-edge factories
+            "TAG_WEIGHT": 1.0,
+            "SYNC_TAGS": False,
+            "NODE_BCE_POS_WEIGHT": 1.0,
+            "LOSS_WEIGHTS": [1.0, 1.0],
         },
         # the 4-stack Hourglass (MODEL.KP hourglass): stacks, width, head
         # channels (17 heatmaps, 17 tags, 34 unused)
@@ -120,6 +127,8 @@ _C = CN({
             "NODE_EMB": {},
             "EDGE_EMB": {},
             "CLASS": {},
+            # the per-node tag head (NodeClassificationMPNTag, MPNTag)
+            "NODE_TAG": {"BN": True, "OUTPUT_SIZES": [1]},
             "BN": True,
             "AGGR": "max",
             "AGGR_SUB": "None",
@@ -257,11 +266,11 @@ EVAL_FIXED = {
 
 # The eval entry point (valid.py) runs multi-scale + flip test-time
 # augmentation, short- or long-side scaling, and groups by threshold on the
-# card or by correlation clustering on the host; the greedy grouping
-# (decode/greedy.py) is not ported.
+# card, by correlation clustering or greedily (decode/greedy.py) on the
+# host; tag-regression MPNs group by their tags whatever the method.
 VALID_FIXED = {
     "MODEL.GC.USE_GT": (False,),
-    "MODEL.GC.CC_METHOD": ("threshold", "GAEC", "KL", "MUT"),
+    "MODEL.GC.CC_METHOD": ("threshold", "GAEC", "KL", "MUT", "greedy"),
     "DATASET.SCALING_TYPE": ("short", "long"),
     "TPU.S2D_DECONV": (-1, 0),
 }
@@ -278,13 +287,13 @@ VALID_HR_FIXED = {
 # The training path labels edges by methods 1-7 (with or without the
 # neighbour pass, auction or greedy matcher; ``TPU.MATCHER`` values other
 # than greedy are the auction), on detections or on the GT joints
-# (``USE_GT``), with or without the weighted class loss. No background
-# class. Node dropout and image-centric sampling act only with a random key,
-# and the JAX trainer passes the model none (pemp_tpu/train/train_step.py:
-# 57-67), so they never act there: refused.
+# (``USE_GT``), with or without the weighted class loss and the background
+# class (``WITH_BACKGROUND``, read by method 6). Node dropout and
+# image-centric sampling act only with a random key, and the JAX trainer
+# passes the model none (pemp_tpu/train/train_step.py:57-67), so they never
+# act there: refused.
 TRAIN_FIXED = {
     "MODEL.GC.EDGE_LABEL_METHOD": (1, 2, 3, 4, 5, 6, 7),
-    "MODEL.GC.WITH_BACKGROUND": (False,),
     "MODEL.GC.IMAGE_CENTRIC_SAMPLING": (False,),
     "MODEL.GC.NODE_DROPOUT": (0.0,),
 }
@@ -295,8 +304,9 @@ _WHY = dict.fromkeys(("MODEL.GC.IMAGE_CENTRIC_SAMPLING", "MODEL.GC.NODE_DROPOUT"
 
 # The upper-bound path (models.upper_bound and calc_upper_bounds): the GT
 # labels as predictions, on the backbone of ``UB.KP``, with any label
-# method but the background class, which the graph constructor does not
-# implement.
+# method but the background class: tools/calc_upper_bounds.py sets label
+# method 2 (:53-54), where WITH_BACKGROUND does not act, so neither
+# package's upper bounds run it.
 UB_FIXED = {"MODEL.GC.WITH_BACKGROUND": (False,)}
 
 
@@ -317,10 +327,10 @@ NOT_READ = frozenset({
     # the upper bounds read UB.KP only (pemp_tpu/models/upper_bound.py,
     # tools/calc_upper_bounds.py)
     *_under("UB", "GC NUM_EVAL ADJUST SPLIT REFINE"),
-    # read only by the loss factories, label methods and heads the port refuses
+    # legacy keys no factory of either package acts on (the JAX package's
+    # ClassMultiLossFactory stores EDGE_WITH_LOGITS and never reads it)
     *_under("MODEL", "AUX_STEPS WITH_FLIP_KERNEL FOCAL_LOSS"),
-    *_under("MODEL.LOSS", "TAG_WEIGHT SYNC_TAGS SYNC_GT_TAGS EDGE_WITH_LOGITS "
-                          "NODE_BCE_POS_WEIGHT LOSS_WEIGHTS"),
+    *_under("MODEL.LOSS", "SYNC_GT_TAGS EDGE_WITH_LOGITS"),
     *_under("MODEL.HRNET", "PRETRAINED SYNC_BN"),
     "MODEL.HRNET.LOSS.NUM_STAGES",
     "MODEL.HRNET.EXTRA.PRETRAINED_LAYERS",
@@ -397,8 +407,30 @@ def plain_route(cfg):
     return None
 
 
+# Why a path's message passing cannot take the routes that need
+# type-blocked nodes (:data:`TYPE_BLOCKED_ROUTES`), by the setting that
+# says so (:func:`unblocked_by`).
+UNBLOCKED = {
+    "use_gt": "with MODEL.GC.USE_GT: the nodes are the GT joints, person-major, and this "
+              "route needs type-blocked nodes",
+    "group_based": "with MODEL.MPN.NAME NodeClassificationMPNGroupBased: its two masked "
+                   "passes a step run the shared layer as the JAX package calls it, without "
+                   "the fused step or the reverse-edge projection",
+}
+
+
+def unblocked_by(cfg) -> str | None:
+    """None where ``cfg``'s MPN may take every route, else the key of
+    :data:`UNBLOCKED` that limits it to ``pallas`` and ``dots``."""
+    if cfg.MODEL.GC.USE_GT:
+        return "use_gt"
+    if cfg.MODEL.MPN.NAME == "NodeClassificationMPNGroupBased":
+        return "group_based"
+    return None
+
+
 def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
-                   type_blocked: bool = True) -> str:
+                   unblocked: str | None = None) -> str:
     """``TPU.MSG_PASS`` as the JAX package resolves it on a TPU
     (pemp_tpu.models.pose_estimation.build_pose_model): ``auto`` is the
     fused step (K1) at eval, where per-step outputs are off, and the
@@ -406,10 +438,11 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
     them; any other value names its route. On a kernel-free path
     (``plain``, from :func:`plain_route`) ``auto`` is that route and any
     kernel route raises: the JAX package ignores it there, the port does
-    not fall back silently. Without ``type_blocked`` nodes (``USE_GT``)
-    ``auto`` is ``pallas`` in both modes and :data:`TYPE_BLOCKED_ROUTES`
-    raise. Raises ``NotImplementedError`` for a route the port does not
-    run on that path."""
+    not fall back silently. Where the nodes are not type-blocked
+    (``unblocked``, a key of :data:`UNBLOCKED`: ``USE_GT``, the group-based
+    MPN) ``auto`` is ``pallas`` in both modes and
+    :data:`TYPE_BLOCKED_ROUTES` raise. Raises ``NotImplementedError`` for a
+    route the port does not run on that path."""
     if plain is not None:
         if msg_pass != "auto":
             raise NotImplementedError(
@@ -418,19 +451,17 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
         return plain
     route = msg_pass
     if route == "auto":
-        route = "pallas" if train or not type_blocked else "fused_step"
-    if not type_blocked and route in TYPE_BLOCKED_ROUTES:
+        route = "pallas" if train or unblocked else "fused_step"
+    if unblocked and route in TYPE_BLOCKED_ROUTES:
         raise NotImplementedError(
-            f"TPU.MSG_PASS={msg_pass!r} with MODEL.GC.USE_GT: the nodes are the GT joints, "
-            f"person-major, and this route needs type-blocked nodes; 'pallas' and 'dots' "
-            f"run here")
+            f"TPU.MSG_PASS={msg_pass!r} {UNBLOCKED[unblocked]}; 'pallas' and 'dots' run here")
     path = "train" if train else "eval"
     if route not in ROUTES[path]:
-        why = ("; the JAX package's backward for the fused step (K1) is a jnp "
-               "recompute, not a kernel" if route == "fused_step" and train else "")
+        reason = ("; the JAX package's backward for the fused step (K1) is a jnp "
+                  "recompute, not a kernel" if route == "fused_step" and train else "")
         raise NotImplementedError(
             f"TPU.MSG_PASS={msg_pass!r}: the port's {path} path runs only "
-            f"{ROUTES[path]}{why}")
+            f"{ROUTES[path]}{reason}")
     return route
 
 
@@ -452,8 +483,7 @@ def check_path(cfg, path: str) -> None:
             f"DATASET.SCALING_TYPE='long' at DATASET.INPUT_SIZE="
             f"{cfg.DATASET.INPUT_SIZE}: the long-side reverse map is fixed at 512")
     if path in ("eval", "valid", "train"):
-        msg_pass_route(cfg.TPU.MSG_PASS, path == "train", plain_route(cfg),
-                       not cfg.MODEL.GC.USE_GT)
+        msg_pass_route(cfg.TPU.MSG_PASS, path == "train", plain_route(cfg), unblocked_by(cfg))
 
 
 def get_config():
@@ -834,6 +864,50 @@ def ablation(name: str, base=None):
     ``name`` (a key of :data:`ABLATIONS`) merged over it."""
     cfg = w32_512_train() if base is None else base
     cfg.merge_from_other(ABLATIONS[name])
+    return cfg
+
+
+_TAG_HEAD = {"BN": True, "OUTPUT_SIZES": [64, 32, 1]}
+
+# The tag-regression, background-class, group-based and greedy-grouping
+# configurations as deltas over model_58_4 (no file of configs/ sets them;
+# the names and keys are the JAX package's: pemp_tpu/models/mpn/models.py:
+# 373-651, pemp_tpu/losses/factories.py:363-548, tools/valid.py:165-212),
+# at its full width. :func:`zoo` merges one over a base.
+ZOO = {
+    "tag": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNTag", "NODE_TAG": _TAG_HEAD,
+                              "TAG_SKIP": True},
+                      "LOSS": {"NAME": "tag_loss", "LOSS_WEIGHTS": [1.0, 1.0, 1.0]}}},
+    "background": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNWithBackground",
+                                     "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 18]}},
+                             "GC": {"WITH_BACKGROUND": True},
+                             "LOSS": {"NAME": "node_with_background_edge_loss",
+                                      "LOSS_WEIGHTS": [1.0, 1.0]}}},
+    "group_based": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNGroupBased"}}},
+    "greedy": {"MODEL": {"GC": {"CC_METHOD": "greedy"}}},
+}
+# and the models that run on the small cut only: MPNTag (the type-agnostic
+# MPLayer, trained by the pure tag loss with the first stage's tags pooled
+# in) and the class head alone, trained by the background factory's class
+# loss (its node-edge loss reads a node head it has not: both packages
+# refuse that)
+ZOO_CUTS = {
+    "pure_tag": {"MODEL": {"MPN": {"NAME": "MPNTag", "AGGR_TYPE": "agnostic",
+                                   "NODE_TAG": _TAG_HEAD},
+                           "LOSS": {"NAME": "pure_tag_loss", "SYNC_TAGS": True}}},
+    "joint_type": {"MODEL": {"MPN": {"NAME": "JointTypeClassification",
+                                     "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 18]}},
+                             "GC": {"WITH_BACKGROUND": True},
+                             "LOSS": {"NAME": "node_with_background_edge_loss",
+                                      "LOSS_WEIGHTS": [1.0, 1.0]}}},
+}
+
+
+def zoo(name: str, base=None):
+    """``base`` (the model_58_4 preset when None) with the delta ``name`` (a
+    key of :data:`ZOO` or :data:`ZOO_CUTS`) merged over it."""
+    cfg = w32_512_train() if base is None else base
+    cfg.merge_from_other({**ZOO, **ZOO_CUTS}[name])
     return cfg
 
 

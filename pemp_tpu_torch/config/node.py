@@ -73,7 +73,8 @@ class ConfigNode(dict):
 
 def _coerce(new: Any, old: Any, key: str) -> Any:
     """yacs-style coercion: int to float, list to and from tuple, int to
-    bool; any other change of type raises."""
+    bool, and a plain string for a list named ``NAME``; any other change of
+    type raises."""
     if old is None or new is None or type(new) is type(old):
         return new
     if isinstance(old, float) and isinstance(new, int) and not isinstance(new, bool):
@@ -82,6 +83,10 @@ def _coerce(new: Any, old: Any, key: str) -> Any:
         return type(old)(new)
     if isinstance(old, bool) and isinstance(new, int):
         return bool(new)
+    if isinstance(old, (tuple, list)) and isinstance(new, str) and key.split(".")[-1] == "NAME":
+        # MODEL.LOSS.NAME: the legacy loss names are plain strings
+        # (pemp_tpu/config/node.py:175-180); no other list key takes one
+        return new
     raise ValueError(
         f"type mismatch for key {key}: cannot replace {type(old).__name__} "
         f"with {type(new).__name__} ({new!r})"

@@ -166,47 +166,61 @@ class HeatmapParser:
         return tag_k, loc_k, val_k
 
     def adjust(self, ans, det):
-        """Quarter-pixel shift and the 0.5 offset. reference: group.py:191-210."""
-        maps = torch.from_numpy(np.ascontiguousarray(det)).permute(1, 2, 0)[None]
-        out = adjust_quarter(maps, torch.from_numpy(np.ascontiguousarray(ans[None, :, :, :3])))
+        """Quarter-pixel shift and the 0.5 offset. reference: group.py:191-210.
+        det (J, H, W) numpy, or a tensor on any device."""
+        maps = torch.as_tensor(det).permute(1, 2, 0)[None]
+        out = adjust_quarter(maps, torch.from_numpy(np.ascontiguousarray(ans[None, :, :, :3]))
+                             .to(maps.device))
         ans = ans.copy()
-        ans[:, :, :3] = out[0].numpy()
+        ans[:, :, :3] = out[0].cpu().numpy()
         return ans
 
     def refine(self, det, tag, keypoints, fill_score=None):
         """Single-person AE refine. reference: group.py:212-275.
 
+        det (J, H, W), tag (J, H, W[, D]): numpy arrays, or tensors on any
+        device (the search then runs there); keypoints (J, 3) numpy.
         ``fill_score``: the score of a filled joint; None keeps group.py's
         (the heatmap value at the fill position), Utils.py's refine pins
-        it at 0.001.
+        it at 0.001. Only a missing joint takes the search's answer
+        (group.py:268-273), so only the missing joints' maps are searched,
+        all at once; every operation is an exactly rounded float32 one, as
+        numpy's, and ties go to the first pixel, as ``np.argmax``'s.
         """
-        if tag.ndim == 3:
+        det, tag = torch.as_tensor(det), torch.as_tensor(tag)
+        if tag.dim() == 3:
             tag = tag[..., None]
-        tags = [
-            tag[i, int(keypoints[i, 1]), int(keypoints[i, 0])]
-            for i in range(keypoints.shape[0])
-            if keypoints[i, 2] > 0
-        ]
-        if not tags:
+        present = np.flatnonzero(keypoints[: det.shape[0], 2] > 0)
+        if not len(present):
             return keypoints
-        prev_tag = np.mean(tags, axis=0)
-        ans = []
-        for i in range(keypoints.shape[0]):
-            tmp = det[i]
-            tt = np.sqrt(((tag[i] - prev_tag[None, None, :]) ** 2).sum(axis=2))
-            tmp2 = tmp - np.round(tt)
-            y, x = np.unravel_index(np.argmax(tmp2), tmp.shape)
-            val = tmp[y, x]
-            xf, yf = x + 0.5, y + 0.5
-            xf += 0.25 if tmp[y, min(x + 1, tmp.shape[1] - 1)] > tmp[y, max(x - 1, 0)] else -0.25
-            yf += 0.25 if tmp[min(y + 1, tmp.shape[0] - 1), x] > tmp[max(y - 1, 0), x] else -0.25
-            ans.append((xf, yf, val))
-        ans = np.array(ans)
+        at = keypoints[present].astype(np.int64)
+        tags = tag[present, at[:, 1], at[:, 0]].cpu().numpy()        # (P, D)
+        prev_tag = torch.as_tensor(np.mean(list(tags), axis=0), device=tag.device)
         keypoints = keypoints.copy()
-        for i in range(det.shape[0]):
-            if ans[i, 2] > 0 and keypoints[i, 2] == 0:
-                keypoints[i, :2] = ans[i, :2]
-                keypoints[i, 2] = ans[i, 2] if fill_score is None else fill_score
+        missing = np.flatnonzero(keypoints[: det.shape[0], 2] == 0)
+        if not len(missing):
+            return keypoints
+        sel = torch.as_tensor(missing, device=det.device)
+        tmp = det[sel]                                                  # (M, H, W)
+        tt = torch.sqrt(((tag[sel] - prev_tag) ** 2).sum(dim=-1))
+        h, w = tmp.shape[1:]
+        idx = torch.argmax((tmp - torch.round(tt)).reshape(len(missing), -1), dim=1)
+        y, x = idx // w, idx % w
+        m = torch.arange(len(missing), device=det.device)
+
+        def at_(yy, xx):
+            return tmp[m, yy, xx]
+
+        val = at_(y, x)
+        right = at_(y, torch.clamp(x + 1, max=w - 1)) > at_(y, torch.clamp(x - 1, min=0))
+        down = at_(torch.clamp(y + 1, max=h - 1), x) > at_(torch.clamp(y - 1, min=0), x)
+        found = torch.stack([x.double() + 0.5 + torch.where(right, 0.25, -0.25).double(),
+                             y.double() + 0.5 + torch.where(down, 0.25, -0.25).double(),
+                             val.double()], dim=1).cpu().numpy()
+        for row, i in zip(found, missing):
+            if row[2] > 0:
+                keypoints[i, :2] = row[:2]
+                keypoints[i, 2] = np.float32(row[2]) if fill_score is None else fill_score
         return keypoints
 
     def parse(self, det, tag, adjust=True, refine=True, scoring="default"):

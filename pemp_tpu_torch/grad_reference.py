@@ -2,11 +2,14 @@
 float32, against a float64 evaluation of the same step on the CPU.
 
     python -m pemp_tpu_torch.grad_reference [--routes hybrid einsum ...]
-        [--ablations NAME ...] [--seeds 3 ...] [--edge-first]
-        [--perturb EPS --noise-seeds 0 1 ...] [--device cpu]
+        [--ablations NAME ...] [--zoo NAME ...] [--options KEY VALUE ...]
+        [--seeds 3 ...] [--edge-first] [--perturb EPS --noise-seeds 0 1 ...]
+        [--device cpu]
 
 The small cut (``config.small_train``, or an ablation of
-``config.ABLATIONS`` merged over it, on ``auto``) takes one training step
+``config.ABLATIONS`` or a delta of ``config.ZOO`` / ``config.ZOO_CUTS``
+merged over it, on ``auto``; ``--options`` merged over every one) takes
+one training step
 from the same seeded weights and batch on each side: the CPU in float64
 (the plain versions compute float64 inputs in float64) and in float32, and
 the card in float32 twice, with the route's kernels and with their plain
@@ -132,8 +135,10 @@ def compare(cfg, label: str, seed: int, edge_first: bool, card: bool = True,
         with plain_versions():
             grads["card plain"] = step_grads(cfg, "cuda", torch.float32, seed, edge_first,
                                              batch)
+    # a gradient zero but for rounding has no largest to be relative to
+    top = max(g.abs().max().item() for g in g64.values())
     errors = {side: {k: ((g[k] - g64[k]).abs().max() / g64[k].abs().max()).item()
-                     for k in g64 if g64[k].abs().max() > 0}
+                     for k in g64 if g64[k].abs().max() > 1e-12 * top}
               for side, g in grads.items()}
     draw = f"seed {seed}{' edge-first' if edge_first else ''}"
     for side, err in errors.items():
@@ -148,11 +153,13 @@ def compare(cfg, label: str, seed: int, edge_first: bool, card: bool = True,
 
 
 def main(argv=None) -> None:
-    from pemp_tpu_torch.config import ablation, small_train
+    from pemp_tpu_torch.config import ablation, small_train, update_config_command, zoo
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--routes", nargs="*", default=["auto", "hybrid", "einsum", "dots"])
     ap.add_argument("--ablations", nargs="*", default=[])
+    ap.add_argument("--zoo", nargs="*", default=[])
+    ap.add_argument("--options", nargs="*", default=[])
     ap.add_argument("--seeds", nargs="*", type=int, default=[3])
     ap.add_argument("--edge-first", action="store_true")
     ap.add_argument("--perturb", type=float, default=0.0)
@@ -165,15 +172,20 @@ def main(argv=None) -> None:
                          "(--device cpu leaves out the card's sides)")
     noise = args.noise_seeds if args.perturb else []
     torch.set_num_threads(4)
+    def cut():
+        return update_config_command(small_train(), args.options)
+
     for seed in args.seeds:
         for route in args.routes:
-            cfg = small_train()
+            cfg = cut()
             cfg.TPU.MSG_PASS = route
             compare(cfg, f"small_train {route}", seed, args.edge_first, card, args.perturb,
                     noise)
         for name in args.ablations:
-            compare(ablation(name, small_train()), name, seed, args.edge_first, card,
+            compare(ablation(name, cut()), name, seed, args.edge_first, card,
                     args.perturb, noise)
+        for name in args.zoo:
+            compare(zoo(name, cut()), name, seed, args.edge_first, card, args.perturb, noise)
 
 
 if __name__ == "__main__":

@@ -89,6 +89,7 @@ class GCConfig:
     knn_symmetric: bool = False
     use_gt: bool = False
     weight_class_loss: bool = False
+    with_background: bool = False
 
     @classmethod
     def from_config(cls, config) -> "GCConfig":
@@ -116,6 +117,7 @@ class GCConfig:
             knn_symmetric=config.TPU.MSG_PASS in ("hybrid", "einsum"),
             use_gt=gc.USE_GT,
             weight_class_loss=gc.WEIGHT_CLASS_LOSS,
+            with_background=gc.WITH_BACKGROUND,
         )
 
     @property
@@ -387,10 +389,18 @@ def _construct_labels(cfg: GCConfig, det, det_valid, edge_index, joints_gt, fact
         on_gt = (torch.gather(node_labels, 1, src) == 1.0) & (torch.gather(node_labels, 1, dst) == 1.0)
         label_mask = label_mask * on_gt.float()
     if method == 6:
+        class_mask = node_labels * node_mask
+        if cfg.with_background:
+            # the background class J for every node not labelled positive,
+            # and the class loss over all nodes
+            # (pemp_tpu/graph/constructor.py:482-486)
+            node_classes = torch.where(node_labels != 1.0,
+                                       torch.full_like(node_classes, cfg.num_joints), node_classes)
+            class_mask = torch.ones_like(node_labels)
         return dict(edge_labels=edge_labels, node_labels=node_labels,
                     node_classes=node_classes, node_persons=node_persons,
                     label_mask=label_mask, label_mask_node=node_mask,
-                    class_mask=node_labels * node_mask)
+                    class_mask=class_mask)
     label_mask_node = torch.ones_like(node_labels)
     if method == 5:
         best = sim_same.amax(dim=1)

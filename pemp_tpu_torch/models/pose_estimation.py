@@ -116,11 +116,12 @@ class PoseEstimationBaseline(nn.Module):
         return stages, scoremaps.float(), features, tags.float()
 
     def mpn_forward(self, gb, route=None):
-        """The MPN's per-step logits on the graph batch ``gb``; ``route``
-        overrides the message-passing route the module's mode resolves."""
+        """The MPN's per-step logits on the graph batch ``gb``
+        (pemp_tpu/models/pose_estimation.py:80-95); ``route`` overrides the
+        message-passing route the module's mode resolves."""
         return self.mpn(gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
                         self.dtype, node_valid=gb.node_valid, route=route,
-                        node_types=gb.joint_det[:, 2])
+                        node_types=gb.joint_det[:, 2], joint_tags=gb.joint_tags)
 
     def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None,
                 heatmaps=None):
@@ -182,13 +183,17 @@ class PoseEstimationBaseline(nn.Module):
         return scoremaps, output
 
 
-def head_probs(preds, detector_scores):
+def head_probs(preds, detector_scores, edge_valid):
     """(edge_pred, node_pred, class_prob) of the final heads, float32: the
-    sigmoids and the class softmax; an MPN without a node head (VanillaMPN)
-    takes the detector scores as node scores, and without a class head
-    gives class_prob None, so the decode takes the detections' types
+    sigmoids and the class softmax; an MPN without an edge head (the tag
+    and class models) gives edge_pred 0 on every slot of ``edge_valid``'s
+    shape, without a node head (VanillaMPN, MPNTag) takes the detector
+    scores as node scores, and without a class head gives class_prob None,
+    so the decode takes the detections' types
     (pemp_tpu/tta/multi_scale.py:43-63)."""
-    edge_pred = torch.sigmoid(preds["edge"][-1].float())
+    edge_logit = preds["edge"][-1] if preds["edge"] else None
+    edge_pred = (torch.zeros(edge_valid.shape, dtype=torch.float32, device=edge_valid.device)
+                 if edge_logit is None else torch.sigmoid(edge_logit.float()))
     node_logit = preds["node"][-1] if preds["node"] else None
     node_pred = (detector_scores.float() if node_logit is None
                  else torch.sigmoid(node_logit.float()))

@@ -50,7 +50,8 @@ class Pipeline:
         b = images.shape[0]
         n = self.num_joints * self.model.gc.nodes_per_type
         e = g["edge_index"].shape[1] // b
-        edge_pred, node_pred, class_prob = head_probs(output["preds"], g["detector_scores"])
+        edge_pred, node_pred, class_prob = head_probs(output["preds"], g["detector_scores"],
+                                                    g["edge_valid"])
         per_img = lambda t: t.reshape(b, n, *t.shape[1:])  # noqa: E731
         offsets = torch.arange(b, device=images.device)[:, None, None] * n
         local_index = g["edge_index"].reshape(2, b, e).transpose(0, 1) - offsets

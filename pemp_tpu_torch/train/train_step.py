@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pemp_tpu_torch.config.defaults import msg_pass_route, plain_route
+from pemp_tpu_torch.config.defaults import msg_pass_route, plain_route, unblocked_by
 from pemp_tpu_torch.losses.factories import mask_node_connections
 
 
@@ -46,7 +46,7 @@ class TrainStep:
         self.include_bordering = config.MODEL.LOSS.INCLUDE_BORDERING_NODES
         # validation runs the training route (msg_pass_route's train path)
         self.train_route = msg_pass_route(config.TPU.MSG_PASS, True, plain_route(config),
-                                          not config.MODEL.GC.USE_GT)
+                                          unblocked_by(config))
         self.fail_count = 0
         self.steps = 0
         self.last_output = None   # labels and validity of the last step
@@ -66,6 +66,7 @@ class TrainStep:
         masks["heatmap"] = batch["masks"]
         labels["heatmap"] = batch["heatmaps"]
         labels["tag"] = batch.get("ae_targets")
+        labels["num_images"] = batch["imgs"].shape[0]
         # graph reduction: the edge loss only between predicted or labelled
         # positive nodes (reference: train.py:140-154); an MPN without a
         # node head (VanillaMPN: node [None]) keeps every labelled edge
@@ -82,7 +83,7 @@ class TrainStep:
             edge_masks.append(masks["edge"] * m.float())
         labels["edge"] = edge_labels
         masks["edge"] = edge_masks
-        loss, logging = self.loss_factory(preds, labels, masks)
+        loss, logging = self.loss_factory(preds, labels, masks, output["graph"])
         return loss, logging, output
 
     def step(self, batch):

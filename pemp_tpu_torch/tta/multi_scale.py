@@ -52,18 +52,22 @@ def _bucket(x: int, granularity: int = 128) -> int:
     return int(-(-x // granularity) * granularity)
 
 
-def _triangle_weights(in_size: int, out_size: int, scale):
-    """(B, in_size, out_size) weights of bilinear sampling without
-    antialiasing at ``scale`` (B,) output pixels per input pixel, half-pixel
-    centres, no translation: ``compute_weight_mat`` of
-    ``jax.image.scale_and_translate``. Each column is normalised over all
-    ``in_size`` inputs, and a column whose sample falls outside them is 0."""
+def _triangle_weights(in_size: int, out_size: int, scale, antialias: bool = False):
+    """(B, in_size, out_size) weights of bilinear sampling at ``scale`` (B,)
+    output pixels per input pixel, half-pixel centres, no translation:
+    ``compute_weight_mat`` of ``jax.image.scale_and_translate``; with
+    ``antialias`` a shrinking scale widens the triangle by 1 / scale. Each
+    column is normalised over all ``in_size`` inputs, and a column whose
+    sample falls outside them is 0."""
     f32 = torch.float32
     inv_scale = 1.0 / scale.to(f32)
     sample = (torch.arange(out_size, dtype=f32, device=scale.device)[None] + 0.5) \
         * inv_scale[:, None] - 0.5                                          # (B, out)
     src = torch.arange(in_size, dtype=f32, device=scale.device)[None, :, None]
-    w = torch.clamp(1.0 - torch.abs(sample[:, None, :] - src), min=0.0)    # (B, in, out)
+    dist = torch.abs(sample[:, None, :] - src)                              # (B, in, out)
+    if antialias:
+        dist = dist / torch.clamp(inv_scale, min=1.0)[:, None, None]
+    w = torch.clamp(1.0 - dist, min=0.0)
     total = w.sum(dim=1, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -90,6 +94,18 @@ def project_region(x, src_h, src_w, out_h: int, out_w: int, tgt_h=None, tgt_w=No
         tgt_w = torch.full_like(src_w, float(out_w))
     wy = _triangle_weights(x.shape[1], out_h, tgt_h / src_h)
     wx = _triangle_weights(x.shape[2], out_w, tgt_w / src_w)
+    y = torch.einsum("bhwc,bhi->biwc", x, wy)
+    return torch.einsum("biwc,bwj->bijc", y, wx)
+
+
+def resize_bilinear(x, out_h: int, out_w: int):
+    """``jax.image.resize(x, (B, out_h, out_w, C), "bilinear")`` of x (B, H,
+    W, C): half-pixel centres, antialiased where an axis shrinks (for
+    growth it equals ``F.interpolate(..., align_corners=False)``)."""
+    b, h, w = x.shape[:3]
+    one = torch.ones(b, dtype=torch.float32, device=x.device)
+    wy = _triangle_weights(h, out_h, one * (out_h / h), antialias=True).to(x.dtype)
+    wx = _triangle_weights(w, out_w, one * (out_w / w), antialias=True).to(x.dtype)
     y = torch.einsum("bhwc,bhi->biwc", x, wy)
     return torch.einsum("biwc,bwj->bijc", y, wx)
 
@@ -244,14 +260,11 @@ class TTAPipeline:
                      & (xx < canvas[:, 1, None, None])).float()
         gb = construct_graph_batch(model.gc, heat_acc, feat_acc, tag_acc, masks=base_mask)
         preds = model.mpn_forward(gb)
-        if any(t is not None for t in preds.get("tag", ())):
-            raise NotImplementedError("tag-regression MPNs group by AE tag matching, which "
-                                      "is not ported")
         n = gb.joint_det.shape[0] // b
         e = gb.edge_index.shape[1] // b
         per_img = lambda t: t.reshape(b, -1, *t.shape[1:])  # noqa: E731
         offsets = torch.arange(b, device=dev)[:, None, None] * n
-        edge_pred, node_pred, class_prob = head_probs(preds, gb.joint_scores)
+        edge_pred, node_pred, class_prob = head_probs(preds, gb.joint_scores, gb.edge_valid)
         out = dict(
             nodes=per_img(gb.joint_det),
             node_features=per_img(gb.x),
@@ -265,6 +278,10 @@ class TTAPipeline:
             scoremaps=heat_acc,
             tags=tag_acc,
         )
+        # tag-regression MPNs: their per-node tags, for the grouping by tag
+        # (pemp_tpu/tta/multi_scale.py:438-440)
+        if preds["tag"][-1] is not None:
+            out["tag_pred"] = preds["tag"][-1].float().reshape(b, n, -1)
         t0 = self._mark("graph_mpn", t0)
         if self.with_decode:
             out["persons"], out["person_valid"] = self.decode(out)
@@ -295,8 +312,8 @@ class TTAPipeline:
         the padded canvas; unless ``maps_only``, nodes, node_features,
         node_scores, detector_scores, node_valid, edge_index (per-image ids),
         edge_valid, edge_pred, class_prob, and persons and person_valid with
-        the decode; and base_size (w, h), canvas_size (h, w) and
-        scaling_type.
+        the decode, and tag_pred (N, 1) for an MPN with a tag head; and
+        base_size (w, h), canvas_size (h, w) and scaling_type.
         """
         t0 = time.perf_counter()
         preps, metas = [], []

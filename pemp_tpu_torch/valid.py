@@ -5,10 +5,15 @@
 
 The counterpart of ``tools/valid.py`` (reference: src/valid.py:94-183). Per
 window of images: multi-scale + flip test-time augmentation on the card
-(tta.TTAPipeline), graph and MPN, grouping (``threshold`` on the card;
+(tta.TTAPipeline), graph and MPN, grouping, the reverse affine map, and
+COCO or CrowdPose OKS scoring (test-dev writes the results file instead).
+The grouping is ``MODEL.GC.CC_METHOD``'s: ``threshold`` on the card;
 ``GAEC``, ``KL`` or ``MUT`` by correlation clustering on the host, then the
-card's decode), refine and adjust, the reverse affine map, and COCO or
-CrowdPose OKS scoring (test-dev writes the results file instead).
+card's decode with refine and adjust; ``greedy`` by the greedy person
+construction on the host (decode.greedy). An MPN with a tag head groups
+by its tags whatever the method, as tools/valid.py does: the AE matching
+of the kept nodes by tag (``mpn_match_by_tag``), then the AE parser's
+refine and adjust (decode.ae_grouping).
 
 ``--config`` takes ``hrnet/w48_640`` and
 ``hybrid_class_agnostic_end2end/model_58_4`` from their Python presets (no
@@ -89,6 +94,48 @@ def _host_grouping(out, config):
     return persons[0], person_valid[0]
 
 
+def _tag_grouping(out, config):
+    """Grouping by the MPN's per-node tags (tools/valid.py:165-191): the
+    valid nodes matched by tag with their detector scores on the host, then
+    the AE parser's refine (fill score 0.001, the reference's
+    perd_to_ann_ae) and quarter adjust on the maps, where they lie.
+    Returns numpy (persons (P, J, 3), person_valid (P,))."""
+    from pemp_tpu_torch.decode.ae_grouping import HeatmapParser, Params, mpn_match_by_tag
+
+    num_joints = config.DATASET.NUM_JOINTS
+    keep = out["node_valid"].cpu().numpy()
+    det = out["nodes"].cpu().numpy()[keep]
+    scr = out["detector_scores"].cpu().numpy()[keep]
+    tp = out["tag_pred"].cpu().numpy()[keep]
+    ans = mpn_match_by_tag(det, tp, scr, Params(num_joints=num_joints))
+    sm = out["scoremaps"].permute(2, 0, 1)
+    tg = out["tags"].permute(2, 0, 1, 3)
+    parser = HeatmapParser(num_joints=num_joints)
+    if len(ans) and config.TEST.WITH_REFINE:
+        ans = np.stack([parser.refine(sm, tg, kp, fill_score=0.001) for kp in ans])
+    if len(ans) and config.TEST.ADJUST:
+        ans = parser.adjust(np.asarray(ans, np.float32), sm)
+    persons = np.asarray(ans, np.float32).reshape(-1, num_joints, 3)
+    return persons, np.ones(len(persons), bool)
+
+
+def _greedy_grouping(out, config):
+    """The greedy person construction on the host (tools/valid.py:197-212):
+    node scores and edge scores zeroed off the valid nodes and slots, the
+    class argmax as the types. Returns numpy (persons (P, J, 3),
+    person_valid (P,))."""
+    from pemp_tpu_torch.decode.greedy import greedy_person_construction
+
+    num_joints = config.DATASET.NUM_JOINTS
+    host = {k: out[k].cpu().numpy() for k in ("nodes", "node_valid", "node_scores",
+                                              "edge_index", "edge_valid", "edge_pred")}
+    cp = None if out["class_prob"] is None else out["class_prob"].cpu().numpy()
+    persons, _ = greedy_person_construction(
+        host["nodes"], host["node_scores"] * host["node_valid"],
+        host["edge_pred"] * host["edge_valid"], cp, host["edge_index"], num_joints)
+    return persons, np.ones(len(persons), bool)
+
+
 def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int = 8,
              window: int = 64, stage_times=None):
     """Evaluates ``model`` on ``eval_set`` (anything with ``img_ids``,
@@ -97,10 +144,13 @@ def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int
     results go to ``<LOG_DIR>/person_keypoints_test-dev2017_mpn_results.json``).
 
     ``stage_times``, when a dict, gathers the seconds of each stage: the
-    pipeline's (TTAPipeline), ``cluster`` (host grouping) and ``scoring``.
+    pipeline's (TTAPipeline), ``cluster`` (host grouping of any kind) and
+    ``scoring``.
     """
     cc_method = config.MODEL.GC.CC_METHOD
-    pipe = TTAPipeline(model, config, with_decode=cc_method == "threshold")
+    # a tag-regression MPN groups by its tags on the host: no card decode
+    has_tag = getattr(model.mpn, "tag_pred", None) is not None
+    pipe = TTAPipeline(model, config, with_decode=cc_method == "threshold" and not has_tag)
     pipe.stage_times = stage_times
     split = config.TEST.SPLIT
     writer = None if split == "test-dev2017" else EvalWriter(config, fname=out_file)
@@ -119,15 +169,21 @@ def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int
             img_id = int(eval_set.img_ids[i])
             eval_ids.append(img_id)
             t0 = time.perf_counter()
-            if cc_method == "threshold":
+            if has_tag:
+                persons, person_valid = _tag_grouping(out, config)
+            elif cc_method == "threshold":
                 persons, person_valid = out["persons"], out["person_valid"]
+            elif cc_method == "greedy":
+                persons, person_valid = _greedy_grouping(out, config)
             else:
                 persons, person_valid = _host_grouping(out, config)
-                if stage_times is not None:
-                    stage_times["cluster"] = (stage_times.get("cluster", 0.0)
-                                              + time.perf_counter() - t0)
+            if stage_times is not None and (has_tag or cc_method != "threshold"):
+                stage_times["cluster"] = (stage_times.get("cluster", 0.0)
+                                          + time.perf_counter() - t0)
+            if torch.is_tensor(persons):
+                persons, person_valid = persons.cpu().numpy(), person_valid.cpu().numpy()
             ann = persons_to_ann(
-                persons.cpu().numpy(), person_valid.cpu().numpy(), out["base_size"],
+                persons, person_valid, out["base_size"],
                 config.DATASET.INPUT_SIZE, img_id, out["scaling_type"],
                 min(config.TEST.SCALE_FACTOR), scoring_method=config.TEST.SCORING,
             )

@@ -16,9 +16,8 @@ and ``convert_hourglass_state_dict`` (their layout maps, inverted here):
   BatchNorm     scale/bias + mean/var -> weight/bias/running_mean/running_var
 
 and the fused MPN layer's stacked ``mlp_node`` kernel (T, din, dout) becomes
-the reference's T separate Linears. The MPN is NodeClassificationMPN (with
-a TypeAwareMPNLayer or, for ``AGGR_TYPE: agnostic``, an MPLayer) or
-VanillaMPN (an MPLayer).
+the reference's T separate Linears. The MPN is any of the port's
+(models.mpn.models.MODELS), with a TypeAwareMPNLayer or an MPLayer.
 """
 
 from __future__ import annotations
@@ -191,30 +190,54 @@ def _type_aware_layer(cr, key, path):
     cr.linear(f"{key}.update_mlp.0", (*path, "update_mlp"))
 
 
+# per MPN: its heads (port name, config key) and the scope of its shared
+# layer in the JAX tree (``("mpn", "layer")`` is nn.scan's scope, then the
+# layer; the group-based model and MPNTag build theirs unscanned)
+_EDGE, _NODE, _CLASS, _TAG = (("edge_classification", "EDGE_CLASS"),
+                              ("node_classification", "NODE_CLASS"),
+                              ("classification", "CLASS"), ("tag_pred", "NODE_TAG"))
+_MPN_LAYOUT = {
+    "NodeClassificationMPN": ((_EDGE, _NODE, _CLASS), ("mpn", "layer")),
+    "NodeClassificationMPNWithBackground": ((_EDGE, _NODE, _CLASS), ("mpn", "layer")),
+    "VanillaMPN": ((_EDGE,), ("mpn", "layer")),
+    "JointTypeClassification": ((_CLASS,), ("mpn", "layer")),
+    "NodeClassificationMPNTag": ((_TAG, _NODE, _CLASS), ("mpn", "layer")),
+    "NodeClassificationMPNGroupBased": ((_EDGE, _NODE, _CLASS), ("layer",)),
+    "MPNTag": ((_TAG,), ("mpn_node_cls",)),
+}
+
+
 def mpn_from_jax_variables(params, batch_stats, mpn_cfg: dict) -> dict:
-    """JAX NodeClassificationMPN or VanillaMPN variables -> the port's MPN
-    ``state_dict`` (for the flagship the inverse of
-    convert.convert_flagship_mpn_state_dict)."""
+    """JAX MPN variables -> the port's MPN ``state_dict``, for every model of
+    models.mpn.models.MODELS (for the flagship the inverse of
+    convert.convert_flagship_mpn_state_dict, for MPNTag of
+    convert.convert_mpn_tag_state_dict): the embeddings, the heads, the
+    shared layer, the tag model's second step stack ``mpn_node`` with
+    ``NODE_STEPS``, LogisticEdgeClassifier's ``linear``."""
     cr = _Carrier(params, batch_stats)
     c = mpn_cfg
-    vanilla = c["NAME"] == "VanillaMPN"
-    for name, key in (("node_embedding", "NODE_EMB"), ("edge_embedding", "EDGE_EMB")):
+    name = c["NAME"]
+    if name == "LogisticEdgeClassifier":
+        cr.linear("linear", ("linear",))
+        return cr.sd
+    if name in ("TagThreshold", "PlainTag"):
+        return cr.sd
+    heads, path = _MPN_LAYOUT[name]
+    vanilla = name == "VanillaMPN"
+    for emb, key in (("node_embedding", "NODE_EMB"), ("edge_embedding", "EDGE_EMB")):
         if vanilla:   # MPN.BN and the node embedding's END_WITH_RELU for both
-            _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c["BN"],
+            _mlp(cr, emb, (emb,), c[key]["OUTPUT_SIZES"], c["BN"],
                  c["NODE_EMB"].get("END_WITH_RELU", False))
         else:
-            _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c[key]["BN"],
+            _mlp(cr, emb, (emb,), c[key]["OUTPUT_SIZES"], c[key]["BN"],
                  c[key].get("END_WITH_RELU", False))
-    heads = (("edge_classification", "EDGE_CLASS"),)
-    if not vanilla:
-        heads += (("node_classification", "NODE_CLASS"), ("classification", "CLASS"))
-    for name, key in heads:
-        _mlp(cr, name, (name,), c[key]["OUTPUT_SIZES"], c["BN"])
-    path = ("mpn", "layer")   # nn.scan's scope, then the shared layer
-    if vanilla or c.get("AGGR_TYPE") == "agnostic":
-        _mp_layer(cr, "mpn_node_cls", path)
-    else:
-        _type_aware_layer(cr, "mpn_node_cls", path)
+    for head, key in heads:
+        _mlp(cr, head, (head,), c[key]["OUTPUT_SIZES"], c["BN"])
+    layer = _mp_layer if vanilla or name == "MPNTag" or c.get("AGGR_TYPE") == "agnostic" \
+        else _type_aware_layer
+    layer(cr, "mpn_node_cls", path)
+    if name == "NodeClassificationMPNTag" and c.get("NODE_STEPS", 0):
+        layer(cr, "mpn_node", ("mpn_node", "layer"))
     return cr.sd
 
 

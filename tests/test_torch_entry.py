@@ -211,18 +211,19 @@ def test_config_refuses_what_the_port_does_not_do(tmp_path, text, error):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("MODEL.GC.CC_METHOD", "greedy"),
+    ("MODEL.GC.CC_METHOD", "spectral"),
     ("TPU.S2D_DECONV", 1),
 ])
 def test_valid_path_refuses_what_it_does_not_do(key, value):
     """The eval entry point takes any scales, flip, grouping by threshold,
-    GAEC, KL or MUT and a checkpoint, and refuses the greedy grouping and
-    the space-to-depth deconvolution."""
+    GAEC, KL, MUT or greedily and a checkpoint, and refuses a grouping
+    neither package has (the JAX package's multicut library raises on a
+    method it does not know) and the space-to-depth deconvolution."""
     for name, preset in (("w48_640", w48_640), ("model_58_4", w32_512_train)):
         cfg = preset()
         check_path(cfg, "valid")
         cfg.TEST.FLIP_TEST, cfg.TEST.SCALE_FACTOR = True, [2.0, 1.0, 0.5]
-        for method in ("threshold", "GAEC", "KL", "MUT"):
+        for method in ("threshold", "GAEC", "KL", "MUT", "greedy"):
             cfg.MODEL.GC.CC_METHOD = method
             check_path(cfg, "valid")
         *parents, leaf = key.split(".")
@@ -302,13 +303,13 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 def test_builders_check_their_path():
     """The eval builder refuses the training configuration (a checkpoint
-    path, GAEC grouping), and the trainer a loss that waits for the MPN
-    zoo (the per-node tag loss)."""
+    path, GAEC grouping), and the trainer a loss list neither package
+    dispatches (the class loss with the heatmaps, and no node loss)."""
     with pytest.raises(NotImplementedError, match="MODEL.PRETRAINED"):
         build_pose_model(w32_512_train(), device="cpu")
     cfg = small()
-    cfg.MODEL.LOSS.NAME = "tag_loss"
-    with pytest.raises(NotImplementedError, match="wait for the MPN zoo"):
+    cfg.MODEL.LOSS.NAME = ["heatmap", "class"]
+    with pytest.raises(NotImplementedError, match="MODEL.LOSS.NAME"):
         build_trainer(cfg, device="cpu")
 
 

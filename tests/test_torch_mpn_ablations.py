@@ -157,8 +157,8 @@ def test_delta_file_alone_raises_at_build():
             jm.init(jax.random.PRNGKey(0), *(jnp.asarray(a) for a in _graph("edge_list")[:4]))
 
 
-@pytest.mark.parametrize("name", ["NodeClassificationMPNTag", "JointTypeClassification",
-                                  "ClassificationMPN", "TagThreshold"])
+@pytest.mark.parametrize("name", ["NodeClassificationMPNTypeBased", "NodeClassificationMPNAttention",
+                                  "ClassificationMPN", "VanillaMPN2"])
 def test_factory_refuses_the_rest_of_the_zoo(name):
     _, port_cfg = _cfgs("per_type_flagship", "edge_list")
     with pytest.raises(NotImplementedError, match=f"NAME='{name}'.*MPN zoo"):

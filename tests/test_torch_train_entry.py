@@ -240,7 +240,7 @@ def test_make_coco_loaders_matches_tools_train(tmp_path, monkeypatch):
     ("MODEL.GC.EDGE_LABEL_METHOD", 1, True),
     ("MODEL.GC.EDGE_LABEL_METHOD", 2, True),
     ("MODEL.GC.EDGE_LABEL_METHOD", 7, True),
-    ("MODEL.GC.WITH_BACKGROUND", True, False),
+    ("MODEL.GC.WITH_BACKGROUND", True, True),
     ("MODEL.GC.IMAGE_CENTRIC_SAMPLING", True, False),
     ("MODEL.GC.WEIGHT_CLASS_LOSS", True, True),
     ("MODEL.GC.NODE_DROPOUT", 0.1, False),

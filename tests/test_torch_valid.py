@@ -108,9 +108,9 @@ def test_valid_warns_on_random_weights(setup, tmp_path):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["MODEL.GC.CC_METHOD", "greedy"], "MODEL.GC.CC_METHOD"),
+    (["MODEL.GC.CC_METHOD", "spectral"], "MODEL.GC.CC_METHOD"),
     (["DATASET.SCALING_TYPE", "long"], "DATASET.SCALING_TYPE"),
-    (["MODEL.MPN.NAME", "NodeClassificationMPNTag"], "MPN zoo"),
+    (["MODEL.MPN.NAME", "NodeClassificationMPNAttention"], "MPN zoo"),
 ])
 def test_valid_refuses(opts, match):
     with pytest.raises(NotImplementedError, match=match):
