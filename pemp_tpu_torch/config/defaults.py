@@ -135,6 +135,11 @@ _C = CN({
             "UPDATE_TYPE": "mlp",
             "SKIP": False,
             "AUX_LOSS_STEPS": 0,
+            # ClassificationMPNSimple{,2}'s passes after the node head
+            # (models.mpn.zoo); ClassificationMPN's STEPS_NODE and STEPS_GROUP
+            # are in neither package's tree: a file adds them, absent they
+            # read STEPS and 0 (pemp_tpu/models/mpn/zoo.py:110, 126)
+            "EDGE_STEPS": 0,
             "LATE_FUSION_POS": False,
             "NUM_JOINTS": 17,
             "NODE_THRESHOLD": 0.5,
@@ -389,18 +394,26 @@ def _lookup(cfg, key: str):
 PLAIN_ROUTES = {
     "segment": "the kernels need the target-major blocked kNN layout, and these edges "
                "are an edge list",
-    "agnostic": "the type-agnostic MPLayer (MODEL.MPN.AGGR_TYPE agnostic, VanillaMPN) "
+    "agnostic": "the type-agnostic MPLayer (MODEL.MPN.AGGR_TYPE agnostic, VanillaMPN, and "
+                "the zoo's ClassificationMPN, Attention, SelfAttention and VanillaMPN2) "
                 "runs no kernel",
 }
 
 
+# The MPNs whose layer is MPLayer whatever ``AGGR_TYPE`` says, and
+# VanillaMPN2, whose layer is its own: no kernel on any layout
+# (pemp_tpu/models/mpn/zoo.py:100-104, 167-170, 260-262, 675-758).
+AGNOSTIC_MPNS = ("VanillaMPN", "ClassificationMPN", "NodeClassificationMPNAttention",
+                 "NodeClassificationMPNSelfAttention", "VanillaMPN2")
+
+
 def plain_route(cfg):
     """The kernel-free route ``cfg``'s MPN runs (:data:`PLAIN_ROUTES`), or
-    None where it runs the kernel routes: ``agnostic`` for VanillaMPN and
-    ``MODEL.MPN.AGGR_TYPE`` agnostic, else ``segment`` unless the graph is
-    the target-major kNN one."""
+    None where it runs the kernel routes: ``agnostic`` for the MPNs of
+    :data:`AGNOSTIC_MPNS` and ``MODEL.MPN.AGGR_TYPE`` agnostic, else
+    ``segment`` unless the graph is the target-major kNN one."""
     mpn = cfg.MODEL.MPN
-    if mpn.NAME == "VanillaMPN" or mpn.AGGR_TYPE == "agnostic":
+    if mpn.NAME in AGNOSTIC_MPNS or mpn.AGGR_TYPE == "agnostic":
         return "agnostic"
     if cfg.MODEL.GC.GRAPH_TYPE != "knn":
         return "segment"
@@ -868,12 +881,18 @@ def ablation(name: str, base=None):
 
 
 _TAG_HEAD = {"BN": True, "OUTPUT_SIZES": [64, 32, 1]}
+_NO_CLASS = {"NAME": ["edge", "node", "heatmap"]}
 
 # The tag-regression, background-class, group-based and greedy-grouping
-# configurations as deltas over model_58_4 (no file of configs/ sets them;
-# the names and keys are the JAX package's: pemp_tpu/models/mpn/models.py:
-# 373-651, pemp_tpu/losses/factories.py:363-548, tools/valid.py:165-212),
-# at its full width. :func:`zoo` merges one over a base.
+# configurations, and the research zoo's ClassificationMPNSimple (the
+# architecture of 64 of the reference's experiment files; per-type layer,
+# two edge passes after the node head), ClassificationMPN with its grouping
+# phase and SelfAttention, as deltas over model_58_4 (no file of configs/
+# sets them; the names and keys are the JAX package's:
+# pemp_tpu/models/mpn/models.py:373-651, pemp_tpu/models/mpn/zoo.py,
+# pemp_tpu/losses/factories.py:363-548, tools/valid.py:165-212), at its full
+# width. The models without a class head train without a class loss.
+# :func:`zoo` merges one over a base.
 ZOO = {
     "tag": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNTag", "NODE_TAG": _TAG_HEAD,
                               "TAG_SKIP": True},
@@ -885,12 +904,20 @@ ZOO = {
                                       "LOSS_WEIGHTS": [1.0, 1.0]}}},
     "group_based": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNGroupBased"}}},
     "greedy": {"MODEL": {"GC": {"CC_METHOD": "greedy"}}},
+    "simple": {"MODEL": {"MPN": {"NAME": "ClassificationMPNSimple", "AGGR_TYPE": "per_type",
+                                 "EDGE_STEPS": 2},
+                         "LOSS": _NO_CLASS}},
+    "two_phase": {"MODEL": {"MPN": {"NAME": "ClassificationMPN", "STEPS_NODE": 5,
+                                    "STEPS_GROUP": 5},
+                            "LOSS": _NO_CLASS}},
+    "self_attention": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNSelfAttention"}}},
 }
 # and the models that run on the small cut only: MPNTag (the type-agnostic
 # MPLayer, trained by the pure tag loss with the first stage's tags pooled
-# in) and the class head alone, trained by the background factory's class
+# in), the class head alone, trained by the background factory's class
 # loss (its node-edge loss reads a node head it has not: both packages
-# refuse that)
+# refuse that), and the zoo's other seven (VanillaMPN2 edge-only, its head
+# one output wide)
 ZOO_CUTS = {
     "pure_tag": {"MODEL": {"MPN": {"NAME": "MPNTag", "AGGR_TYPE": "agnostic",
                                    "NODE_TAG": _TAG_HEAD},
@@ -900,6 +927,16 @@ ZOO_CUTS = {
                              "GC": {"WITH_BACKGROUND": True},
                              "LOSS": {"NAME": "node_with_background_edge_loss",
                                       "LOSS_WEIGHTS": [1.0, 1.0]}}},
+    "simple2": {"MODEL": {"MPN": {"NAME": "ClassificationMPNSimple2", "EDGE_STEPS": 2},
+                          "LOSS": _NO_CLASS}},
+    "type_based": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNTypeBased"}}},
+    "type_constrained": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNTypeConstrained"}}},
+    "fp_constrained": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNFPConstrained"}}},
+    "with_ref": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNWithRef", "NODE_STEPS": 1}}},
+    "attention": {"MODEL": {"MPN": {"NAME": "NodeClassificationMPNAttention", "NODE_STEPS": 2}}},
+    "vanilla2": {"MODEL": {"MPN": {"NAME": "VanillaMPN2",
+                                   "CLASS": {"BN": True, "OUTPUT_SIZES": [64, 32, 1]}},
+                           "LOSS": {"NAME": ["edge"]}}},
 }
 
 

@@ -1,6 +1,7 @@
 """The MPN models (counterpart of pemp_tpu.models.mpn.models and of
 ``MPNTag`` in pemp_tpu.models.mpn.zoo); :func:`get_mpn_model` builds one by
-``MODEL.MPN.NAME`` and refuses the rest of the zoo by name:
+``MODEL.MPN.NAME``, these or the research zoo's (models.mpn.zoo), and
+refuses the two names whose reference classes are absent:
 
 * ``NodeClassificationMPN``, the flagship (also under the reference's name
   ``NodeClassificationMPNWithBackground``: the background class is the
@@ -23,7 +24,9 @@ Forward contract as in the reference
         dict(edge=[(E,) logits], node=[(N,)], class=[(N, C)], tag=[(N,)])
 
 with ``[None]`` (class ``None``) where a model has no such head, as in the
-JAX package (pemp_tpu/models/mpn/models.py:326-508).
+JAX package (pemp_tpu/models/mpn/models.py:326-508). Every model takes
+``node_labels``, ``feature_maps`` and ``batch_index`` too, which only the
+zoo's ClassificationMPN and SelfAttention read.
 
 The route of each step is ``TPU.MSG_PASS`` (``_MSG_PASS`` in the MPN
 config), resolved as the JAX package's build_pose_model resolves it on a
@@ -67,7 +70,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pemp_tpu_torch.config.defaults import PLAIN_ROUTES, msg_pass_route
+from pemp_tpu_torch.config.defaults import AGNOSTIC_MPNS, PLAIN_ROUTES, msg_pass_route
 from pemp_tpu_torch.models.mpn.layers import (
     MLP,
     Linear,
@@ -89,10 +92,11 @@ _PORTED = {"EDGE_MLP": "agnostic", "USE_NODE_UPDATE_MLP": False, "DROP_FEATURE":
            "LATE_FUSION_POS": False, "NODE_STEPS": 0}
 # and of the per-type layer on every route (attention aggregation, mlp update)
 _PER_TYPE_LAYER = {"AGGR_SUB": "node_edge_attn", "UPDATE_TYPE": "mlp"}
-# the models whose shared layer is MPLayer whatever AGGR_TYPE says, and the
-# one that takes a second step stack (NODE_STEPS)
-_AGNOSTIC = ("VanillaMPN", "MPNTag")
-_NODE_STEPS = ("NodeClassificationMPNTag",)
+# the models whose layer is MPLayer (or, VanillaMPN2, a kernel-free one of
+# its own) whatever AGGR_TYPE says, and those that take NODE_STEPS
+_AGNOSTIC = (*AGNOSTIC_MPNS, "MPNTag")
+_NODE_STEPS = ("NodeClassificationMPNTag", "NodeClassificationMPNAttention",
+               "NodeClassificationMPNWithRef")
 # the baselines, which pass no message (pemp_tpu/models/mpn/models.py:461-508)
 _BASELINES = ("TagThreshold", "PlainTag", "LogisticEdgeClassifier")
 
@@ -106,21 +110,22 @@ def mpn_cfg_from_config(mpn_config) -> dict:
 
 def _check_flagship(c: dict) -> None:
     """Raises ``NotImplementedError`` unless the port has the MPN ``c``
-    asks for: a model of :data:`MODELS`, the values of :data:`_PORTED`
-    (``NODE_STEPS`` free on the tag model), a known aggregation type, the
-    flagship's per-type layer, and on the kernel routes (``_PLAIN_ROUTE``
-    unset) skip connections and the blocked, type-blocked layout."""
+    asks for: a model of :func:`registry`, the values of :data:`_PORTED`
+    (``NODE_STEPS`` free on the models of :data:`_NODE_STEPS`), a known
+    aggregation type, the flagship's per-type layer, and on the kernel
+    routes (``_PLAIN_ROUTE`` unset) skip connections and the blocked,
+    type-blocked layout."""
     name = c.get("NAME")
+    models = registry()
     if name in ("ClassificationNaive", "NodeClassificationMPNGroupBasedHierach"):
         # the reference's own imports for these are broken
         # (pemp_tpu/models/mpn/models.py:558-566)
         raise NotImplementedError(
             f"{name}: class absent from the reference repository (broken import in its "
             f"MessagePassingNetwork/__init__.py)")
-    if name not in MODELS:
-        raise NotImplementedError(
-            f"MODEL.MPN.NAME={name!r}: the port has {sorted(MODELS)}; the rest of the MPN "
-            f"zoo is not ported")
+    if name not in models:
+        raise NotImplementedError(f"MODEL.MPN.NAME={name!r}: not in the MPN zoo the port has, "
+                                  f"{sorted(models)}")
     if name in _BASELINES:
         return
     if c.get("AGGR_TYPE") not in ("per_type", "agnostic"):
@@ -132,6 +137,15 @@ def _check_flagship(c: dict) -> None:
         raise NotImplementedError("NodeClassificationMPNGroupBased runs the per-type layer "
                                   "(pemp_tpu/models/mpn/models.py:617-624); AGGR_TYPE "
                                   f"{c['AGGR_TYPE']!r} is not ported")
+    if name == "ClassificationMPNSimple" and c.get("NODE_TYPE_SUMMARY", "not") != "not":
+        raise NotImplementedError(
+            f"ClassificationMPNSimple with NODE_TYPE_SUMMARY={c['NODE_TYPE_SUMMARY']!r}: its "
+            f"forward reads the raw types while its layer is sized by the summary (reference "
+            f"ClassificationMPNSimple.py:16-41); only 'not' is ported")
+    if name == "NodeClassificationMPNWithRef" and c.get("NODE_STEPS", 0) > 1:
+        raise NotImplementedError(
+            f"NodeClassificationMPNWithRef with NODE_STEPS={c['NODE_STEPS']}: its node stack's "
+            f"edge width changes after one pass (the JAX model fails at the second)")
     agnostic = name in _AGNOSTIC or c["AGGR_TYPE"] == "agnostic"
     ported = {k: v for k, v in _PORTED.items() if not (k == "NODE_STEPS" and name in _NODE_STEPS)}
     for key, value in {**ported, **({} if agnostic else _PER_TYPE_LAYER)}.items():
@@ -290,11 +304,16 @@ class _Steps(nn.Module):
                 summary, torch.arange(c["NUM_JOINTS"], device=x.device))
         return pre
 
-    def _stepper(self, layer, route, init_nodes, init_edges, dtype):
+    def _stepper(self, layer, route, init_nodes, init_edges, dtype, fixed=None):
         """``step(nodes, edges, pre) -> (nodes, edges)``: one step of
         ``layer`` on ``route`` in the stack whose initial features are
         ``init_nodes`` and ``init_edges`` (the skip connections' first
-        halves), with that stack's loop-invariant projections taken once."""
+        halves), with that stack's loop-invariant projections taken once.
+        ``fixed``: the first columns of the edge carry where they stay the
+        same over the stack (a one-pass stack whose carry starts wider than
+        the layer's edge width, zoo.NodeClassificationMPNSimpleWithRef); on
+        the fused step their projection joins the loop-invariant one, so
+        that the kernel gets a carry of the edge width."""
         skip = self.cfg["SKIP"]
         if route in PLAIN_ROUTES:
             fn = layer.forward_segment if route == "segment" else layer
@@ -307,10 +326,15 @@ class _Steps(nn.Module):
             return plain_step
         if route == "fused_step":
             sw = layer.step_weights(dtype)
-            q = (init_edges @ sw["w_init_edge"].t()).contiguous()
+            q = init_edges @ sw["w_init_edge"].t()
+            k = 0 if fixed is None else fixed.shape[1]
+            if k:
+                q = q + fixed @ sw["w_cur"][:k]
+                sw = {**sw, "w_cur": sw["w_cur"][k:].contiguous()}
+            q = q.contiguous()
 
             def fused(nodes, edges, pre):
-                return layer(torch.cat([init_nodes, nodes], dim=-1), q, edges, pre, sw)
+                return layer(torch.cat([init_nodes, nodes], dim=-1), q, edges[:, k:], pre, sw)
             return fused
         fn = {"pallas": layer.forward_typed, "hybrid": layer.forward_hybrid,
               "einsum": layer.forward_einsum, "dots": layer.forward_einsum}[route]
@@ -348,7 +372,8 @@ class NodeClassificationMPN(_Steps):
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """x (N, F) f32, edge_attr (E, EDGE_INPUT_DIM), edge_index (2, E) flat
         ids, edge_valid (E,), edge_src_local (E,) source ids within their
         image; ``dtype`` is the working type; ``node_valid`` (N,) masks the
@@ -395,7 +420,8 @@ class JointTypeClassification(_Steps):
         self.classification = MLP(c["NODE_FEATURE_DIM"], c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """As NodeClassificationMPN.forward."""
         route = self._route(route)
         pre = self._pre(route, x, edge_index, edge_valid, edge_src_local, node_types)
@@ -433,7 +459,8 @@ class NodeClassificationMPNTag(_Steps):
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """As NodeClassificationMPN.forward; ``joint_tags`` (N,) or (N, S)
         the tag maps at the nodes, added to the tag with ``TAG_SKIP``."""
         c = self.cfg
@@ -484,7 +511,8 @@ class NodeClassificationMPNGroupBased(_Steps):
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """As NodeClassificationMPN.forward; ``node_types`` (N,) is needed
         for the body parts."""
         route = self._route(route)
@@ -531,7 +559,8 @@ class VanillaMPN(_Steps):
                                        c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """As NodeClassificationMPN.forward, on the ``agnostic`` route
         (``node_types`` is not read)."""
         c = self.cfg
@@ -566,7 +595,8 @@ class MPNTag(_Steps):
         self.tag_pred = MLP(c["NODE_FEATURE_DIM"], c["NODE_TAG"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         """As VanillaMPN.forward."""
         route = self._route(route)
         pre = self._pre(route, x, edge_index, edge_valid, edge_src_local, None)
@@ -590,7 +620,8 @@ class _Baseline(nn.Module):
         self.cfg = dict(mpn_cfg)
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
-                node_valid=None, route=None, node_types=None, joint_tags=None):
+                node_valid=None, route=None, node_types=None, joint_tags=None,
+                **unread):
         return {"edge": [self.edge_logits(edge_attr.to(dtype))], "node": [None],
                 "class": None, "tag": [None]}
 
@@ -624,8 +655,7 @@ class LogisticEdgeClassifier(_Baseline):
 
 
 # the names of the reference factory (MessagePassingNetwork/__init__.py:
-# 27-73) the port has; the rest of the zoo (pemp_tpu/models/mpn/zoo.py but
-# MPNTag) is refused by name
+# 27-73) this module has; the rest of the zoo is models.mpn.zoo's
 MODELS = {
     "NodeClassificationMPN": NodeClassificationMPN,
     # the reference's NodeClassificationMPNWithBackground.py is absent from
@@ -643,11 +673,20 @@ MODELS = {
 }
 
 
+def registry() -> dict:
+    """Every MPN the port has by its factory name: :data:`MODELS` and the
+    research zoo's (models.mpn.zoo.ZOO, which builds on this module)."""
+    from pemp_tpu_torch.models.mpn.zoo import ZOO
+
+    return {**MODELS, **ZOO}
+
+
 def get_mpn_model(mpn_cfg: dict) -> nn.Module:
     """The MPN ``mpn_cfg["NAME"]`` names (pemp_tpu.models.mpn.models.
     get_mpn_model); raises ``NotImplementedError`` for a name the port does
     not have."""
+    models = registry()
     name = mpn_cfg.get("NAME")
-    if name not in MODELS:
+    if name not in models:
         _check_flagship(dict(mpn_cfg))
-    return MODELS[name](mpn_cfg)
+    return models[name](mpn_cfg)

@@ -10,7 +10,7 @@ them) or the 4-stack Hourglass (``hourglass``).
 
 ``TPU.MSG_PASS`` picks the MPN's route (models.mpn.models) and, for
 ``hybrid`` and ``einsum``, the symmetric kNN layout (graph.constructor).
-``MODEL.MPN.NAME`` picks the MPN (NodeClassificationMPN or VanillaMPN).
+``MODEL.MPN.NAME`` picks the MPN (models.mpn.models.registry).
 Routing to a kernel is by device: on CUDA tensors each kernel of the route
 runs as a hand-written CUDA kernel, on CPU tensors as its plain PyTorch
 version (see ops/).
@@ -115,13 +115,19 @@ class PoseEstimationBaseline(nn.Module):
         features = features if features.dtype == torch.float64 else features.float()
         return stages, scoremaps.float(), features, tags.float()
 
-    def mpn_forward(self, gb, route=None):
+    def mpn_forward(self, gb, route=None, feature_maps=None):
         """The MPN's per-step logits on the graph batch ``gb``
-        (pemp_tpu/models/pose_estimation.py:80-95); ``route`` overrides the
-        message-passing route the module's mode resolves."""
+        (pemp_tpu/models/pose_estimation.py:80-98); ``route`` overrides the
+        message-passing route the module's mode resolves. The MPN also gets
+        the node labels (None without ground truth), the batch index and
+        ``feature_maps``, the (B, H, W, NODE_INPUT_DIM) float32 map the
+        graph's node features were read from, which the zoo's
+        SelfAttention reads."""
         return self.mpn(gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local,
                         self.dtype, node_valid=gb.node_valid, route=route,
-                        node_types=gb.joint_det[:, 2], joint_tags=gb.joint_tags)
+                        node_types=gb.joint_det[:, 2], joint_tags=gb.joint_tags,
+                        node_labels=gb.node_labels, feature_maps=feature_maps,
+                        batch_index=gb.batch_index)
 
     def forward(self, imgs, keypoints_gt=None, masks=None, factors=None, route=None,
                 heatmaps=None):
@@ -146,7 +152,7 @@ class PoseEstimationBaseline(nn.Module):
         gb = construct_graph_batch(self.gc, scoremaps.detach(), features, tags.detach(),
                                    masks=masks, joints_gt=keypoints_gt, factors=factors,
                                    testing=not self.training, gt_heatmaps=gt_heatmaps)
-        preds = self.mpn_forward(gb, route)
+        preds = self.mpn_forward(gb, route, features)
         graph = {
             "nodes": gb.joint_det,
             "detector_scores": gb.joint_scores,

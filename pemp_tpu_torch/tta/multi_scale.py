@@ -259,7 +259,9 @@ class TTAPipeline:
         base_mask = ((yy < canvas[:, 0, None, None])
                      & (xx < canvas[:, 1, None, None])).float()
         gb = construct_graph_batch(model.gc, heat_acc, feat_acc, tag_acc, masks=base_mask)
-        preds = model.mpn_forward(gb)
+        # the aggregated feature map for SelfAttention, which the JAX
+        # package's TTA does not pass (its SelfAttention fails there)
+        preds = model.mpn_forward(gb, feature_maps=feat_acc)
         n = gb.joint_det.shape[0] // b
         e = gb.edge_index.shape[1] // b
         per_img = lambda t: t.reshape(b, -1, *t.shape[1:])  # noqa: E731

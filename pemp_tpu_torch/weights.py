@@ -17,7 +17,8 @@ and ``convert_hourglass_state_dict`` (their layout maps, inverted here):
 
 and the fused MPN layer's stacked ``mlp_node`` kernel (T, din, dout) becomes
 the reference's T separate Linears. The MPN is any of the port's
-(models.mpn.models.MODELS), with a TypeAwareMPNLayer or an MPLayer.
+(models.mpn.models.registry: the flagship's family, the baselines and the
+research zoo).
 """
 
 from __future__ import annotations
@@ -27,7 +28,15 @@ import torch
 
 from pemp_tpu_torch.models.hourglass import hg_spec
 from pemp_tpu_torch.models.hrnet import HRNetSpec
-from pemp_tpu_torch.models.mpn.models import mpn_cfg_from_config
+from pemp_tpu_torch.models.mpn import zoo
+from pemp_tpu_torch.models.mpn.layers import (
+    MLP,
+    Linear,
+    MaskedBatchNorm,
+    MPLayer,
+    TypeAwareMPNLayer,
+)
+from pemp_tpu_torch.models.mpn.models import get_mpn_model, mpn_cfg_from_config
 
 
 def _get(tree, path):
@@ -153,18 +162,18 @@ def _hourglass(cr, nstack, pre="backbone"):
             conv(f"merge_features.{i}.conv", (f"merge_features_{i}",))
 
 
-def _mlp(cr, key, path, dims, bn, end_with_relu=False):
-    """flax MLP lin{i}/bn{i} -> reference _make_mlp Sequential indices."""
-    seq = 0
-    for i in range(len(dims)):
-        cr.linear(f"{key}.{seq}", (*path, f"lin{i}"))
-        seq += 1
-        if i < len(dims) - 1 or end_with_relu:
-            seq += 1  # ReLU
-            if bn:
-                name = f"bn{i}" if i < len(dims) - 1 else "bn_end"
-                cr.bn(f"{key}.{seq}", (*path, name))
-                seq += 1
+def _mlp(cr, key, path, mlp):
+    """flax MLP lin{i}/bn{i}/bn_end -> the port's MLP (the reference's
+    _make_mlp Sequential indices), walked on the port's module: the
+    BatchNorm after Linear i is ``bn{i}``, after the last ``bn_end``."""
+    n = sum(isinstance(m, Linear) for m in mlp)
+    i = -1
+    for seq, m in enumerate(mlp):
+        if isinstance(m, Linear):
+            i += 1
+            cr.linear(f"{key}.{seq}", (*path, f"lin{i}"))
+        elif isinstance(m, MaskedBatchNorm):
+            cr.bn(f"{key}.{seq}", (*path, f"bn{i}" if i < n - 1 else "bn_end"))
 
 
 def _mp_layer(cr, key, path):
@@ -190,54 +199,67 @@ def _type_aware_layer(cr, key, path):
     cr.linear(f"{key}.update_mlp.0", (*path, "update_mlp"))
 
 
-# per MPN: its heads (port name, config key) and the scope of its shared
-# layer in the JAX tree (``("mpn", "layer")`` is nn.scan's scope, then the
-# layer; the group-based model and MPNTag build theirs unscanned)
-_EDGE, _NODE, _CLASS, _TAG = (("edge_classification", "EDGE_CLASS"),
-                              ("node_classification", "NODE_CLASS"),
-                              ("classification", "CLASS"), ("tag_pred", "NODE_TAG"))
-_MPN_LAYOUT = {
-    "NodeClassificationMPN": ((_EDGE, _NODE, _CLASS), ("mpn", "layer")),
-    "NodeClassificationMPNWithBackground": ((_EDGE, _NODE, _CLASS), ("mpn", "layer")),
-    "VanillaMPN": ((_EDGE,), ("mpn", "layer")),
-    "JointTypeClassification": ((_CLASS,), ("mpn", "layer")),
-    "NodeClassificationMPNTag": ((_TAG, _NODE, _CLASS), ("mpn", "layer")),
-    "NodeClassificationMPNGroupBased": ((_EDGE, _NODE, _CLASS), ("layer",)),
-    "MPNTag": ((_TAG,), ("mpn_node_cls",)),
+def _vanilla_layer2(cr, key, path):
+    """VanillaMPN2's layer (pemp_tpu/train/convert.py:482-512):
+    ``mlp_edge_0`` / ``mlp_edge_bn`` onto Sequential(Linear, ReLU,
+    BatchNorm), the same for ``mlp_node``."""
+    for part in ("mlp_edge", "mlp_node"):
+        cr.linear(f"{key}.{part}.0", (*path, f"{part}_0"))
+        cr.bn(f"{key}.{part}.2", (*path, f"{part}_bn"))
+
+
+# the JAX scope of a port module where it is not the module's own name:
+# nn.scan's ("mpn", "layer") around the scanned models' shared layer and
+# the tag model's second stack; "layer" for the two models that build
+# theirs unscanned under that name
+_SCANNED = ("NodeClassificationMPN", "NodeClassificationMPNWithBackground", "VanillaMPN",
+            "JointTypeClassification", "NodeClassificationMPNTag")
+_SCOPES = {
+    **{name: {"mpn_node_cls": ("mpn", "layer"), "mpn_node": ("mpn_node", "layer")}
+       for name in _SCANNED},
+    "NodeClassificationMPNGroupBased": {"mpn_node_cls": ("layer",)},
+    "ClassificationMPNSimple2": {"mpn_node_cls": ("layer",)},
 }
 
 
+def _carry(cr, key, path, module):
+    """The JAX variables at ``path`` onto the port's ``module`` at ``key``."""
+    if isinstance(module, MLP):
+        _mlp(cr, key, path, module)
+    elif isinstance(module, MPLayer):
+        _mp_layer(cr, key, path)
+    elif isinstance(module, TypeAwareMPNLayer):
+        _type_aware_layer(cr, key, path)
+    elif isinstance(module, Linear):
+        cr.linear(key, path)
+    elif isinstance(module, zoo._VanillaMPLayer2):
+        _vanilla_layer2(cr, key, path)
+    elif isinstance(module, zoo._NodeMlpBank):       # flax's _NodeMlpBank: mlp_{t}
+        for t, mlp in enumerate(module):
+            _mlp(cr, f"{key}.{t}", (*path, f"mlp_{t}"), mlp)
+    elif isinstance(module, torch.nn.ModuleList):    # VanillaMPN2's mpn.{i}: mpn_{i}
+        for i, layer in enumerate(module):
+            _carry(cr, f"{key}.{i}", (f"{path[-1]}_{i}",), layer)
+    else:
+        raise NotImplementedError(f"{key}: {type(module).__name__} has no JAX counterpart")
+
+
 def mpn_from_jax_variables(params, batch_stats, mpn_cfg: dict) -> dict:
-    """JAX MPN variables -> the port's MPN ``state_dict``, for every model of
-    models.mpn.models.MODELS (for the flagship the inverse of
+    """JAX MPN variables -> the port's MPN ``state_dict``, for every model
+    of models.mpn.models.registry (for the flagship the inverse of
     convert.convert_flagship_mpn_state_dict, for MPNTag of
-    convert.convert_mpn_tag_state_dict): the embeddings, the heads, the
-    shared layer, the tag model's second step stack ``mpn_node`` with
-    ``NODE_STEPS``, LogisticEdgeClassifier's ``linear``."""
+    convert.convert_mpn_tag_state_dict, for ClassificationMPNSimple and
+    VanillaMPN2 of convert_classification_simple_state_dict and
+    convert_vanilla_mpn2_state_dict): walks the port's model built from
+    ``mpn_cfg``, each submodule from the JAX scope of its name (or
+    :data:`_SCOPES`'), so every parameter and statistic the port has is
+    carried and none other."""
+    cfg = {**mpn_cfg, "_PLAIN_ROUTE": mpn_cfg.get("_PLAIN_ROUTE") or "segment"}
+    model = get_mpn_model(cfg)        # only its structure is read (no layout checks)
     cr = _Carrier(params, batch_stats)
-    c = mpn_cfg
-    name = c["NAME"]
-    if name == "LogisticEdgeClassifier":
-        cr.linear("linear", ("linear",))
-        return cr.sd
-    if name in ("TagThreshold", "PlainTag"):
-        return cr.sd
-    heads, path = _MPN_LAYOUT[name]
-    vanilla = name == "VanillaMPN"
-    for emb, key in (("node_embedding", "NODE_EMB"), ("edge_embedding", "EDGE_EMB")):
-        if vanilla:   # MPN.BN and the node embedding's END_WITH_RELU for both
-            _mlp(cr, emb, (emb,), c[key]["OUTPUT_SIZES"], c["BN"],
-                 c["NODE_EMB"].get("END_WITH_RELU", False))
-        else:
-            _mlp(cr, emb, (emb,), c[key]["OUTPUT_SIZES"], c[key]["BN"],
-                 c[key].get("END_WITH_RELU", False))
-    for head, key in heads:
-        _mlp(cr, head, (head,), c[key]["OUTPUT_SIZES"], c["BN"])
-    layer = _mp_layer if vanilla or name == "MPNTag" or c.get("AGGR_TYPE") == "agnostic" \
-        else _type_aware_layer
-    layer(cr, "mpn_node_cls", path)
-    if name == "NodeClassificationMPNTag" and c.get("NODE_STEPS", 0):
-        layer(cr, "mpn_node", ("mpn_node", "layer"))
+    scopes = _SCOPES.get(mpn_cfg["NAME"], {})
+    for key, module in model.named_children():
+        _carry(cr, key, scopes.get(key, (key,)), module)
     return cr.sd
 
 

@@ -53,3 +53,21 @@ def test_sources_name_no_jax():
     files = [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_zoo_imports_first_with_jax_blocked():
+    """The research zoo's module (models.mpn.zoo, which builds on
+    models.mpn.models) imports on its own, first, with jax, flax and
+    pemp_tpu blocked, and its models build."""
+    code = _CHILD.split("import pemp_tpu_torch")[0].format(blocked=BLOCKED) + (
+        "import pemp_tpu_torch.models.mpn.zoo as zoo\n"
+        "from pemp_tpu_torch.config import small_train, zoo as preset\n"
+        "from pemp_tpu_torch.models.mpn.models import get_mpn_model, mpn_cfg_from_config\n"
+        "for name in ('simple', 'two_phase', 'self_attention', 'vanilla2'):\n"
+        "    cfg = mpn_cfg_from_config(preset(name, small_train()).MODEL.MPN)\n"
+        "    get_mpn_model({**cfg, '_PLAIN_ROUTE': 'segment'})\n"
+        "print(len(zoo.ZOO), sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["10", "[]"]

@@ -4,7 +4,8 @@ type-agnostic MPLayer and with the flagship's per-type layer on an edge
 list, and VanillaMPN, on the blocked kNN layout and on an edge list, in
 eval mode and in training mode (masked BatchNorm statistics, per-step
 heads). Outputs within 2e-4 of the largest. Also the factory's, the
-routes' and the unported variants' refusals."""
+routes' and the unported variants' refusals, and the research zoo on an
+edge list."""
 
 import jax
 import jax.numpy as jnp
@@ -157,12 +158,26 @@ def test_delta_file_alone_raises_at_build():
             jm.init(jax.random.PRNGKey(0), *(jnp.asarray(a) for a in _graph("edge_list")[:4]))
 
 
-@pytest.mark.parametrize("name", ["NodeClassificationMPNTypeBased", "NodeClassificationMPNAttention",
-                                  "ClassificationMPN", "VanillaMPN2"])
+@pytest.mark.parametrize("name", ["NodeClassificationMPNTypeBased",
+                                  "NodeClassificationMPNAttention", "ClassificationMPN",
+                                  "VanillaMPN2", "ClassificationNaive",
+                                  "NodeClassificationMPNGroupBasedHierach"])
 def test_factory_refuses_the_rest_of_the_zoo(name):
+    """The research zoo builds and runs on an edge list (each model is held
+    against the JAX zoo in test_torch_mpn_zoo.py); the factory refuses only
+    the two names whose reference classes are absent."""
     _, port_cfg = _cfgs("per_type_flagship", "edge_list")
-    with pytest.raises(NotImplementedError, match=f"NAME='{name}'.*MPN zoo"):
-        get_mpn_model({**port_cfg, "NAME": name})
+    if name in ("ClassificationNaive", "NodeClassificationMPNGroupBasedHierach"):
+        with pytest.raises(NotImplementedError, match="absent from the reference"):
+            get_mpn_model({**port_cfg, "NAME": name})
+        return
+    port = get_mpn_model({**port_cfg, "NAME": name, "STEPS_GROUP": 1})
+    x, ea, ei, ev, types, node_valid = _graph("edge_list")
+    t = torch.from_numpy
+    out = port(t(x), t(ea), t(ei), t(ev), t(ei[0] % N_IMG), torch.float32,
+               node_valid=t(node_valid), node_types=t(types))
+    assert out["edge"][-1].shape == (ei.shape[1],)
+    assert bool(torch.isfinite(out["edge"][-1][t(ev)]).all())
 
 
 @pytest.mark.parametrize("variant", [{"EDGE_MLP": "per_type"}, {"AGGR_SUB": "None"},

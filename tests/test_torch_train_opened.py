@@ -207,7 +207,7 @@ def opened_step():
     model64.backbone.double()
     model64.feature_gather.double()
     model64.dtype = torch.float64
-    model64.mpn_forward = lambda gb, route=None: model64.mpn(   # the MPN in float32
+    model64.mpn_forward = lambda gb, route=None, feature_maps=None: model64.mpn(  # in float32
         gb.x, gb.edge_attr, gb.edge_index, gb.edge_valid, gb.edge_src_local, torch.float32,
         node_valid=gb.node_valid, route=route)
     loss64, _, _ = trainer64.loss(tbatch)

@@ -1,15 +1,16 @@
-"""The tag-regression, greedy, background-class and group-based
-configurations (config.ZOO over model_58_4) through the eval entry point,
-port against JAX package: ``python -m pemp_tpu_torch.valid`` against
-``tools/valid.py`` on a 4-image set written by tools/make_fake_coco.py, at
-the narrow configuration, one scale with flip: the tag model grouped by
-its tags (mpn_match_by_tag, refine, adjust), the flagship grouped greedily
-on the host, the background model (J + 1 classes: a node whose class
-argmax is the background keeps the type J, which the decode clamps as the
-JAX package's gathers do) by GAEC and on the card's threshold decode, the
-group-based model by GAEC. The same seeded weights reach JAX through its
-model's ``init`` and the port through a torch checkpoint. Keypoints within
-2e-3, scores within 1e-4."""
+"""The tag-regression, greedy, background-class, group-based and
+ClassificationMPNSimple configurations (config.ZOO over model_58_4) through
+the eval entry point, port against JAX package: ``python -m
+pemp_tpu_torch.valid`` against ``tools/valid.py`` on a 4-image set written
+by tools/make_fake_coco.py, at the narrow configuration, one scale with
+flip: the tag model grouped by its tags (mpn_match_by_tag, refine, adjust),
+the flagship grouped greedily on the host, the background model (J + 1
+classes: a node whose class argmax is the background keeps the type J,
+which the decode clamps as the JAX package's gathers do) by GAEC and on the
+card's threshold decode, the group-based model and the research zoo's
+ClassificationMPNSimple by GAEC. The same seeded weights reach JAX through
+its model's ``init`` and the port through a torch checkpoint. Keypoints
+within 2e-3, scores within 1e-4."""
 
 import json
 import pathlib
@@ -89,6 +90,9 @@ CASES = {
     "background": ("background", "GAEC", {"edge_classification": [0.2]}),
     "background_threshold": ("background", "threshold", {"edge_classification": [1.5]}),
     "group_based": ("group_based", "GAEC", {"edge_classification": [0.2]}),
+    # the research zoo's ClassificationMPNSimple: no class head, so the
+    # decode takes the detections' types
+    "simple": ("simple", "GAEC", {"edge_classification": [0.2]}),
 }
 
 
