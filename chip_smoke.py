@@ -107,7 +107,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    1e-4 of each one's largest, graphs exact, persons within 2e-3.
 19. the eval entry point at full width (``valid.evaluate``, batches of 8):
    w48/640 with flip at scales [2.0, 1.0, 0.5], bf16, threshold decode on
-   16 rendered images of 480x640 and 640x480 (two batches). The seeded
+   the 8 rendered images of 480x640, one batch of 8 (cut from 16 images
+   in two shapes for the time limit when phases 40-41 came). The seeded
    weights get BatchNorm statistics measured on the images, so that
    persons form (full_width_model). First the pipeline over the images:
    the card's persons are held against the CPU's decode of the same
@@ -171,7 +172,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    K2b and G1 10 times each a step, losses finite; prints the device time
    a step.
 28. the AE-grouping entry point at full width (``valid_hr.evaluate``,
-   f32, batches of 8) on phase 19's 16 images: hg_512 (4 stacks 256 wide
+   f32, batches of 8) on phase 19's 8 images, one batch (cut from 16 for
+   the time limit when phases 40-41 came): hg_512 (4 stacks 256 wide
    at 512, long-side scaling) with the hg and hg2 parsers, and w32/512
    with flip and the hr parser. Seeded weights whose output heads are
    scaled from the images so that persons form (ae_full_width_model). Per
@@ -194,9 +196,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    past F64_CAP = 2e-2; the loosened tensors are printed with both
    readings.
 30. ``valid.evaluate`` at full width as phase 20 (model_58_4, w32/512,
-   bf16, one scale, GAEC at node threshold 0.5) on the 8 of phase 19's
-   images that are 480x640 (one batch; cut from 16 for the time limit,
-   the first depth to go as the smoke grew past 950 s) for fully, score_based, score_based_per_type,
+   bf16, one scale, GAEC at node threshold 0.5) on the 8 rendered images
+   of 480x640 (one batch; cut from 16 for the time limit, the first depth
+   to go as the smoke grew past 950 s) for fully, score_based, score_based_per_type,
    model_gostic_position and model_nothing: K1 10 times a batch on
    model_nothing and never on the others; prints img/s, the stage split,
    peak memory and the valid edges a batch.
@@ -215,7 +217,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step; prints the device time a step and the peak memory; K2 and K2b
    held against their plain versions on the USE_GT layout at this width
    (MPN steps 0 and 9 of one step).
-34. the upper bounds: ``calc_upper_bounds.evaluate`` on phase 19's 16
+34. the upper bounds: ``calc_upper_bounds.evaluate`` on the 16 rendered
    images on the card and on the CPU (the same persons and stats; prints
    the AP), and UpperBoundModel at full width for the three upper_bound
    files (graph and labels exact against the CPU's graph on the card's
@@ -230,8 +232,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    modes), background and joint_type; the greedy grouping of the narrow
    configuration's outputs equal on card and CPU.
 36. ``valid.evaluate`` at full width as phase 20 (model_58_4, bf16, one
-   scale, node threshold 0.5) on phase 19's 8 images of 480x640 (phase
-   30's; cut from 16 as the smoke passed 950 s) for tag (grouped by
+   scale, node threshold 0.5) on phase 30's 8 images of 480x640 (cut from
+   16 as the smoke passed 950 s) for tag (grouped by
    its tags on the host) and greedy: K1 10 times a batch; each run's
    persons equal to the host grouping of the same outputs on the CPU;
    prints img/s, the stage split and the peak memory.
@@ -252,13 +254,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reach no head), on the four MPLayer or VanillaMPN2 models no kernel.
 39. the zoo at full width (model_58_4's w32/512, batch 8): simple through
    ``valid.evaluate`` as phase 36 (bf16, one scale, GAEC at node threshold
-   0.5) with K1 12 times a batch (STEPS + EDGE_STEPS); simple (K2 and G1
+   0.5) on phase 19's 8 images, one batch (cut from 16 for the time
+   limit when phases 40-41 came) with K1 12 times a batch (STEPS + EDGE_STEPS); simple (K2 and G1
    12 a step, K2b 11), two_phase and self_attention (no kernel) through
    ``train()``, 4 steps in f32; prints img/s, the device time a step and
    the peak memory.
 
-Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38 and 39 check the
-counts the same way: every kernel not named launches 0 times.
+40. data parallelism through the training entry point: ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 -m
+   pemp_tpu_torch.train`` (NCCL, a group of one) on model_58_4 at full
+   width (w32/512, batch 8, f32, pallas, synthetic batches, 2 epochs of 2
+   steps); the child must exit 0, and its summary line must show K2, K2b
+   and G1 10 times a step and nothing else, no step skipped and a
+   gradient all-reduce; prints its device time a step beside phase 23's
+   and the all-reduce's ms a step (CUDA events), and its peak memory.
+41. two ranks on the one card under gloo (NCCL refuses two ranks on one
+   GPU), fresh processes, against one process on the card: the small cut
+   (global batch 4) for 2 steps, loss parts within 1e-4, the first step's
+   gradients within phase 29's limits, parameters bit-identical across the
+   ranks; ``valid.evaluate`` on phase 19's 8 images (model_58_4, one
+   scale, GAEC at 0.5; a rank holds 4, so it runs one batch of 4), rank
+   0's merged results equal to those of one process run on the ranks'
+   two batches of 4, rank 1 returning None, no part file left.
+
+Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40 and 41
+check the counts the same way: every kernel not named launches 0 times
+(40 and 41 in their own processes, whose counts start at 0).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -313,31 +334,18 @@ def median_ms(fn, n=TIMED_LAUNCHES) -> float:
     return float(np.median(times))
 
 
-def counters():
-    """Each kernel's launch counter: {name: (module, attribute)}."""
-    from pemp_tpu_torch.ops import (
-        attn_aggregate,
-        blocked_attn,
-        fused_step,
-        gather_mm,
-        typed_message,
-    )
-
-    return {"K1": (fused_step, "LAUNCHES"), "K2": (typed_message, "LAUNCHES_FWD"),
-            "K2b": (typed_message, "LAUNCHES_BWD"), "K3": (attn_aggregate, "LAUNCHES_FWD"),
-            "K3b": (attn_aggregate, "LAUNCHES_BWD"), "K4": (blocked_attn, "LAUNCHES"),
-            "K4b": (blocked_attn, "LAUNCHES_BWD"), "G1": (gather_mm, "LAUNCHES")}
-
-
 def zero_counts():
-    for module, attr in counters().values():
-        setattr(module, attr, 0)
+    from pemp_tpu_torch.ops import zero_launch_counts
+
+    zero_launch_counts()
 
 
 def read_counts(label, want):
     """The counts since zero_counts(); raises unless each kernel of ``want``
     launched exactly that often and every other one never."""
-    counts = {k: getattr(module, attr) for k, (module, attr) in counters().items()}
+    from pemp_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
     bad = {k: (v, want.get(k, 0)) for k, v in counts.items() if v != want.get(k, 0)}
     if bad:
         raise SystemExit(f"{label}: launches (got, expected) {bad}")
@@ -1291,9 +1299,11 @@ def phase_small_tta():
         f"relative errors {errs}; graphs exact; persons found {found}")
 
 
-def landscape_half(rendered, dataset):
-    """Phase 19's 8 images of 480x640 and their annotations: the sets of
-    phases 30 and 36, cut from 16 for the smoke's time limit."""
+def landscape(rendered, dataset):
+    """The rendered images of 480x640 (8 of the 16) and their annotations,
+    one batch of 8: the set of the full-width eval phases (19, 20, 28, 30,
+    36, 39, 41), cut from the 16 images in two shapes for the smoke's time
+    limit (at 4 images phase 30's score_based forms no person)."""
     keep = [i for i, im in enumerate(rendered) if im.shape[:2] == (480, 640)]
     ids = {dataset["images"][i]["id"] for i in keep}
     return [rendered[i] for i in keep], {
@@ -1767,6 +1777,7 @@ def phase_train_entry(card):
             f"launches K2 {counts['K2']} (10 a step and a validation batch), K2b {counts['K2b']}, "
             f"G1 {counts['G1']}; losses {[round(x, 4) for x in losses]}; validation "
             f"{ {k: round(v, 4) for k, v in summary['val_losses'].items()} }")
+        device_ms = 1e3 * timed["device_s"] / timed["steps"]
 
         # resume: the saved epoch runs again, from the restored count's rate
         firsts = []
@@ -1802,7 +1813,7 @@ def phase_train_entry(card):
             f"{[f'{x:.3e}' for x in lrs]} (multistep_lr at the restored count), losses "
             f"{[round(x, 4) for x in resumed['losses']]}; FINETUNE from the epoch-0 snapshot: "
             f"a fresh optimizer, loss {tuned['losses'][0]:.4f}")
-    return counts
+    return {**counts, "device_ms": device_ms}
 
 
 def phase_small_hg():
@@ -1894,8 +1905,8 @@ def ae_full_width_model(cfg, images):
 def phase_valid_hr(card, rendered, dataset):
     """The AE-grouping entry point at full width (valid_hr.evaluate, batches
     of 8, f32): hg_512 (4 stacks 256 wide, 512, long-side scaling) with the
-    hg and hg2 parsers, and w32/512 with flip and the hr parser, on the 16
-    rendered images, weights from ae_full_width_model. Per configuration
+    hg and hg2 parsers, and w32/512 with flip and the hr parser, on the
+    rendered images given, weights from ae_full_width_model. Per configuration
     the card's maps are held against the CPU's on two images (1e-4 of each
     one's largest); per parser a run with each stage timed, whose outputs
     are kept: the results files (AE grouping and correlation clustering)
@@ -2133,7 +2144,7 @@ def phase_ablations(card, rendered, dataset):
     # the 8 images of 480x640, one batch: phase 30 is the first depth cut
     # for the smoke's time limit, as the smoke grew past 950 s
     with tempfile.TemporaryDirectory() as tmp:
-        eval_set = RenderedSet(tmp, *landscape_half(rendered, dataset))
+        eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         for name, k1 in ABLATION_EVAL.items():
             cfg = ablation(name)
             cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
@@ -2267,7 +2278,7 @@ UB_FILES = {"upper_bound/hg": 4, "upper_bound/hrnet": 2, "upper_bound/mmpose_hrn
 
 def phase_upper_bounds(card, rendered, dataset):
     """Phase 34: ``calc_upper_bounds.evaluate`` (upper_bound/hrnet: the GT
-    joints as nodes, method 2) on phase 19's 16 images on the card and on
+    joints as nodes, method 2) on the 16 rendered images on the card and on
     the CPU: the same persons per image, keypoints within 2e-3, scores
     within 1e-6, the same stats; prints the AP and each side's seconds.
     Then UpperBoundModel at full width for the three upper_bound files
@@ -2444,7 +2455,7 @@ def phase_zoo_valid(card, rendered, dataset):
 
     total = 0
     with tempfile.TemporaryDirectory() as tmp:
-        eval_set = RenderedSet(tmp, *landscape_half(rendered, dataset))
+        eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         for name in ("tag", "greedy"):
             cfg = zoo(name)
             cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
@@ -2604,15 +2615,287 @@ def phase_zoo_research(card, rendered, dataset):
     from pemp_tpu_torch.config import zoo
 
     with tempfile.TemporaryDirectory() as tmp:
-        eval_set = RenderedSet(tmp, rendered, dataset)
+        # phase 19's 8 images, one batch (cut from 16 for the time limit
+        # when phases 40-41 came)
+        eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         cfg = zoo("simple")
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
         steps = cfg.MODEL.MPN.STEPS + cfg.MODEL.MPN.EDGE_STEPS
-        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 2, card, tmp, k1=steps)
+        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 1, card, tmp, k1=steps)
         log(f"valid simple: host clustering and its decode {times['cluster']:.3f} s of the "
             f"staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
     counts, _ = zoo_train_entry(card, ZOO_RESEARCH_TRAIN)
     return {"K1": k1, **counts}
+
+
+def run_child(cmd, timeout_s):
+    """Runs ``cmd`` in its own session from the repo's root and returns its
+    output; past ``timeout_s`` the whole session is killed and the phase
+    fails, as it does on a non-zero exit."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"{' '.join(cmd)}: killed after {timeout_s} s")
+    if proc.returncode != 0:
+        raise SystemExit(f"{' '.join(cmd)}: exit code {proc.returncode}\n{out[-4000:]}\n"
+                         f"{err[-4000:]}")
+    return out
+
+
+def phase_dp_train_entry(card, single_ms):
+    """Phase 40: the training entry point launched by torchrun, one process
+    (a group of one under NCCL): model_58_4 at full width (w32/512, batch
+    8, f32, pallas) on synthetic batches, 2 epochs of 2 steps. The child's
+    last JSON line gives its device ms a step and gradient all-reduce ms a
+    step (CUDA events, the second epoch), its peak memory and its kernels'
+    launches since it started: K2, K2b and G1 10 a step, nothing else.
+    Returns the launch counts."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_child([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node=1", "-m", "pemp_tpu_torch.train",
+                         "hybrid_class_agnostic_end2end/model_58_4", "--synthetic",
+                         "--epochs", "2", "--steps-per-epoch", "2", "--msg-pass", "pallas",
+                         "MODEL.PRETRAINED", "", "LOG_DIR", f"{tmp}/log"], 300)
+    dt = time.perf_counter() - t0
+    lines = [line for line in out.splitlines() if line.startswith('{"train"')]
+    if not lines:
+        raise SystemExit(f"torchrun train: no summary line in\n{out[-4000:]}")
+    got = json.loads(lines[-1])["train"]
+    steps, per_step = got["steps"], 10
+    want = {"K2": per_step * steps, "K2b": per_step * steps, "G1": per_step * steps}
+    counts = got["launches"]
+    bad = {k: (v, want.get(k, 0)) for k, v in counts.items() if v != want.get(k, 0)}
+    if (bad or got["world"] != 1 or steps != 4 or got["skipped"]
+            or not np.isfinite(got["losses"]).all()
+            or not got["allreduce_ms_a_step"] > 0):
+        raise SystemExit(f"torchrun train: launches (got, expected) {bad}, summary {got}")
+    log(f"torchrun train (NCCL, world 1): model_58_4 w32/512 batch 8 f32 pallas, {steps} steps "
+        f"on synthetic batches on {card}: device time a step {got['device_ms_a_step']:.1f} ms "
+        f"(phase 23's single process in this call {single_ms:.1f} ms); the gradients' packing "
+        f"into one buffer {got['pack_ms_a_step']:.3f} ms and its all-reduce "
+        f"{got['allreduce_ms_a_step']:.3f} ms a step (CUDA events); peak "
+        f"memory {got['peak_gib']:.2f} GiB; launches K2 {counts['K2']}, K2b {counts['K2b']}, G1 "
+        f"{counts['G1']} (10 each a step); losses {[round(x, 4) for x in got['losses']]}; "
+        f"the child ran {dt:.1f} s")
+    for line in out.splitlines():
+        if " done in " in line or " steps in " in line or "model params" in line:
+            log(f"  torchrun train: {line}")
+    return counts
+
+
+def dp_rank_jobs(jobs):
+    """What each rank of phase 41 runs: each (name, args) of ``jobs``."""
+    return [{"train": dp_rank_train, "valid": dp_rank_valid}[name](*args) for name, args in jobs]
+
+
+def dp_rank_train(cfg, state, batches):
+    """A rank's small training steps on its rows of each global batch:
+    the loss parts of each step, the first step's gradients (the sum over
+    the ranks), the state after and the launches."""
+    from pemp_tpu_torch.parallel import distributed
+    from pemp_tpu_torch.ops import launch_counts
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    trainer = build_trainer(cfg, device=dev, seed=0)
+    trainer.model.load_state_dict(state)
+    distributed.broadcast_state(trainer.model)
+    zero_counts()
+    records = []
+    for i, batch in enumerate(batches):
+        _, logging = trainer.step(batch_to_torch(distributed.shard_rows(batch), dev))
+        records.append({"logging": {k: float(v) for k, v in logging.items()}})
+        if i == 0:
+            records[0]["grads"] = {k: p.grad.double().cpu()
+                                   for k, p in trainer.model.named_parameters()
+                                   if p.grad is not None}
+    return {"records": records, "fail_count": trainer.fail_count, "counts": launch_counts(),
+            "state": {k: v.cpu() for k, v in trainer.model.state_dict().items()}}
+
+
+def dp_rank_valid(cfg, state, images, dataset, root):
+    """A rank's share of valid.evaluate (rank 0 merges and scores); its
+    result and its K1 launches."""
+    import os
+
+    from pemp_tpu_torch.models.pose_estimation import build_pose_model
+    from pemp_tpu_torch.parallel import distributed
+    from pemp_tpu_torch.ops import launch_counts
+    from pemp_tpu_torch.valid import evaluate
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_pose_model(cfg, dtype=torch.bfloat16, device=dev, path="valid")
+    model.load_state_dict(state)
+    eval_set = RenderedSet(os.path.join(root, f"rank{distributed.rank()}"), images, dataset)
+    zero_counts()
+    stats = evaluate(cfg, model, eval_set, "eval.txt", batch_size=8)
+    return {"stats": None if stats is None else [float(x) for x in stats],
+            "K1": launch_counts()["K1"]}
+
+
+def small_step_records(cfg, state, batches, device, dtype=torch.float32):
+    """One process's steps on the global batches: each step's loss parts,
+    the first step's gradients and the state after."""
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    trainer = build_trainer(cfg, device=device, seed=0)
+    trainer.model.load_state_dict(state)
+    records = []
+    for i, batch in enumerate(batches):
+        tbatch = batch_to_torch(batch, device)
+        if dtype == torch.float64:
+            trainer.model.double()
+            trainer.model.dtype = dtype
+            tbatch = {k: [x.double() for x in v] if isinstance(v, list) else
+                      (v.double() if v.is_floating_point() else v) for k, v in tbatch.items()}
+        _, logging = trainer.step(tbatch)
+        records.append({"logging": {k: float(v) for k, v in logging.items()}})
+        if i == 0:
+            records[0]["grads"] = {k: p.grad.double().cpu()
+                                   for k, p in trainer.model.named_parameters()
+                                   if p.grad is not None}
+    return records
+
+
+def phase_dp_two_ranks(card, rendered, dataset):
+    """Phase 41: two ranks on the one card under gloo (NCCL refuses two
+    ranks on one GPU), spawned fresh, against one process on the card. The
+    small cut (global batch 4, two rows a rank, pallas: K2, K2b and G1 3 a
+    step on each rank) for 2 steps: each step's loss parts within 1e-4 of
+    the single process's (of max(1, their size)), the first step's
+    gradients within phase 29's limits of them (5e-3 of each tensor's
+    largest; where a tensor passes it, held to the CPU's float64 step
+    within 1.5 times the single card process's own error against it, never
+    past F64_CAP), no step skipped, the ranks' parameters bit-identical
+    after the steps. Then valid.evaluate (model_58_4, w32/512, bf16, one
+    scale, GAEC at node threshold 0.5) on phase 19's 8 images: each rank
+    its 4, one batch of 4 (K1 10), rank 0's merged results equal to those
+    of one process that runs the same two batches of 4, rank 1 returns
+    None, no part file left. Returns the counts launched by the ranks."""
+    import os
+    import tempfile
+
+    from pemp_tpu_torch.config import small_train, w32_512_train
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.parallel.distributed import run_ranks
+    from pemp_tpu_torch.parallel.eval_shard import shard_indices
+    from pemp_tpu_torch.train.train_step import build_trainer
+    from pemp_tpu_torch.valid import evaluate
+
+    t0 = time.perf_counter()
+    cfg = small_train()
+    cfg.TRAIN.BATCH_SIZE = 4
+    rng = np.random.RandomState(21)
+    batches = [make_batch(rng, 4, 64, (16, 32), 17, 30, scale_range=(0.4, 0.9))
+               for _ in range(2)]
+    state = {k: v.clone() for k, v in build_trainer(cfg, device="cpu", seed=3)
+             .model.state_dict().items()}
+    single = small_step_records(cfg, state, batches, "cuda")
+
+    vcfg = w32_512_train()
+    vcfg.MODEL.MPN.NODE_THRESHOLD = 0.5    # the file's 1.0: no sigmoid score passes it
+    images, subset = landscape(rendered, dataset)
+    model = full_width_model(vcfg, images)
+    vstate = {k: v.cpu() for k, v in model.state_dict().items()}
+    # the one process takes the ranks' batches, rank 0's 4 images then rank
+    # 1's, so that only the sharding and the merge differ: the bf16 outputs,
+    # and GAEC's persons on them, change with the batch
+    order = [i for r in range(2) for i in shard_indices(len(images), 2, r)]
+    ordered = {**subset, "images": [subset["images"][i] for i in order]}
+    with tempfile.TemporaryDirectory() as tmp:
+        vcfg.LOG_DIR = f"{tmp}/one"
+        one = evaluate(vcfg, model, RenderedSet(f"{tmp}/set", [images[i] for i in order],
+                                                ordered), "eval.txt", batch_size=4)
+        del model
+        torch.cuda.empty_cache()
+        pair_cfg = vcfg.clone()
+        pair_cfg.LOG_DIR = f"{tmp}/two"
+        t1 = time.perf_counter()
+        ranks = run_ranks(dp_rank_jobs, 2, f"{tmp}/ranks",
+                          [("train", (cfg, state, batches)),
+                           ("valid", (pair_cfg, vstate, images, subset, f"{tmp}/sets"))],
+                          device="cuda:0", backend="gloo", deadline_s=240.0)
+        ranks_s = time.perf_counter() - t1
+        split = vcfg.TEST.SPLIT
+        results = {}
+        for side in ("one", "two"):
+            with open(f"{tmp}/{side}/person_keypoints_{split}_mpn_results.json") as f:
+                results[side] = sorted(json.load(f), key=lambda a: (a["image_id"], -a["score"]))
+        files = {side: sorted(os.listdir(f"{tmp}/{side}")) for side in ("one", "two")}
+
+    # training: the ranks against the single process
+    (a, va), (b, vb) = ranks
+    worst = (0.0, None)
+    for step, (rec, ref) in enumerate(zip(a["records"], single)):
+        for k, v in ref["logging"].items():
+            err = abs(rec["logging"][k] - v) / max(1.0, abs(v))
+            if not err <= 1e-4:
+                raise SystemExit(f"two ranks: step {step} loss part {k} {rec['logging'][k]} "
+                                 f"against one process's {v}")
+    got, ref = a["records"][0]["grads"], single[0]["grads"]
+    if set(got) != set(ref):
+        raise SystemExit("two ranks: different parameters have gradients")
+
+    def rel(g, r, k):
+        return ((g[k] - r[k]).abs().max() / r[k].abs().max().clamp(min=1e-30)).item()
+
+    loose = {k: rel(got, ref, k) for k in ref if rel(got, ref, k) > 5e-3}
+    if loose:
+        f64 = small_step_records(cfg, state, batches[:1], "cpu", torch.float64)[0]["grads"]
+        for k in loose:
+            tol = min(F64_CAP, max(5e-3, 1.5 * rel(ref, f64, k)))
+            if not rel(got, f64, k) <= tol:
+                raise SystemExit(f"two ranks: gradient {k} {rel(got, f64, k):.3e} of the "
+                                 f"float64 step's largest (allowed {tol:.3e})")
+        log(f"two ranks: gradients past 5e-3 of the single process's, held to float64: "
+            f"{ {k: round(v, 6) for k, v in loose.items()} }")
+    worst = max((rel(got, ref, k), k) for k in ref)
+    same = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+    want = {"K2": 6, "K2b": 6, "G1": 6}
+    for r, res in enumerate((a, b)):
+        bad = {k: (v, want.get(k, 0)) for k, v in res["counts"].items() if v != want.get(k, 0)}
+        if bad or res["fail_count"]:
+            raise SystemExit(f"two ranks: rank {r} launches (got, expected) {bad}, "
+                             f"{res['fail_count']} skipped steps")
+    if not same:
+        raise SystemExit("two ranks: the ranks' parameters differ after 2 steps")
+
+    # valid: rank 0's merged results against the single process's
+    if vb["stats"] is not None or va["stats"] is None or va["K1"] != 10 or vb["K1"] != 10:
+        raise SystemExit(f"two ranks valid: rank results {va['stats'] is not None}, "
+                         f"{vb['stats'] is not None}; K1 {va['K1']}, {vb['K1']}")
+    if files["one"] != files["two"] or len(results["one"]) != len(results["two"]) or not (
+            results["one"]):
+        raise SystemExit(f"two ranks valid: files {files}, persons {len(results['one'])} "
+                         f"and {len(results['two'])}")
+    kp_err = max(np.abs(np.array(x["keypoints"]) - np.array(y["keypoints"])).max()
+                 for x, y in zip(results["one"], results["two"]))
+    ids_same = [x["image_id"] for x in results["one"]] == [x["image_id"] for x in results["two"]]
+    if not (ids_same and kp_err <= 2e-3 and np.allclose(va["stats"], one, rtol=0, atol=1e-6)):
+        raise SystemExit(f"two ranks valid: image ids equal {ids_same}, keypoints within "
+                         f"{kp_err:.3e}, stats {va['stats']} against {list(one)}")
+    log(f"two ranks on one card (gloo): small cut, 2 steps on a global batch of 4: loss parts "
+        f"within 1e-4 of one process's, first-step gradients within {worst[0]:.3e} of its "
+        f"largest ({worst[1]}), parameters bit-identical across ranks {same}; launches a rank "
+        f"K2 {a['counts']['K2']}, K2b {a['counts']['K2b']}, G1 {a['counts']['G1']}; valid "
+        f"model_58_4 GAEC on 8 images: {len(results['two'])} persons merged on rank 0 equal "
+        f"to one process's (keypoints within {kp_err:.3e}), K1 10 a rank, no part file "
+        f"left; the ranks ran {ranks_s:.1f} s, the phase {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+    return {"K1": va["K1"] + vb["K1"], "K2": a["counts"]["K2"] + b["counts"]["K2"],
+            "K2b": a["counts"]["K2b"] + b["counts"]["K2b"],
+            "G1": a["counts"]["G1"] + b["counts"]["G1"]}
 
 
 def main() -> int:
@@ -2951,8 +3234,8 @@ def main() -> int:
     phase_small_tta()
 
     # 19. the eval entry point at full width: w48/640, scales [2.0, 1.0, 0.5]
-    # with flip, threshold decode on the card; 16 rendered images in two
-    # shapes, so two batches of 8
+    # with flip, threshold decode on the card; 8 rendered images of one
+    # shape, one batch of 8
     import tempfile
 
     from pemp_tpu_torch.data.synthetic import eval_scenes
@@ -2960,17 +3243,19 @@ def main() -> int:
     sizes = [(480, 640), (640, 480)] * 8
     rendered, dataset = eval_scenes(np.random.RandomState(7), sizes)
     with tempfile.TemporaryDirectory() as tmp:
-        eval_set = RenderedSet(tmp, rendered, dataset)
+        # the 8 images of 480x640 (one batch): cut from 16 in two shapes for
+        # the smoke's time limit when phases 40-41 came
+        eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         cfg = w48_640()
         cfg.merge_from_other({"TEST": {"FLIP_TEST": True, "SCALE_FACTOR": [2.0, 1.0, 0.5]}})
         valid_launches, _, _ = drive_valid("valid w48/640 multi-scale + flip", cfg, eval_set,
-                                           2, card, tmp)
+                                           1, card, tmp)
 
         # 20. model_58_4 as its file says: w32/512, one scale, no flip, GAEC
         # on the host through the g++ library built at first use
         cfg = w32_512_train()
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid score passes it
-        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 2, card, tmp)
+        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 1, card, tmp)
         valid_launches += count
         log(f"valid model_58_4 GAEC: host clustering and its decode {times['cluster']:.3f} s "
             f"of the staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
@@ -2985,6 +3270,7 @@ def main() -> int:
 
     # 23. the training entry point at full width: model_58_4 through train()
     counts = phase_train_entry(card)
+    single_ms = counts["device_ms"]
     k2_fwd += counts["K2"]
     k2_bwd += counts["K2b"]
     g1_launches += counts["G1"]
@@ -3015,9 +3301,10 @@ def main() -> int:
     g1_launches += numbers81["G1"]
 
     # 28. the AE-grouping entry point at full width: hg_512 (hg, hg2) and
-    # w32/512 with flip (hr) on phase 19's 16 rendered images
+    # w32/512 with flip (hr) on phase 19's 8 images, one batch (cut from 16
+    # for the time limit when phases 40-41 came)
     t0 = time.perf_counter()
-    phase_valid_hr(card, rendered, dataset)
+    phase_valid_hr(card, *landscape(rendered, dataset))
     log(f"chip_smoke: phase 28 done in {time.perf_counter() - t0:.1f} s")
 
     # 29-31. the ablation configurations: small cuts CPU against card, the
@@ -3078,6 +3365,22 @@ def main() -> int:
         g1_launches += counts["G1"]
     log(f"chip_smoke: phase 39 done in {time.perf_counter() - t0:.1f} s")
 
+    # 40-41. data parallelism: the training entry point under torchrun with
+    # NCCL, then two ranks on the one card under gloo against one process
+    t0 = time.perf_counter()
+    counts = phase_dp_train_entry(card, single_ms)
+    k2_fwd += counts["K2"]
+    k2_bwd += counts["K2b"]
+    g1_launches += counts["G1"]
+    log(f"chip_smoke: phase 40 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = phase_dp_two_ranks(card, rendered, dataset)
+    launches += counts["K1"]
+    k2_fwd += counts["K2"]
+    k2_bwd += counts["K2b"]
+    g1_launches += counts["G1"]
+    log(f"chip_smoke: phase 41 done in {time.perf_counter() - t0:.1f} s")
+
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
         "name": "fused_mpn_step", "route": "cuda",
@@ -3115,7 +3418,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-39 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-41 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

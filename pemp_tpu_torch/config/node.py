@@ -43,6 +43,10 @@ class ConfigNode(dict):
             raise KeyError(f"config key {name!r} does not exist (the port does not read it)")
         super().__setitem__(name, self._convert(value))
 
+    def __reduce__(self):
+        # pickles (to a spawned process) with each node's own flag
+        return ConfigNode, (dict(self), self.is_new_allowed())
+
     def is_new_allowed(self) -> bool:
         return object.__getattribute__(self, self._NEW_ALLOWED)
 

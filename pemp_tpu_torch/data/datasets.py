@@ -198,10 +198,15 @@ class DataLoader:
     epoch; with workers, at most ``2 * num_workers`` batches are in flight
     and they are yielded in order. Samples that draw from a shared
     ``RandomState`` (the augmentation) draw in thread order, as in the JAX
-    package; with ``num_workers=0`` the draws are in sample order."""
+    package; with ``num_workers=0`` the draws are in sample order.
+
+    ``shard=(r, W)``: the loader of rank r of W under data parallelism;
+    ``batch_size`` is the global batch, whose rows ``[r B / W, (r + 1) B /
+    W)`` it loads, and ``len`` counts global batches. Every rank draws the
+    same permutation."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=0,
-                 drop_last=True, seed=0, collate=None):
+                 drop_last=True, seed=0, collate=None, shard=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -209,6 +214,11 @@ class DataLoader:
         self.drop_last = drop_last
         self.rng = np.random.RandomState(seed)
         self.collate = collate or default_collate
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"batch size {batch_size} is not divisible by the {world} ranks")
+        rows = batch_size // world
+        self.rows = slice(rank * rows, (rank + 1) * rows)
 
     def __len__(self):
         n = len(self.dataset)
@@ -221,6 +231,7 @@ class DataLoader:
         batches = [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        batches = [b[self.rows] for b in batches]
         if self.num_workers <= 0:
             for b in batches:
                 yield self._load_batch(b)

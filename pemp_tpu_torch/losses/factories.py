@@ -12,11 +12,19 @@ the edge-only ``MPNLossFactory`` and ``MultiLossFactory``.
 ``dispatch_loss_func`` routes to them as the JAX package does. Every
 factory is called ``(outputs, labels, masks, graph)``; ``PureTagMultiLossFactory``
 with ``SYNC_TAGS`` reads the graph's nodes, the rest ignore it.
+
+Under data parallelism (parallel.distributed) every mean and every mask
+normaliser spans the global batch, as under the JAX package's sharded
+``jit``: a rank's loss is its own sum over the global denominator, so the
+ranks' losses sum to the loss of one process on the global batch. Without
+a process group they are the plain means.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pemp_tpu_torch.parallel.distributed import global_count, global_mean
 
 
 def sigmoid_bce_with_logits(logits, targets):
@@ -26,13 +34,14 @@ def sigmoid_bce_with_logits(logits, targets):
 
 def focal_loss(logits, targets, mask=None, alpha=1.0, gamma=2.0):
     """reference FocalLoss (loss.py:865-891): alpha * (1 - pt)^gamma * BCE,
-    mask-normalised mean (sum / mask.sum())."""
+    mask-normalised mean (sum / mask.sum(), the mask summed over the global
+    batch)."""
     bce = sigmoid_bce_with_logits(logits, targets)
     pt = torch.exp(-bce)
     f = alpha * (1 - pt) ** gamma * bce
     if mask is None:
-        return f.mean()
-    return (f * mask).sum() / torch.clamp(mask.sum(), min=1e-12)
+        return global_mean(f)
+    return (f * mask).sum() / torch.clamp(global_count(mask.sum()), min=1e-12)
 
 
 def bce_loss_with_logits(logits, targets, mask=None, pos_weight=None):
@@ -43,7 +52,7 @@ def bce_loss_with_logits(logits, targets, mask=None, pos_weight=None):
         bce = bce * mask
     if pos_weight is not None:
         bce = torch.where(targets == 1.0, bce * pos_weight, bce)
-    return bce.mean()
+    return global_mean(bce)
 
 
 def cross_entropy_with_logits(logits, targets, mask=None):
@@ -53,7 +62,7 @@ def cross_entropy_with_logits(logits, targets, mask=None):
     ce = -torch.gather(logp, 1, targets.long()[:, None])[:, 0]
     if mask is not None:
         ce = ce * mask
-    return ce.mean()
+    return global_mean(ce)
 
 
 def heatmap_loss(pred, gt, mask):
@@ -153,8 +162,8 @@ def _node_tag_loss(tag, labels, sel, max_people, loss_type, tags_sel=None, perso
     push, pull = node_ae_loss(tag, torch.where(tags_sel, person, torch.full_like(person, -1)),
                               batch_index, tags_sel, num_images=int(labels["num_images"]),
                               max_people=max_people, loss_type=loss_type)
-    total = push.mean() + pull.mean()
-    return torch.where(sel.sum() > 0, total, torch.zeros_like(total))
+    total = global_mean(push) + global_mean(pull)
+    return torch.where(global_count(sel.sum()) > 0, total, torch.zeros_like(total))
 
 
 def _positive_nodes(labels, masks):
@@ -210,7 +219,7 @@ class _HeatmapAE:
                 if idx < len(self.with_heatmaps_loss) and self.with_heatmaps_loss[idx]:
                     hl = heatmap_loss(pred[..., :self.num_joints], labels["heatmap"][idx],
                                       masks["heatmap"][idx])
-                    heatmap_total = heatmap_total + hl.mean() * self.heatmaps_loss_factor[idx]
+                    heatmap_total = heatmap_total + global_mean(hl) * self.heatmaps_loss_factor[idx]
         ae_total = 0.0
         if self.with_tagmap:
             for idx, pred in enumerate(outputs["heatmap"]):
@@ -219,8 +228,8 @@ class _HeatmapAE:
                     # flattened in the reference's CHW order: (J, H, W)
                     flat = tags.permute(0, 3, 1, 2).reshape(tags.shape[0], -1)
                     push, pull = ae_loss(flat, labels["tag"][idx], self.ae_loss_type)
-                    ae_total = (ae_total + push.mean() * self.push_factor[idx]
-                                + pull.mean() * self.pull_factor[idx])
+                    ae_total = (ae_total + global_mean(push) * self.push_factor[idx]
+                                + global_mean(pull) * self.pull_factor[idx])
         return heatmap_total, ae_total
 
 

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pemp_tpu_torch.parallel import distributed
+
 
 class Conv2d(nn.Conv2d):
     """Conv2d that computes in its input's dtype."""
@@ -50,7 +52,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     false``) it normalises by the batch's mean and biased variance and
     moves the running statistics towards them as flax does: ``r = 0.9 r +
     0.1 s`` with the *biased* variance, where torch's own update takes the
-    unbiased one."""
+    unbiased one. Under data parallelism the batch's moments are the
+    global batch's: the sums and the count are summed over the ranks."""
 
     def forward(self, x):
         xf = x if x.dtype == torch.float64 else x.float()
@@ -61,7 +64,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         # two-pass statistics, differentiated through: torch's CPU
         # batch_norm in training mode loses precision to cancellation on one
         # thread (and flax's E[x^2] - E[x]^2 does in float32)
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        mean, var, _ = distributed.global_moments(xf)
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean.to(torch.float32))
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var.to(torch.float32))

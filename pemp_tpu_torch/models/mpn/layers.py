@@ -40,6 +40,7 @@ from pemp_tpu_torch.ops.segment import (
     segment_aggregate,
 )
 from pemp_tpu_torch.ops.typed_message import fused_typed_message_aggregate
+from pemp_tpu_torch.parallel import distributed
 
 # COCO joint order: nose, eye_l, eye_r, ear_l, ear_r, sho_l, sho_r, elb_l,
 # elb_r, wri_l, wri_r, hip_l, hip_r, kne_l, kne_r, ank_l, ank_r
@@ -159,8 +160,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
 
     In training mode the statistics are taken over the rows ``valid``
     marks: the biased variance normalises, the unbiased one enters the
-    running update, momentum 0.1, so padding never touches either. In eval
-    mode the running statistics are read.
+    running update, momentum 0.1, so padding never touches either. Under
+    data parallelism the weighted sums and the count are summed over the
+    ranks, so the moments are the global batch's, as under the JAX
+    package's sharded step. In eval mode the running statistics are read.
     """
 
     def __init__(self, features: int):
@@ -169,10 +172,7 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     def forward(self, x, valid=None):
         xf = x if x.dtype == torch.float64 else x.float()
         if self.training:
-            w = valid.to(xf.dtype)[:, None]
-            count = torch.clamp(w.sum(), min=1.0)
-            mean = (xf * w).sum(dim=0) / count
-            var = (torch.square(xf - mean) * w).sum(dim=0) / count
+            mean, var, count = distributed.global_moments(xf, valid)
             with torch.no_grad():
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)

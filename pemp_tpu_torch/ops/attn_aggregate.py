@@ -140,9 +140,11 @@ def _launch_forward(b, a, types, valid, logits, num_nodes, num_types):
     c = _checked(b, a, types, valid, logits, num_nodes, num_types)
     fn = _fn("pemp_attn_aggregate_fwd", _FWD_ARGTYPES)
     out = torch.empty((num_nodes, num_types, _WIDTH), dtype=torch.float32, device=b.device)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    err = fn(_ptr(b), _ptr(a), _ptr(types), _ptr(valid), _ptr(logits), _ptr(out),
-             num_nodes, c, num_types, _DTYPES[b.dtype], ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        err = fn(_ptr(b), _ptr(a), _ptr(types), _ptr(valid), _ptr(logits), _ptr(out),
+                 num_nodes, c, num_types, _DTYPES[b.dtype], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K3 (attention aggregation forward) failed to launch: error {err}")
     LAUNCHES_FWD += 1
@@ -161,9 +163,11 @@ def _launch_backward(b, a, types, valid, logits, g, num_nodes, num_types):
     db = torch.empty_like(b)                       # all three written whole by K3b
     dlogit = torch.empty_like(logits)
     da = torch.empty_like(a)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    err = fn(_ptr(b), _ptr(a), _ptr(types), _ptr(valid), _ptr(logits), _ptr(g), _ptr(db),
-             _ptr(da), _ptr(dlogit), num_nodes, c, num_types, ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        err = fn(_ptr(b), _ptr(a), _ptr(types), _ptr(valid), _ptr(logits), _ptr(g), _ptr(db),
+                 _ptr(da), _ptr(dlogit), num_nodes, c, num_types, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K3b (attention aggregation backward) failed to launch: error {err}")
     LAUNCHES_BWD += 1

@@ -111,9 +111,11 @@ def _launch_forward(m, attn, types, valid, num_nodes, num_types):
     c = _checked(m, attn, types, valid, num_nodes, num_types)
     fn = _fn("pemp_blocked_attn_fwd", _ARGTYPES)
     out = torch.empty((num_nodes, num_types, _WIDTH), dtype=m.dtype, device=m.device)
-    stream = torch.cuda.current_stream(m.device).cuda_stream
-    err = fn(_ptr(m), _ptr(attn), _ptr(types), _ptr(valid), _ptr(out), num_nodes, c, num_types,
-             _DTYPES[m.dtype], ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        err = fn(_ptr(m), _ptr(attn), _ptr(types), _ptr(valid), _ptr(out), num_nodes, c, num_types,
+                 _DTYPES[m.dtype], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K4 (blocked attention aggregate) failed to launch: error {err}")
     LAUNCHES += 1
@@ -131,9 +133,11 @@ def _launch_backward(m, attn, types, valid, g, num_nodes, num_types):
     fn = _fn("pemp_blocked_attn_bwd", _BWD_ARGTYPES)
     dm = torch.empty_like(m)                       # both written whole by K4b
     dlogit = torch.empty_like(attn)
-    stream = torch.cuda.current_stream(m.device).cuda_stream
-    err = fn(_ptr(m), _ptr(attn), _ptr(types), _ptr(valid), _ptr(g), _ptr(dm), _ptr(dlogit),
-             num_nodes, c, num_types, ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        err = fn(_ptr(m), _ptr(attn), _ptr(types), _ptr(valid), _ptr(g), _ptr(dm), _ptr(dlogit),
+                 num_nodes, c, num_types, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K4b (blocked attention backward) failed to launch: error {err}")
     LAUNCHES_BWD += 1

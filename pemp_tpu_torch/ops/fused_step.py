@@ -161,14 +161,16 @@ def _launch(p, h_node, q, cur, a, src_local, types, valid,
         fn.restype = ctypes.c_int
     ne = torch.empty((e, de), dtype=dtype, device=cur.device)
     out = torch.empty((n, t_, w), dtype=torch.float32, device=cur.device)
-    stream = torch.cuda.current_stream(cur.device).cuda_stream
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    err = fn(
-        _DTYPES[dtype], ptr(p), ptr(h_node), ptr(q), ptr(cur), ptr(a),
-        ptr(src_local), ptr(types), ptr(valid), ptr(w_cur), ptr(w_e1), ptr(b_e1),
-        ptr(we), ptr(w_attn), ptr(ne), ptr(out), n, c, t_, nodes_per_image,
-        ctypes.c_void_p(stream),
-    )
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream(cur.device).cuda_stream
+        ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+        err = fn(
+            _DTYPES[dtype], ptr(p), ptr(h_node), ptr(q), ptr(cur), ptr(a),
+            ptr(src_local), ptr(types), ptr(valid), ptr(w_cur), ptr(w_e1), ptr(b_e1),
+            ptr(we), ptr(w_attn), ptr(ne), ptr(out), n, c, t_, nodes_per_image,
+            ctypes.c_void_p(stream),
+        )
     if err != 0:
         raise RuntimeError(f"fused_mpn_step kernel failed to launch: error {err}")
     LAUNCHES += 1

@@ -137,9 +137,11 @@ def gather_rows_bwd(g, plan, num_rows: int, dtype):
     fn = _build.function("gather_rows", "pemp_gather_rows_bwd", _ARGTYPES)
     parts = torch.empty((pieces, d), dtype=torch.float32, device=g.device)   # each written once
     dx = torch.empty((num_rows, d), dtype=dtype, device=g.device)           # written whole
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (g, order, bounds, row_pieces, parts, dx)),
-             num_rows, pieces, d, _DTYPES[dtype], ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        ptrs = (ctypes.c_void_p(t.data_ptr()) for t in (g, order, bounds, row_pieces, parts, dx))
+        err = fn(*ptrs, num_rows, pieces, d, _DTYPES[dtype], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"G1 (gather backward) failed to launch: error {err}")
     LAUNCHES += 1

@@ -126,9 +126,11 @@ def _launch_forward(ef, a, types, valid, we, w_attn, num_nodes, num_types):
     _, c = _checked(ef, a, types, valid, we, w_attn, num_nodes, num_types)
     fn = _fn("pemp_typed_message_fwd", _FWD_ARGTYPES)
     out = torch.empty((num_nodes, num_types, _WIDTH), dtype=torch.float32, device=ef.device)
-    stream = torch.cuda.current_stream(ef.device).cuda_stream
-    err = fn(_ptr(ef), _ptr(a), _ptr(types), _ptr(valid), _ptr(we), _ptr(w_attn), _ptr(out),
-             num_nodes, c, num_types, _DTYPES[ef.dtype], ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(ef.device):
+        stream = torch.cuda.current_stream(ef.device).cuda_stream
+        err = fn(_ptr(ef), _ptr(a), _ptr(types), _ptr(valid), _ptr(we), _ptr(w_attn), _ptr(out),
+                 num_nodes, c, num_types, _DTYPES[ef.dtype], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K2 (typed message forward) failed to launch: error {err}")
     LAUNCHES_FWD += 1
@@ -153,10 +155,12 @@ def _launch_backward(ef, a, types, valid, we, w_attn, g, num_nodes, num_types):
     # by the second launch: no atomics, the same bits on every run
     ws_we = torch.empty((chunks, num_types, _WIDTH, _WIDTH), dtype=torch.float32, device=dev)
     ws_wa = torch.empty((chunks, num_types, _WIDTH), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_ptr(ef), _ptr(a), _ptr(types), _ptr(valid), _ptr(we), _ptr(w_attn), _ptr(g),
-             _ptr(d_ef), _ptr(da), _ptr(dwe), _ptr(dwa), _ptr(ws_we), _ptr(ws_wa),
-             num_nodes, c, num_types, _CHUNK, ctypes.c_void_p(stream))
+    # launch on the tensors' card, whichever is current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_ptr(ef), _ptr(a), _ptr(types), _ptr(valid), _ptr(we), _ptr(w_attn), _ptr(g),
+                 _ptr(d_ef), _ptr(da), _ptr(dwe), _ptr(dwa), _ptr(ws_we), _ptr(ws_wa),
+                 num_nodes, c, num_types, _CHUNK, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"K2b (typed message backward) failed to launch: error {err}")
     LAUNCHES_BWD += 1

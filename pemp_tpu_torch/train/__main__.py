@@ -29,24 +29,42 @@ and the validation loss is logged.
 As in ``tools/train.py``, the learning-rate schedule counts
 ``--steps-per-epoch`` (or 1000) updates an epoch also on a real set, whose
 epochs have ``len(loader)`` steps. Runs on CUDA unless given ``--device
-cpu``.
+cpu``. At the end rank 0 prints one JSON line ``{"train": {...}}``: steps,
+skipped steps, the last epoch's device ms a step and, under data
+parallelism, the gradients' packing and all-reduce ms a step, peak GiB
+and the kernels' launches.
+
+Launched by torchrun, Slurm or MPI (parallel.distributed), it trains data
+parallel, one process per card, as tools/train.py's sharded step:
+
+    torchrun --nproc_per_node=8 -m pemp_tpu_torch.train <config> [...]
+
+Every rank draws the same permutation (or synthetic scenes) and takes its
+rows of each global batch of ``TRAIN.BATCH_SIZE`` (which the world must
+divide); an epoch still has ``len(loader)`` global batches. Rank 0 logs,
+prints and writes the checkpoints; every rank loads ``TRAIN.CONTINUE``
+onto its card, and rank 0's weights are broadcast before the first step.
+The augmentation draws of a rank's rows are not those one process would
+draw for them (with loader threads they follow thread order already).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+from pemp_tpu_torch import ops
 from pemp_tpu_torch.config import load_config, update_config_command
 from pemp_tpu_torch.data.datasets import CocoKeypoints, CrowdPoseKeypoints, DataLoader
 from pemp_tpu_torch.data.synthetic import make_batch
 from pemp_tpu_torch.data.targets import HeatmapGenerator, JointsGenerator
 from pemp_tpu_torch.data.transforms import transforms_hr_train
-from pemp_tpu_torch.models.pose_estimation import resolve_device
+from pemp_tpu_torch.parallel import distributed
 from pemp_tpu_torch.train.checkpoint import load_checkpoint, load_params_only, save_checkpoint
 from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
 from pemp_tpu_torch.utils.logger import Logger
@@ -59,7 +77,8 @@ MAX_FAILED_STEPS = 5
 class SyntheticLoader:
     """``steps`` batches of generated scenes an epoch, drawn from one
     ``RandomState(seed)`` across epochs (tools/train.py's
-    make_synthetic_loader)."""
+    make_synthetic_loader); under data parallelism each rank draws the
+    global batch and keeps its rows."""
 
     def __init__(self, config, steps: int, seed: int = 0):
         self.rng = np.random.RandomState(seed)
@@ -73,14 +92,15 @@ class SyntheticLoader:
 
     def __iter__(self):
         for _ in range(self.steps):
-            yield make_batch(self.rng, *self.args)
+            yield distributed.shard_rows(make_batch(self.rng, *self.args))
 
 
 def make_coco_loaders(config):
     """The training loader and the per-epoch validation loader (None for
     CrowdPose, or when COCO's val2017 annotations are missing); tools/
     train.py's make_coco_loaders (reference: train.py:20-102). The
-    augmentation draws from the global ``np.random``."""
+    augmentation draws from the global ``np.random``. Under data
+    parallelism each rank loads its rows of every global batch."""
     out_sizes = list(config.DATASET.OUTPUT_SIZE)
     nj = config.DATASET.NUM_JOINTS
     hm = [HeatmapGenerator(s, nj) for s in out_sizes]
@@ -98,10 +118,22 @@ def make_coco_loaders(config):
         try:
             val_set = CocoKeypoints(config.DATASET.ROOT, mini=True, mode="val", transforms=tf,
                                     heatmap_generator=hm, joint_generator=jg, num_joints=nj)
-            val_loader = DataLoader(val_set, bs, shuffle=False, num_workers=workers)
+            val_loader = DataLoader(val_set, bs, shuffle=False, num_workers=workers,
+                                    shard=(distributed.rank(), distributed.world()))
         except FileNotFoundError:
             val_loader = None
-    return DataLoader(train_set, bs, shuffle=True, num_workers=workers), val_loader
+    return DataLoader(train_set, bs, shuffle=True, num_workers=workers,
+                      shard=(distributed.rank(), distributed.world())), val_loader
+
+
+class _Silent:
+    """The logger of a rank other than 0."""
+
+    def log_loss(self, *args, **kwargs):
+        pass
+
+    log_vars = log_loss
+    close = log_loss
 
 
 def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int = 1000,
@@ -114,7 +146,9 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
     overrides ``TRAIN.END_EPOCH``; ``on_step(trainer, it, loss, logging)``
     is called after each step. Logs and checkpoints go to ``log_dir``
     (``LOG_DIR`` when None) unless ``MODEL.PRETRAINED`` names the
-    checkpoint.
+    checkpoint. Under data parallelism each rank calls it with a loader of
+    its rows of the global batches and its ``device``; the losses are the
+    global batch's on every rank, and only rank 0 logs, prints and writes.
 
     Returns a summary: ``start_epoch``, ``end_epoch``, ``aborted``,
     ``ckpt_path``, the per-step ``losses``, ``val_losses`` by epoch,
@@ -124,15 +158,20 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
     synchronise), of waiting for batches (``loader_s``: the loader and the
     copy to the device) and in the steps (``step_s``), and on CUDA the
     device time between the start and end of each step summed
-    (``device_s``).
+    (``device_s``), and under data parallelism that of packing the
+    gradients into one buffer (``pack_s``) and of its all-reduce
+    (``allreduce_s``).
     """
+    main = distributed.is_main()
+    say = print if main else (lambda *args, **kwargs: None)
     log_dir = log_dir or config.LOG_DIR or "log"
     os.makedirs(log_dir, exist_ok=True)
-    logger = Logger(log_dir)
+    logger = Logger(log_dir) if main else _Silent()
+    rows = distributed.local_rows(config.TRAIN.BATCH_SIZE)
     trainer = build_trainer(config, device=device, seed=seed, steps_per_epoch=schedule_steps)
     model = trainer.model
     dev = next(model.parameters()).device
-    print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+    say(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
 
     start_epoch = config.TRAIN.START_EPOCH
     ckpt_path = config.MODEL.PRETRAINED or os.path.join(log_dir, "pose_estimation.ckpt")
@@ -144,19 +183,21 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
             # range(start_epoch, end_epoch) does
             start_epoch, trainer.steps = load_checkpoint(config.TRAIN.CONTINUE, model,
                                                          trainer.optimizer)
+    distributed.broadcast_state(model)
 
     end_epoch = epochs if epochs is not None else config.TRAIN.END_EPOCH
     steps_per_epoch = len(loader)
     summary = {"start_epoch": start_epoch, "end_epoch": end_epoch, "aborted": False,
                "ckpt_path": ckpt_path, "losses": [], "val_losses": {}, "epochs": []}
     cuda = dev.type == "cuda"
-    print("#####Begin Training#####")
+    say("#####Begin Training#####")
     for epoch in range(start_epoch, end_epoch):
         if summary["aborted"]:
             break
         t_epoch = time.time()
         timing = {"epoch": epoch, "steps": 0, "loader_s": 0.0, "step_s": 0.0}
         events = []
+        trainer.reduce_events = [] if cuda else None
         t_loop = time.perf_counter()
         batches = iter(loader)
         i = 0
@@ -165,6 +206,9 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
             batch = next(batches, None)
             if batch is None:
                 break
+            if distributed.active() and len(batch["imgs"]) != rows:
+                raise ValueError(f"rank {distributed.rank()} got a batch of {len(batch['imgs'])} "
+                                 f"rows; it holds {rows} of each global batch")
             batch = batch_to_torch(batch, dev)
             t1 = time.perf_counter()
             if cuda:
@@ -186,23 +230,31 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
                 logger.log_loss(float(loss), "Loss/train", it)
                 logger.log_vars("Loss/parts", it, **parts)
                 text = " ".join(f"{k}:{v:.4f}" for k, v in parts.items())
-                print(f"Iter: {it}, loss: {float(loss):.6f} | {text}", flush=True)
+                say(f"Iter: {it}, loss: {float(loss):.6f} | {text}", flush=True)
                 if trainer.fail_count >= MAX_FAILED_STEPS:
-                    print("Stopping training due to large amount of failed (non-finite) "
-                          f"steps: {trainer.fail_count}")
+                    say("Stopping training due to large amount of failed (non-finite) "
+                        f"steps: {trainer.fail_count}")
                     summary["aborted"] = True
                     break
             i += 1
         if cuda:
             torch.cuda.synchronize()
             timing["device_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            if distributed.active():
+                timing["pack_s"] = sum(a.elapsed_time(b)
+                                       for a, b, _ in trainer.reduce_events) / 1e3
+                timing["allreduce_s"] = sum(b.elapsed_time(c)
+                                            for _, b, c in trainer.reduce_events) / 1e3
+        trainer.reduce_events = None
         timing["seconds"] = time.perf_counter() - t_loop
         summary["epochs"].append(timing)
 
-        save_checkpoint(ckpt_path, model, trainer.optimizer, epoch, trainer.steps)
-        if epoch + 1 in list(config.TRAIN.LR_STEP):
-            save_checkpoint(f"{ckpt_path}.epoch{epoch}", model, trainer.optimizer, epoch,
-                            trainer.steps)
+        if main:
+            save_checkpoint(ckpt_path, model, trainer.optimizer, epoch, trainer.steps)
+            if epoch + 1 in list(config.TRAIN.LR_STEP):
+                save_checkpoint(f"{ckpt_path}.epoch{epoch}", model, trainer.optimizer, epoch,
+                                trainer.steps)
+        distributed.barrier()
         # per-epoch validation with the same loss plumbing, no gradients
         # (reference: train.py:351-495)
         if val_loader is not None:
@@ -211,8 +263,8 @@ def train(config, loader, val_loader=None, log_dir=None, *, schedule_steps: int 
             if val_losses:
                 summary["val_losses"][epoch] = float(np.mean(val_losses))
                 logger.log_loss(summary["val_losses"][epoch], "Loss/valid", epoch)
-                print(f"epoch {epoch} val loss: {summary['val_losses'][epoch]:.5f}")
-        print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s -> {ckpt_path}", flush=True)
+                say(f"epoch {epoch} val loss: {summary['val_losses'][epoch]:.5f}")
+        say(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s -> {ckpt_path}", flush=True)
     logger.close()
     summary["fail_count"] = trainer.fail_count
     summary["steps"] = trainer.steps
@@ -230,23 +282,37 @@ def main(argv=None) -> int:
     p.add_argument("--msg-pass", help="TPU.MSG_PASS (the config's value by default)")
     args, options = p.parse_known_args(argv)
 
-    resolve_device(args.device)
-    config = update_config_command(load_config(args.config), options)
-    if args.msg_pass:
-        config.TPU.MSG_PASS = args.msg_pass
-    np.random.seed(args.seed)
-    log_dir = config.LOG_DIR or f"log/{args.config.replace('/', '_')}"
-    schedule_steps = args.steps_per_epoch or 1000
-    if args.synthetic:
-        loader, val_loader = SyntheticLoader(config, schedule_steps, args.seed), None
-    else:
-        loader, val_loader = make_coco_loaders(config)
-    t0 = time.perf_counter()
-    summary = train(config, loader, val_loader, log_dir, schedule_steps=schedule_steps,
-                    epochs=args.epochs, device=args.device, seed=args.seed)
-    steps = sum(e["steps"] for e in summary["epochs"])
-    print(f"{steps} steps in {time.perf_counter() - t0:.3f} s (batch "
-          f"{config.TRAIN.BATCH_SIZE}); skipped steps {summary['fail_count']}")
+    with distributed.process_group(args.device) as device:
+        config = update_config_command(load_config(args.config), options)
+        if args.msg_pass:
+            config.TPU.MSG_PASS = args.msg_pass
+        distributed.local_rows(config.TRAIN.BATCH_SIZE)
+        np.random.seed(args.seed)
+        log_dir = config.LOG_DIR or f"log/{args.config.replace('/', '_')}"
+        schedule_steps = args.steps_per_epoch or 1000
+        if args.synthetic:
+            loader, val_loader = SyntheticLoader(config, schedule_steps, args.seed), None
+        else:
+            loader, val_loader = make_coco_loaders(config)
+        t0 = time.perf_counter()
+        summary = train(config, loader, val_loader, log_dir, schedule_steps=schedule_steps,
+                        epochs=args.epochs, device=device, seed=args.seed)
+        if distributed.is_main():
+            steps = sum(e["steps"] for e in summary["epochs"])
+            print(f"{steps} steps in {time.perf_counter() - t0:.3f} s (batch "
+                  f"{config.TRAIN.BATCH_SIZE} over {distributed.world()} rank(s)); skipped steps "
+                  f"{summary['fail_count']}")
+            last = summary["epochs"][-1] if summary["epochs"] else {}
+            per_step = 1e3 / max(last.get("steps", 0), 1)
+            print(json.dumps({"train": {
+                "world": distributed.world(), "steps": steps,
+                "skipped": summary["fail_count"], "losses": summary["losses"],
+                "device_ms_a_step": last.get("device_s", float("nan")) * per_step,
+                "pack_ms_a_step": last.get("pack_s", float("nan")) * per_step,
+                "allreduce_ms_a_step": last.get("allreduce_s", float("nan")) * per_step,
+                "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                             if device.type == "cuda" else None),
+                "launches": ops.launch_counts()}}), flush=True)
     return 1 if summary["aborted"] else 0
 
 

@@ -11,6 +11,14 @@ state and BatchNorm statistics on a skipped step. Here the forward updates
 the MPN's running statistics in place, so the step snapshots them first
 and puts them back on a skip; parameters and optimizer state are left
 alone, because the finiteness test comes before the update.
+
+Under data parallelism (parallel.distributed; the JAX package's
+``shard_train_step``) each rank steps on its rows of the global batch: the
+BatchNorm moments and the loss normalisers are global in the forward, and
+after the backward one all-reduce sums the updated parameters' gradients,
+the loss and its parts and the ranks' non-finite flags. Every rank then
+holds the global batch's gradient and loss, and all take the same update
+or all skip it, so the parameters stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +27,13 @@ import torch
 
 from pemp_tpu_torch.config.defaults import msg_pass_route, plain_route, unblocked_by
 from pemp_tpu_torch.losses.factories import mask_node_connections
+from pemp_tpu_torch.parallel import distributed
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A loss part as a tensor on ``like``'s device (a Python number is
+    filled there, not copied from the host)."""
+    return v.detach() if torch.is_tensor(v) else like.new_full((), float(v))
 
 
 def _running_stats(model: torch.nn.Module) -> dict:
@@ -50,6 +65,10 @@ class TrainStep:
         self.fail_count = 0
         self.steps = 0
         self.last_output = None   # labels and validity of the last step
+        # a list to gather the CUDA events of each step's gradient
+        # all-reduce in (before and after its packing, after the
+        # all-reduce; train() sets it); None records nothing
+        self.reduce_events = None
 
     def loss(self, batch, train: bool = True):
         """Forward and loss (pemp_tpu/train/train_step.py:56-96); returns
@@ -98,6 +117,8 @@ class TrainStep:
         finite = torch.isfinite(loss)
         if grads:
             finite = finite & torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if distributed.active():
+            loss, logging, finite = self._all_reduce(loss, logging, finite)
         if bool(finite):
             self.optimizer.step()
         else:
@@ -115,11 +136,36 @@ class TrainStep:
         logging["skipped"] = torch.tensor(0.0 if bool(finite) else 1.0)
         return loss.detach(), logging
 
+    def _all_reduce(self, loss, logging, finite):
+        """One all-reduce of the updated parameters' gradients (zeros where
+        a rank has none, as SplitAdamW's step fills them), the loss, its
+        parts and the non-finite flags. Sets each gradient to its sum and
+        returns the summed (loss, logging, finite)."""
+        params = [p for group in self.optimizer.opt.param_groups for p in group["params"]]
+        keys = list(logging)
+        dev = loss.device
+        parts = [_scalar(logging[k], loss) for k in keys]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        marks = None
+        if self.reduce_events is not None and dev.type == "cuda":
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            self.reduce_events.append(marks)
+        sums = distributed.all_sum_flat([loss.detach(), (~finite).to(loss.dtype), *parts,
+                                         *grads], marks)
+        loss, flags, parts, grads = sums[0], sums[1], sums[2: 2 + len(keys)], sums[2 + len(keys):]
+        for p, g in zip(params, grads):
+            p.grad = g
+        # a rank whose loss or any gradient is not finite makes every rank skip
+        return loss, dict(zip(keys, parts)), (flags == 0) & torch.isfinite(loss)
+
     @torch.no_grad()
     def eval_step(self, batch):
-        """The validation loss of ``batch``: (loss, logging), no update."""
+        """The validation loss of ``batch``: (loss, logging), no update;
+        under data parallelism summed over the ranks."""
         loss, logging, _ = self.loss(batch, train=False)
-        return loss, {k: (v if torch.is_tensor(v) else torch.tensor(v)) for k, v in logging.items()}
+        keys = list(logging)
+        sums = distributed.all_sum_flat([loss, *(_scalar(logging[k], loss) for k in keys)])
+        return sums[0], dict(zip(keys, sums[1:]))
 
 
 def batch_to_torch(batch: dict, device) -> dict:

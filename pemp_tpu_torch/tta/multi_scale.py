@@ -23,6 +23,12 @@ largest scale's, at score-map resolution (``INPUT_SIZE / max(OUTPUT_SIZE)``,
 4 for the Hourglass; reference: PoseEstimationHourglass.py:111-147).
 ``maps_only`` stops at the aggregated heat and tag maps, for the
 AE-grouping entry point, whose model has no graph or MPN.
+
+The JAX pipeline can fan each batch out over a process's local devices
+(its ``mesh``, pemp_tpu/tta/multi_scale.py:119-127). Here a pipeline runs
+on its model's one card; several cards are several processes, among which
+the entry points share the images (parallel.distributed, ``valid``,
+``valid_hr``).
 """
 
 from __future__ import annotations

@@ -22,6 +22,14 @@ VALUE`` pairs override it (``TEST.FLIP_TEST True``). ``--msg-pass`` sets
 ``TPU.MSG_PASS``. Weights come from ``MODEL.PRETRAINED`` (a torch
 checkpoint; train.checkpoint.load_params_only) or, when it is empty or
 missing, are seeded random ones. Runs on CUDA unless given ``--device cpu``.
+
+Launched by torchrun, Slurm or MPI (parallel.distributed), one process per
+card, each rank evaluates the interleaved images ``shard_indices`` gives
+it and writes its results to ``<LOG_DIR>/eval_<split>.part<r>.json``;
+after a barrier rank 0 merges the parts, removes them, scores and writes
+the report, as tools/valid.py's processes do:
+
+    torchrun --nproc_per_node=8 -m pemp_tpu_torch.valid --config C --out_file F
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from pemp_tpu_torch.decode.assembly import decode_poses
 from pemp_tpu_torch.decode.format import persons_to_ann
 from pemp_tpu_torch.eval.writer import EvalWriter
 from pemp_tpu_torch.models.pose_estimation import build_pose_model
+from pemp_tpu_torch.parallel import distributed
+from pemp_tpu_torch.parallel.eval_shard import gather_parts, shard_indices
 from pemp_tpu_torch.pipeline import init_random_weights
 from pemp_tpu_torch.train.checkpoint import load_params_only
 from pemp_tpu_torch.tta.multi_scale import TTAPipeline
@@ -146,6 +156,10 @@ def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int
     ``stage_times``, when a dict, gathers the seconds of each stage: the
     pipeline's (TTAPipeline), ``cluster`` (host grouping of any kind) and
     ``scoring``.
+
+    Under data parallelism each rank evaluates its interleaved share of the
+    images and rank 0 merges, scores and writes; the other ranks return
+    None.
     """
     cc_method = config.MODEL.GC.CC_METHOD
     # a tag-regression MPN groups by its tags on the host: no card decode
@@ -153,11 +167,13 @@ def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int
     pipe = TTAPipeline(model, config, with_decode=cc_method == "threshold" and not has_tag)
     pipe.stage_times = stage_times
     split = config.TEST.SPLIT
-    writer = None if split == "test-dev2017" else EvalWriter(config, fname=out_file)
+    main = distributed.is_main()
+    writer = None if split == "test-dev2017" or not main else EvalWriter(config, fname=out_file)
     n = len(eval_set) if max_images is None else min(max_images, len(eval_set))
+    mine = shard_indices(n, distributed.world(), distributed.rank())
     anns, eval_ids, dur_kpt, dur_constr = [], [], [], []
-    for w0 in range(0, n, window):
-        idxs = range(w0, min(w0 + window, n))
+    for w0 in range(0, len(mine), window):
+        idxs = mine[w0: w0 + window]
         images = [np.asarray(eval_set.load_raw(i)[3]) for i in idxs]
         t0 = time.perf_counter()
         outs = pipe.run_batched(images, batch_size=batch_size)
@@ -190,10 +206,15 @@ def evaluate(config, model, eval_set, out_file, max_images=None, batch_size: int
             dur_constr.append(time.perf_counter() - t0)
             if ann is not None:
                 anns.append(ann)
-            if (i + 1) % 50 == 0:
-                print(f"{i + 1}/{n} images, {np.mean(dur_kpt[-50:]):.3f}s/img fwd")
+            if len(eval_ids) % 50 == 0:
+                print(f"{len(eval_ids)}/{len(mine)} images, {np.mean(dur_kpt[-50:]):.3f}s/img "
+                      f"fwd")
 
     t0 = time.perf_counter()
+    if distributed.world() > 1:
+        anns, eval_ids = gather_parts(config.LOG_DIR, f"eval_{split}", anns, eval_ids)
+        if not main:
+            return None
     if writer is None:
         os.makedirs(config.LOG_DIR, exist_ok=True)
         with open(os.path.join(config.LOG_DIR,
@@ -220,21 +241,22 @@ def main(argv=None):
     p.add_argument("options", nargs=argparse.REMAINDER, default=None)
     args = p.parse_args(argv)
 
-    config = update_config_command(load_config(args.config), args.options or [])
-    if args.msg_pass:
-        config.TPU.MSG_PASS = args.msg_pass
-    if not config.LOG_DIR:
-        config.LOG_DIR = "tmp"
-    model = build_pose_model(config, dtype=torch.float32, device=args.device, path="valid")
-    pretrained = config.MODEL.PRETRAINED
-    if pretrained and os.path.exists(pretrained):
-        load_params_only(pretrained, model)
-        print(f"loaded checkpoint {pretrained}")
-    else:
-        warnings.warn("no checkpoint found, evaluating random weights", stacklevel=1)
-        init_random_weights(model, 0)
-    return evaluate(config, model, eval_set_for(config), args.out_file,
-                    max_images=args.max_images)
+    with distributed.process_group(args.device) as device:
+        config = update_config_command(load_config(args.config), args.options or [])
+        if args.msg_pass:
+            config.TPU.MSG_PASS = args.msg_pass
+        if not config.LOG_DIR:
+            config.LOG_DIR = "tmp"
+        model = build_pose_model(config, dtype=torch.float32, device=device, path="valid")
+        pretrained = config.MODEL.PRETRAINED
+        if pretrained and os.path.exists(pretrained):
+            load_params_only(pretrained, model)
+            print(f"loaded checkpoint {pretrained}")
+        else:
+            warnings.warn("no checkpoint found, evaluating random weights", stacklevel=1)
+            init_random_weights(model, 0)
+        return evaluate(config, model, eval_set_for(config), args.out_file,
+                        max_images=args.max_images)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,11 @@ and ``hourglass/hg_512`` are this entry point's) and any other name from
 model, whose backbone part is read; train.checkpoint.load_params_only) or,
 when it is empty or missing, are seeded random ones. Runs on CUDA unless
 given ``--device cpu``.
+
+Launched by torchrun, Slurm or MPI (parallel.distributed), one process per
+card (the JAX package fans each batch out over a process's local devices
+instead), each rank evaluates its interleaved share of the images and rank
+0 merges both groupings' results and scores them, as ``valid`` does.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from pemp_tpu_torch.decode.group_hg import HeatmapParserHG, HeatmapParserHG2
 from pemp_tpu_torch.eval.writer import EvalWriter
 from pemp_tpu_torch.geometry.affine import reverse_affine_map
 from pemp_tpu_torch.models.ae_group import build_ae_group_model
+from pemp_tpu_torch.parallel import distributed
+from pemp_tpu_torch.parallel.eval_shard import gather_parts, shard_indices
 from pemp_tpu_torch.pipeline import init_random_weights
 from pemp_tpu_torch.train.checkpoint import load_params_only
 from pemp_tpu_torch.tta.multi_scale import TTAPipeline
@@ -101,15 +108,21 @@ def evaluate(config, model, eval_set, out_file, parser: str = "hr", max_images=N
     ``stage_times``, when a dict, gathers the seconds of each stage: the
     pipeline's (TTAPipeline) and ``parse`` (both host groupings and the
     reverse map).
+
+    Under data parallelism each rank evaluates its interleaved share of the
+    images and rank 0 merges, scores and writes; the other ranks return
+    None.
     """
     pipe = TTAPipeline(model, config, maps_only=True)
     pipe.stage_times = stage_times
     ae_parser = make_parser(parser, config)
-    writer = EvalWriter(config, fname=out_file)
+    main = distributed.is_main()
+    writer = EvalWriter(config, fname=out_file) if main else None
     n = len(eval_set) if max_images is None else min(max_images, len(eval_set))
+    mine = shard_indices(n, distributed.world(), distributed.rank())
     anns_ae, anns_cc, eval_ids, durations = [], [], [], []
-    for w0 in range(0, n, window):
-        idxs = range(w0, min(w0 + window, n))
+    for w0 in range(0, len(mine), window):
+        idxs = mine[w0: w0 + window]
         images = [np.asarray(eval_set.load_raw(i)[3]) for i in idxs]
         t0 = time.perf_counter()
         outs = pipe.run_batched(images, batch_size=batch_size)
@@ -129,9 +142,14 @@ def evaluate(config, model, eval_set, out_file, parser: str = "hr", max_images=N
                     anns.append(ann)
             if stage_times is not None:
                 stage_times["parse"] = stage_times.get("parse", 0.0) + time.perf_counter() - t0
-            if (i + 1) % 50 == 0:
-                print(f"{i + 1}/{n}")
+            if len(eval_ids) % 50 == 0:
+                print(f"{len(eval_ids)}/{len(mine)}")
 
+    if distributed.world() > 1:
+        anns_cc, _ = gather_parts(config.LOG_DIR, "eval_hr_cc", anns_cc, eval_ids)
+        anns_ae, eval_ids = gather_parts(config.LOG_DIR, "eval_hr_ae", anns_ae, eval_ids)
+        if not main:
+            return None
     ids = np.array(eval_ids)
     stats_ae = writer.eval_coco(eval_set.coco, anns_ae, ids, "AE grouping (HeatmapParser)",
                                 "dt_ae.json")
@@ -155,21 +173,23 @@ def main(argv=None):
     p.add_argument("options", nargs=argparse.REMAINDER, default=None)
     args = p.parse_args(argv)
 
-    config = update_config_command(load_config(args.config), args.options or [])
-    if not config.LOG_DIR:
-        config.LOG_DIR = "tmp"
-    model = build_ae_group_model(config, device=args.device)
-    pretrained = config.MODEL.PRETRAINED
-    if pretrained and os.path.exists(pretrained):
-        load_params_only(pretrained, model)
-        print(f"loaded checkpoint {pretrained}")
-    else:
-        warnings.warn("no checkpoint found, evaluating random weights", stacklevel=1)
-        init_random_weights(model, 0)
-    eval_set = CocoKeypoints(config.DATASET.ROOT, mini=config.TEST.SPLIT == "coco_17_mini",
-                             seed=0, mode="val", year=17, mask_crowds=False, filter_empty=False)
-    return evaluate(config, model, eval_set, args.out_file, parser=args.parser,
-                    max_images=args.max_images)
+    with distributed.process_group(args.device) as device:
+        config = update_config_command(load_config(args.config), args.options or [])
+        if not config.LOG_DIR:
+            config.LOG_DIR = "tmp"
+        model = build_ae_group_model(config, device=device)
+        pretrained = config.MODEL.PRETRAINED
+        if pretrained and os.path.exists(pretrained):
+            load_params_only(pretrained, model)
+            print(f"loaded checkpoint {pretrained}")
+        else:
+            warnings.warn("no checkpoint found, evaluating random weights", stacklevel=1)
+            init_random_weights(model, 0)
+        eval_set = CocoKeypoints(config.DATASET.ROOT, mini=config.TEST.SPLIT == "coco_17_mini",
+                                 seed=0, mode="val", year=17, mask_crowds=False,
+                                 filter_empty=False)
+        return evaluate(config, model, eval_set, args.out_file, parser=args.parser,
+                        max_images=args.max_images)
 
 
 if __name__ == "__main__":
