@@ -277,9 +277,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0's merged results equal to those of one process run on the ranks'
    two batches of 4, rank 1 returning None, no part file left.
 
-Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40 and 41
-check the counts the same way: every kernel not named launches 0 times
-(40 and 41 in their own processes, whose counts start at 0).
+42. the overfit tool at full width (``overfit.overfit``; model_58_4's
+   preset: w32/512, batch 8, f32, pallas) on its fixed batch, 30
+   iterations printing every 10: the last loss below the first, K2, K2b
+   and G1 10 times a step and K2 10 an eval pass; prints the time an
+   iteration and the peak memory.
+43. tests/test_overfit.py's learning check on the card at its cut
+   (``config.overfit_cut()``) and batch: the training forward's edge and
+   node precision and recall and class accuracy must reach 0.9 within 400
+   steps (checked every 25); prints the step that reaches it. K2, K2b and
+   G1 once a pass.
+44. the checkpoint converter at w48/640: a seeded backbone as a
+   published-layout .pth under the four rename schemes and in mmpose's
+   names, each converted backbone equal to it bit for bit; then the main
+   path (bf16, batch 8) on the converted weights through
+   ``load_params_only``: one forward, K1 10 times.
+45. the drawing tool with ``--detail`` (``draw_images.draw``) at w48/640
+   on phase 19's 8 images, one a call: K1 10 times an image, 8 PNGs an
+   image whose sizes are checked by decoding them (no PIL on the card's
+   machine).
+46. ``comp_graph_stats`` (model_58_4's sizes, the training augmentation)
+   on the 8 images, its first 2 also on the CPU with the same lines, and
+   ``measure_deviations`` at input 512: four rows, AP above 0.5 at the
+   shipped capacity; no kernel launches.
+
+Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40, 41 and
+42-46 check the counts the same way: every kernel not named launches 0
+times (40 and 41 in their own processes, whose counts start at 0).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -2898,6 +2922,298 @@ def phase_dp_two_ranks(card, rendered, dataset):
             "G1": a["counts"]["G1"] + b["counts"]["G1"]}
 
 
+def phase_overfit(card):
+    """Phase 42: the overfit tool at full width (model_58_4's preset: w32/512,
+    batch 8, f32, pallas) on its fixed batch, 30 iterations printing every
+    10. The last loss must be below the first and all finite; K2, K2b and
+    G1 launch 10 times a step, K2 10 more an eval pass, nothing else.
+    Returns the counts."""
+    from pemp_tpu_torch import overfit
+    from pemp_tpu_torch.config import w32_512_train
+
+    cfg = w32_512_train()
+    iters, freq = 30, 10
+    t0 = time.perf_counter()
+    batch = overfit.overfit_batch(cfg)
+    log(f"overfit: the fixed batch of {cfg.TRAIN.BATCH_SIZE} made in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = overfit.overfit(cfg, batch, "cuda", iters, freq)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps, passes = cfg.MODEL.MPN.STEPS, len(rows)
+    counts = read_counts("overfit", {"K2": steps * (iters + passes), "K2b": steps * iters,
+                                     "G1": steps * iters})
+    losses = [r["loss"] for r in rows]
+    if [r["iter"] for r in rows] != [0, 10, 20, 29] or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"overfit: printed iterations {[r['iter'] for r in rows]}, "
+                         f"losses {losses}")
+    # steady state: from the row of iteration 10 to the last, two eval
+    # passes included
+    steady = (1e3 * (rows[-1]["seconds"] - rows[1]["seconds"])
+              / (rows[-1]["iter"] - rows[1]["iter"]))
+    log(f"overfit: model_58_4 w32/512 batch {cfg.TRAIN.BATCH_SIZE} f32 pallas, {iters} "
+        f"iterations and {passes} eval passes in {dt:.3f} s, {1e3 * dt / iters:.1f} ms an "
+        f"iteration with the first, {steady:.1f} from iteration 10 on (eval passes "
+        f"included) on {card}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; losses {[round(x, 4) for x in losses]}")
+    return counts
+
+
+def phase_overfit_learns():
+    """Phase 43: tests/test_overfit.py's learning check on the card, at its
+    cut of model_58_4 (config.overfit_cut(): a one-stack Hourglass at
+    64x64, 3 MPN steps, K = 6, the greedy matcher) and on its batch (seed 7,
+    2 images of 2 large persons): every 25 steps the training forward's
+    edge and node precision and recall and the class accuracy on the true
+    nodes; all must reach 0.9 within 400 steps. K2, K2b and G1 launch once a
+    pass, nothing else. Returns (the counts, the step that reached it)."""
+    from pemp_tpu_torch.config import overfit_cut
+    from pemp_tpu_torch.data.synthetic import make_batch
+    from pemp_tpu_torch.overfit import eval_metrics
+    from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
+
+    cfg = overfit_cut()
+    batch = batch_to_torch(make_batch(np.random.RandomState(7), batch_size=2, input_size=64,
+                                      output_sizes=(16, 16), n_people=2,
+                                      scale_range=(0.55, 0.8)), "cuda")
+    trainer = build_trainer(cfg, "cuda", steps_per_epoch=10**6)
+    host = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+
+    def metrics(out):
+        em, nm = eval_metrics(out)
+        # class accuracy on the true nodes (tests/test_overfit.py:84-92)
+        labels = out["labels"]
+        pos = (host(out["masks"]["node"]) == 1.0) & (host(labels["node"]) == 1.0)
+        cls = host(out["preds"]["class"][-1]).argmax(-1)
+        acc = float(np.mean(cls[pos] == host(labels["class"])[pos])) if pos.any() else 0.0
+        return (em.get("prec", 0.0), em.get("rec", 0.0), nm.get("prec", 0.0),
+                nm.get("rec", 0.0), acc)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.step(batch)
+    out = trainer.last_output
+    edge_pos = int(((host(out["labels"]["edge"][-1]) == 1.0)
+                    & (host(out["masks"]["edge"][-1]) == 1.0)).sum())
+    node_pos = int(((host(out["labels"]["node"]) == 1.0)
+                    & (host(out["masks"]["node"]) == 1.0)).sum())
+    if edge_pos < 10 or node_pos < 10:
+        raise SystemExit(f"overfit learns: too few positives, edges {edge_pos} nodes {node_pos}")
+    history, reached = [], None
+    for i in range(1, 401):
+        loss, _ = trainer.step(batch)
+        if i % 25 == 0:
+            vals = metrics(trainer.last_output)
+            history.append((i, round(float(loss), 4), *[round(v, 3) for v in vals]))
+            if all(v >= 0.9 for v in vals):
+                reached = i
+                break
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = cfg.MODEL.MPN.STEPS * (len(history) * 25 + 1)
+    counts = read_counts("overfit learns", {"K2": steps, "K2b": steps, "G1": steps})
+    if reached is None or trainer.fail_count:
+        raise SystemExit(f"overfit learns: no 0.9 within 400 steps ({trainer.fail_count} "
+                         f"skipped); (step, loss, e_prec, e_rec, n_prec, n_rec, cls_acc) "
+                         f"{history}")
+    log(f"overfit learns: edge and node precision and recall and class accuracy reached 0.9 "
+        f"at step {reached} in {dt:.1f} s (positives: edges {edge_pos}, nodes {node_pos}); "
+        f"(step, loss, e_prec, e_rec, n_prec, n_rec, cls_acc) {history}")
+    return counts, reached
+
+
+def published_backbone(model, seed):
+    """A HigherHRNet state_dict in the published key layout (the
+    reference's names, which the port's backbone carries) with seeded
+    weights of the sizes init_random_weights draws, and BatchNorm
+    statistics drawn around identity."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in model.backbone.state_dict().items():
+        if not v.is_floating_point():
+            out[k] = v.cpu()
+        elif k.endswith("running_var") or (v.dim() == 1 and k.endswith("weight")):
+            out[k] = 0.9 + 0.2 * torch.rand(v.shape, generator=gen)
+        elif v.dim() == 1:
+            out[k] = 0.02 * (torch.rand(v.shape, generator=gen) - 0.5)
+        else:
+            out[k] = torch.randn(v.shape, generator=gen) / v[0].numel() ** 0.5
+    return out
+
+
+SCHEME_PREFIX = {"plain": "", "strip1": "module.", "strip2": "model.module.",
+                 "strip_prefix2char": "1."}
+
+
+def phase_convert(card):
+    """Phase 44: the checkpoint converter at w48/640. A seeded backbone
+    saved as a published-layout .pth under each rename scheme, and once in
+    mmpose's names; each converted checkpoint's backbone must equal it bit
+    for bit. Then the main path (bf16, batch 8) takes the converted weights
+    through load_params_only and runs one forward: K1 10 times, nothing
+    else, finite outputs. Returns the counts."""
+    import os
+    import tempfile
+
+    from pemp_tpu_torch.config import w48_640
+    from pemp_tpu_torch.convert_checkpoint import convert
+    from pemp_tpu_torch.pipeline import build_pipeline
+    from pemp_tpu_torch.train.checkpoint import load_params_only
+
+    cfg = w48_640()
+    pipe = build_pipeline(8, 640, dtype=torch.bfloat16, device="cuda", seed=0)
+    published = published_backbone(pipe.model, 44)
+    heads = ("final_layers.", "deconv_layers.")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, out = os.path.join(tmp, "published.pth"), os.path.join(tmp, "converted.ckpt")
+        for scheme, mmpose in [(s, False) for s in SCHEME_PREFIX] + [("plain", True)]:
+            sd = published
+            if mmpose:
+                sd = {("keypoint_head." if k.startswith(heads) else "backbone.") + k: v
+                      for k, v in sd.items()}
+            torch.save({"state_dict": {SCHEME_PREFIX[scheme] + k: v for k, v in sd.items()}},
+                       pth)
+            convert(cfg, pth, out, scheme, mmpose, "cuda")
+            got = torch.load(out, map_location="cpu", weights_only=True)["model_state_dict"]
+            bad = [k for k, v in published.items() if not torch.equal(got[f"backbone.{k}"], v)]
+            if bad or got.keys() != pipe.model.state_dict().keys():
+                raise SystemExit(f"convert {scheme} mmpose={mmpose}: {len(bad)} backbone "
+                                 f"tensors differ ({bad[:4]})")
+        load_params_only(out, pipe.model)
+    convert_s = time.perf_counter() - t0
+    images = torch.rand(8, 640, 640, 3, generator=torch.Generator().manual_seed(44)).cuda()
+    torch.cuda.synchronize()
+    zero_counts()
+    persons, valid, scoremaps, output = pipe.forward(images)
+    torch.cuda.synchronize()
+    counts = read_counts("convert forward", {"K1": cfg.MODEL.MPN.STEPS})
+    for name, t in (("scoremaps", scoremaps), ("edge logits", output["preds"]["edge"][-1]),
+                    ("node logits", output["preds"]["node"][-1])):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise SystemExit(f"convert forward: non-finite {name}")
+    bb = pipe.model.backbone.state_dict()
+    if not all(torch.equal(bb[k].float().cpu(), v.to(bb[k].dtype).float())
+               for k, v in published.items()):
+        raise SystemExit("convert forward: the model's backbone is not the converted one")
+    params = sum(p.numel() for p in pipe.model.backbone.parameters())
+    log(f"convert: w48/640 backbone ({params / 1e6:.1f}M params) through 4 rename schemes "
+        f"and mmpose's names, bit for bit, in {convert_s:.1f} s; the main path's forward on "
+        f"the converted weights: launches { {k: v for k, v in counts.items() if v} }, "
+        f"persons {int(valid.sum())} on {card}")
+    return counts
+
+
+def png_size(path):
+    """(height, width) of an 8-bit RGB PNG of one IDAT stream (utils.vis's),
+    checked by decompressing its rows (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    raw = zlib.decompress(chunks[b"IDAT"])
+    if depth != 8 or colour != 2 or len(raw) != h * (1 + 3 * w) or b"IEND" not in chunks:
+        raise SystemExit(f"{path}: {w}x{h} depth {depth} colour {colour}, {len(raw)} bytes")
+    return h, w
+
+
+def phase_draw(card, rendered, dataset):
+    """Phase 45: the drawing tool with --detail at w48/640 (bf16, one
+    scale, the weights of phase 19's full_width_model so that persons form)
+    on the 8 rendered images of 480x640, one a call: K1 10 times an image,
+    nothing else; 8 PNGs an image, each of the image's size (the poses) or
+    the pipeline's canvas (the rest). Returns the counts."""
+    import os
+    import tempfile
+
+    from pemp_tpu_torch.config import w48_640
+    from pemp_tpu_torch.draw_images import draw
+
+    cfg = w48_640()
+    model = full_width_model(cfg, rendered)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered, dataset)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        written = draw(cfg, model, eval_set, os.path.join(tmp, "draws"), len(rendered), True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts("draw", {"K1": cfg.MODEL.MPN.STEPS * len(rendered)})
+        sizes = {os.path.basename(p): png_size(p) for p in written}
+    if len(sizes) != 8 * len(rendered) or any(
+            sizes[f"{r['id']}_poses.png"] != (r["height"], r["width"])
+            for r in dataset["images"]):
+        raise SystemExit(f"draw: {len(sizes)} files, sizes {sorted(set(sizes.values()))}")
+    log(f"draw: w48/640 --detail on {len(rendered)} images of 480x640, one a call, in "
+        f"{dt:.1f} s on {card}; {len(sizes)} PNGs, sizes {sorted(set(sizes.values()))}; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase_graph_tools(card, rendered, dataset):
+    """Phase 46: comp_graph_stats (model_58_4's sizes, the training
+    augmentation on the rendered val set) on the card and, on 2 images,
+    the same lines on the CPU; measure_deviations at input 512 on the same
+    images, four rows, the labels grouping most persons (AP above 0.5 at
+    the shipped capacity). No kernel launches."""
+    import tempfile
+
+    from pemp_tpu_torch import comp_graph_stats, measure_deviations
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.data.datasets import CocoKeypoints
+
+    arrays = {r["id"]: image for r, image in zip(dataset["images"], rendered)}
+
+    class Arrays(CocoKeypoints):
+        def load_raw(self, idx):
+            img_id = int(self.img_ids[idx])
+            return (img_id, self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id)),
+                    self.coco.loadImgs(img_id)[0], arrays[img_id])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_set = RenderedSet(tmp, rendered, dataset)
+        cfg = w32_512_train()
+        cfg.DATASET.ROOT = tmp
+        zero_counts()
+        t0 = time.perf_counter()
+        lines = comp_graph_stats.report(comp_graph_stats.graph_stats(
+            cfg, comp_graph_stats.stats_set(cfg, Arrays), len(rendered), "cuda"))
+        stats_s = time.perf_counter() - t0
+        card_two = comp_graph_stats.report(comp_graph_stats.graph_stats(
+            cfg, comp_graph_stats.stats_set(cfg, Arrays), 2, "cuda"))
+        cpu_two = comp_graph_stats.report(comp_graph_stats.graph_stats(
+            cfg, comp_graph_stats.stats_set(cfg, Arrays), 2, "cpu"))
+        if card_two != cpu_two or lines[1].startswith("detections/img: mean=0.00"):
+            raise SystemExit(f"comp_graph_stats: card {card_two} against CPU {cpu_two}")
+        config = measure_deviations.deviation_config(tmp, 512)
+        config.LOG_DIR = tmp
+        t0 = time.perf_counter()
+        rows = measure_deviations.measure(config, eval_set, None, "cuda")
+        deviations_s = time.perf_counter() - t0
+        read_counts("graph tools", {})
+    if len(rows) != 4 or not rows[0]["AP"] > 0.5:
+        raise SystemExit(f"measure_deviations: rows {rows}")
+    log(f"graph tools: comp_graph_stats on {len(rendered)} images in {stats_s:.1f} s, the "
+        f"first 2 equal on the CPU; measure_deviations at input 512 in {deviations_s:.1f} s "
+        f"on {card}: {rows}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3381,6 +3697,26 @@ def main() -> int:
     g1_launches += counts["G1"]
     log(f"chip_smoke: phase 41 done in {time.perf_counter() - t0:.1f} s")
 
+    # 42-46. the JAX package's tools: overfit at full width and its learning
+    # check, the checkpoint converter, the drawings, the graph statistics
+    t0 = time.perf_counter()
+    counts = phase_overfit(card)
+    counts43, _ = phase_overfit_learns()
+    for c in (counts, counts43):
+        k2_fwd += c["K2"]
+        k2_bwd += c["K2b"]
+        g1_launches += c["G1"]
+    log(f"chip_smoke: phases 42-43 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += phase_convert(card)["K1"]
+    log(f"chip_smoke: phase 44 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += phase_draw(card, *landscape(rendered, dataset))["K1"]
+    log(f"chip_smoke: phase 45 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_graph_tools(card, *landscape(rendered, dataset))
+    log(f"chip_smoke: phase 46 done in {time.perf_counter() - t0:.1f} s")
+
     ms, plain_ms, bound, bound_by = main_numbers
     kernels = [{
         "name": "fused_mpn_step", "route": "cuda",
@@ -3418,7 +3754,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-41 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-46 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

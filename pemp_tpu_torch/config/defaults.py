@@ -1000,6 +1000,28 @@ def small_81_1_2():
     return cfg
 
 
+# tests/test_overfit.py:42-67's cut of model_58_4, where the JAX package
+# learns one fixed batch (edge and node precision and recall and class
+# accuracy 0.9 within 400 iterations): a one-stack Hourglass 32 wide at
+# 64x64 with output maps of 16, 3 MPN steps, K = 6, kNN k = 8, the greedy
+# matcher and the edge, node and class losses.
+OVERFIT = {
+    "MODEL": {"KP": "hourglass", "HG": {"NSTACK": 1, "INPUT_DIM": 32, "OUTPUT_DIM": 48},
+              "MPN": {"STEPS": 3, "NODE_INPUT_DIM": 64},
+              "LOSS": {"NAME": ["edge", "node", "class"]}},
+    "TPU": {"NODES_PER_TYPE": 6, "KNN_K": 8, "MATCHER": "greedy"},
+    "TRAIN": {"END_TO_END": True, "KP_FREEZE_MODE": "nothing"},
+    "DATASET": {"INPUT_SIZE": 64, "OUTPUT_SIZE": [16, 16]},
+}
+
+
+def overfit_cut():
+    """:data:`MODEL_58_4` cut to :data:`OVERFIT`."""
+    cfg = w32_512_train()
+    cfg.merge_from_other(OVERFIT)
+    return cfg
+
+
 # The Hourglass at 512 cut in width and depth: 2 stacks 16 wide (the stem's
 # fixed 64 and 128 channels and the nested blocks' 128 more each level
 # stay). The long-side reverse map holds the input at 512.

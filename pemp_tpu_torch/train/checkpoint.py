@@ -1,5 +1,6 @@
 """Checkpoints with ``torch.save`` and ``torch.load`` (counterpart of
-pemp_tpu.train.checkpoint, which writes flax msgpack).
+pemp_tpu.train.checkpoint, which writes flax msgpack), and the reading of
+published ``.pth`` files (the ``.pth`` half of pemp_tpu.train.convert).
 
 One file holds the epoch, the model's ``state_dict`` under the original
 reference's key names (so the reference's own ``.pth`` files and the port's
@@ -81,3 +82,46 @@ def load_params_only(path, model: torch.nn.Module) -> None:
         sd = from_mmpose_names(sd)
     children = {name for name, _ in model.named_children()}
     model.load_state_dict({k: v for k, v in sd.items() if k.split(".")[0] in children})
+
+
+# the reference's provenance renames of a .pth's keys
+# (reference: PoseEstimation.py:15-27, UpperBound.py:40-48)
+RENAME_SCHEMES = {
+    "plain": lambda k: k,
+    "strip2": lambda k: ".".join(k.split(".")[2:]),   # "model.module.X" -> "X"
+    "strip_prefix2char": lambda k: k[2:],              # "1." style prefixes
+    "strip1": lambda k: ".".join(k.split(".")[1:]),
+}
+
+
+def load_torch_state_dict(path, scheme: str = "plain") -> dict:
+    """A ``.pth`` file's ``state_dict`` (its ``state_dict`` or
+    ``model_state_dict`` entry where it has one) with ``scheme``'s rename
+    of every key (pemp_tpu/train/convert.py:155-166)."""
+    if scheme not in RENAME_SCHEMES:
+        raise ValueError(f"rename scheme {scheme!r}: one of {sorted(RENAME_SCHEMES)}")
+    sd = _read(path)
+    for key in ("state_dict", "model_state_dict"):
+        if isinstance(sd, dict) and key in sd:
+            sd = sd[key]
+    rename = RENAME_SCHEMES[scheme]
+    return {rename(k): v for k, v in sd.items()}
+
+
+def graft_backbone(model: torch.nn.Module, sd: dict, mmpose: bool = False) -> int:
+    """Loads a HigherHRNet ``state_dict`` (the reference's names, or
+    mmpose's with ``mmpose``) into ``model.backbone``; the rest of the
+    model keeps its weights. Every backbone weight must be in ``sd``
+    (``num_batches_tracked``, which no forward reads, may be absent); a
+    missing one raises KeyError by name, entries the backbone does not
+    read are ignored. Returns the number of backbone parameters."""
+    if mmpose:
+        sd = {k: v for k, v in from_mmpose_names(sd).items() if k.startswith("backbone.")}
+    else:
+        sd = {f"backbone.{k}": v for k, v in sd.items()}
+    want = [f"backbone.{k}" for k in model.backbone.state_dict()]
+    missing = [k for k in want if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"the .pth lacks {len(missing)} backbone weights: {missing[:8]}")
+    model.load_state_dict({k: sd[k] for k in want if k in sd}, strict=False)
+    return sum(p.numel() for p in model.backbone.parameters())

@@ -128,9 +128,13 @@ class TrainStep:
                 for name, buf in _running_stats(self.model).items():
                     buf.copy_(saved[name])
             self.fail_count += 1
-        # what a caller may count (labels, validity), without the graph
-        self.last_output = {"labels": output["labels"], "graph": {
-            k: output["graph"][k] for k in ("node_valid", "edge_valid")}}
+        # what a caller may count (labels, masks, the detached predictions,
+        # validity), without the graph
+        self.last_output = {
+            "labels": output["labels"], "masks": output["masks"],
+            "preds": {k: [p if p is None else p.detach() for p in v] if isinstance(v, list)
+                      else v for k, v in output["preds"].items()},
+            "graph": {k: output["graph"][k] for k in ("node_valid", "edge_valid")}}
         logging = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v))
                    for k, v in logging.items()}
         logging["skipped"] = torch.tensor(0.0 if bool(finite) else 1.0)
@@ -159,12 +163,16 @@ class TrainStep:
         return loss, dict(zip(keys, parts)), (flags == 0) & torch.isfinite(loss)
 
     @torch.no_grad()
-    def eval_step(self, batch):
+    def eval_step(self, batch, with_output: bool = False):
         """The validation loss of ``batch``: (loss, logging), no update;
-        under data parallelism summed over the ranks."""
-        loss, logging, _ = self.loss(batch, train=False)
+        under data parallelism summed over the ranks. ``with_output``
+        appends the forward's output (preds, labels, masks with the graph
+        reduction's edge masks, graph), as make_eval_step returns it."""
+        loss, logging, output = self.loss(batch, train=False)
         keys = list(logging)
         sums = distributed.all_sum_flat([loss, *(_scalar(logging[k], loss) for k in keys)])
+        if with_output:
+            return sums[0], dict(zip(keys, sums[1:])), output
         return sums[0], dict(zip(keys, sums[1:]))
 
 

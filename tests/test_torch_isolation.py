@@ -71,3 +71,22 @@ def test_zoo_imports_first_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["10", "[]"]
+
+
+TOOLS = ("overfit", "convert_checkpoint", "comp_graph_stats", "measure_deviations",
+         "make_fake_coco", "draw_images")
+
+
+def test_tools_run_with_jax_blocked(tmp_path):
+    """The six tools import first, on their own, with jax, flax and
+    pemp_tpu blocked, and ``make_fake_coco`` writes a set there."""
+    code = _CHILD.split("import pemp_tpu_torch")[0].format(blocked=BLOCKED) + (
+        "import importlib\n"
+        f"mods = [importlib.import_module('pemp_tpu_torch.' + n) for n in {TOOLS!r}]\n"
+        f"mods[4].main(['--root', {str(tmp_path)!r}, '--images', '1', '--size', '64'])\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "[]"
+    assert (tmp_path / "annotations" / "person_keypoints_val2017.json").exists()
