@@ -301,9 +301,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``measure_deviations`` at input 512: four rows, AP above 0.5 at the
    shipped capacity; no kernel launches.
 
-Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40, 41 and
-42-46 check the counts the same way: every kernel not named launches 0
-times (40 and 41 in their own processes, whose counts start at 0).
+47. K1's autograd Function (forward K1's f32 form; backward K2b on the
+   typed message and attention tail, K1b on the edge MLP, G1 on the source
+   gather) against autograd through K1's plain version on the card, TF32
+   off: on seeded random f32 inputs and cotangents at the model_58_4
+   training shapes and on the inputs and cotangents the fused_step
+   model_58_4 training path feeds at MPN steps 0 and 9. All ten gradients
+   (dp, dh_node, dq, dcur, da, dw_cur, dw_e1, db_e1, dwe, dw_attn) each
+   within 1e-4 of its own largest value, a second backward with the same
+   bits, K1b's outputs within 1e-4 of its plain factored form's largest.
+   Prints K1b's and the K1 f32 forward's ms a launch (median of 25) with
+   their bounds, the whole backward's ms against the plain autograd's, and
+   each launch's device ms by kernel name from ``torch.profiler``.
+48. small training steps on ``fused_step``, CPU against card, as phase 7
+   (small_train()) and as phase 38 (the ``simple`` zoo cut, whose last
+   pass reaches no head, so K2b skips it and K1b takes the edge carry's
+   cotangent alone): K1, K1b and G1 once a pass, K2b once a pass whose
+   nodes reach a head.
+49. model_58_4 training at full width on ``fused_step`` on phase 8's
+   batches (w32/512, batch 8, f32, one warm-up and 3 timed steps): K1,
+   K2b, K1b and G1 10 times each a step, K2 never, the loss finite, no
+   step skipped; prints steps/s, the device time a step beside phase 8's
+   ``pallas`` reading from the same call, and the peak memory.
+
+Phases 47-49 run after phase 17, on phase 8's batches, next to the other
+phases that read kernel times from ``torch.profiler``.
+
+Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40, 41,
+42-46, 48 and 49 check the counts the same way: every kernel not named
+launches 0 times (40 and 41 in their own processes, whose counts start at
+0).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -896,7 +923,7 @@ def drive_train(label, trainer, batches, want, card, model="model_58_4"):
     just after; each kernel of ``want`` must launch that often per step,
     every other one never; losses finite, no step skipped. Prints the
     device time a step (CUDA events around the timed steps). Returns the
-    counts."""
+    counts, and the device ms a step under ``device_ms``."""
     trainer.step(batches[0])                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -929,27 +956,35 @@ def drive_train(label, trainer, batches, want, card, model="model_58_4"):
         f"{int(gr['node_valid'].sum())}/{gr['node_valid'].numel()}, label-positive "
         f"{int(lab['node'].sum())}; valid edges {int(gr['edge_valid'].sum())}/"
         f"{gr['edge_valid'].numel()}, label-positive {int(lab['edge'][0].sum())}")
-    return counts
+    return {**counts, "device_ms": device_ms}
 
 
 def capture_train_inputs(trainer, batch, name, steps=(0, 9)):
     """Runs one training forward and backward and keeps the inputs of the
     MPN layer's kernel wrapper ``name`` and the cotangent its backward
-    receives at the given MPN steps."""
+    receives at the given MPN steps (a list of one an output where the
+    wrapper returns several, None where an output reaches no loss)."""
     from pemp_tpu_torch.models.mpn import layers
 
     real = getattr(layers, name)
     calls = []
     kept = {}
 
-    def recording(*args):
-        out = real(*args)
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
         step = len(calls)
         calls.append(1)
         if step in steps:
             kept[step] = [tuple(a.detach().clone() if torch.is_tensor(a) else a
                                 for a in args)]
-            out.register_hook(lambda g: kept[step].append(g.detach().clone()))
+            if isinstance(out, tuple):
+                # one cotangent an output, None where it reaches no loss
+                grads = [None] * len(out)
+                kept[step].append(grads)
+                for i, o in enumerate(out):
+                    o.register_hook(lambda g, i=i: grads.__setitem__(i, g.detach().clone()))
+            else:
+                out.register_hook(lambda g: kept[step].append(g.detach().clone()))
         return out
 
     setattr(layers, name, recording)
@@ -1109,11 +1144,11 @@ def capture_eval_inputs(pipe, images, name, steps=(0, 9)):
     seen = []
     kept = {}
 
-    def recording(*args):
+    def recording(*args, **kwargs):
         if len(seen) in steps:
             kept[len(seen)] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
         seen.append(1)
-        return real(*args)
+        return real(*args, **kwargs)
 
     setattr(layers, name, recording)
     try:
@@ -3214,6 +3249,212 @@ def phase_graph_tools(card, rendered, dataset):
         f"on {card}: {rows}")
 
 
+# Phases 47-49: training on the fused step. K1's differentiable inputs by
+# position, and the names of their gradients
+K1_FLOATS = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
+K1_GRADS = ("dp", "dh_node", "dq", "dcur", "da", "dw_cur", "dw_e1", "db_e1", "dwe", "dw_attn")
+
+
+def k1b_bound_ms(args, g_ne, g_agg):
+    """Least time for K1b's work on these inputs: q, cur, ne and the
+    cotangents it takes (ne's, K2b's d_ef) read once, p, h_node, the source
+    column and the weights once, dq, dcur, dh_node and the weight gradients
+    written once, at the memory rate, against its five 64x64 products a
+    slot (every slot: the edge MLP runs on the invalid ones too) at the f32
+    rate; the larger."""
+    p, h_node, q, cur, src, w_cur, w_e1 = (args[i] for i in (0, 1, 2, 3, 5, 8, 9))
+    e, w = cur.shape
+    rows = 3 + (g_ne is not None) + (g_agg is not None)      # q, cur, ne, cotangents
+    nbytes = 4 * (rows * e * w + 2 * p.numel() + src.numel() + 2 * w_cur.numel()
+                  + 2 * e * w + h_node.numel() + 2 * w_e1.numel() + w)
+    flops = e * 5 * 2 * w * w
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def check_k1_backward(label, args, dims, cotangents):
+    """Phase 47 on one set of inputs: K1's autograd Function on the card
+    (forward K1's f32 form; backward K2b, K1b, G1) against autograd through
+    the plain version, TF32 off, on the same inputs and cotangents (None
+    where an output reaches no loss): each of the ten gradients within 1e-4
+    of its own largest value, a second backward with the same bits; K1b's
+    outputs against its plain factored form on the same inputs. Times K1b,
+    its plain form, the K1 f32 forward and the whole backward (K2b + K1b +
+    G1, on a kept graph) against the plain autograd's, each with its bound.
+    Returns (K1b's max abs error, ms, plain ms, bound, bound by)."""
+    import functools
+
+    from pemp_tpu_torch.ops import fused_step, gather_mm, typed_message
+
+    n, t, n_img = dims
+    g_out, g_ne = cotangents
+    plan = gather_mm.gather_plan(args[5], n_img, n)
+    step = functools.partial(fused_step.fused_mpn_step, plan=plan)
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() if i in K1_FLOATS else x
+                  for i, x in enumerate(args)]
+        outs = fn(*leaves, *dims)
+        pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+        floats = [leaves[i] for i in K1_FLOATS]
+
+        def backward():
+            return torch.autograd.grad([o for o, _ in pairs], floats, [g for _, g in pairs],
+                                       retain_graph=True, allow_unused=True)
+        return outs, backward
+
+    got_outs, got_backward = run(step)
+    got, again = got_backward(), got_backward()
+    want_outs, want_backward = run(fused_step.fused_mpn_step_plain)
+    want = want_backward()
+    torch.cuda.synchronize()
+    parts = []
+    for name, x, x2, y in zip(K1_GRADS, got, again, want):
+        if y is None:
+            if x is not None:
+                raise SystemExit(f"K1 backward {label}: {name} has a gradient where the plain "
+                                 f"version has none")
+            parts.append(f"{name} none")
+            continue
+        if not torch.equal(x, x2):
+            raise SystemExit(f"K1 backward {label}: a second backward gives other bits ({name})")
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        # the ReLU decisions: elements of dq that are zero on one side only
+        flips = int(((x == 0) != (y == 0)).sum()) if name == "dq" else 0
+        if not (np.isfinite(err) and err <= 1e-4 * scale):
+            raise SystemExit(f"K1 backward {label}: {name} max abs error {err} exceeds 1e-4 of "
+                             f"its max |plain| {scale} (dq zero on one side only at "
+                             f"{flips} elements)")
+        parts.append(f"{name} {err:.3e} of max {scale:.3e}")
+    ne_bits = torch.equal(got_outs[1], want_outs[1])
+    flips = int(((got[2] == 0) != (want[2] == 0)).sum())
+
+    # K1b alone against its plain factored form, on K1's ne and K2b's d_ef
+    p, h_node, q, cur, a, src, types, valid, w_cur, w_e1, _, we, w_attn = args
+    ne = got_outs[1].detach()
+    g_agg = None
+    if g_out is not None:
+        g_agg = typed_message._launch_backward(ne, a, types, valid, we, w_attn, g_out, n, t)[0]
+    k1b_args = (p, h_node, q, cur, src, w_cur, w_e1, ne, g_ne, g_agg, n, n_img)
+    k1b = fused_step._launch_backward(*k1b_args)
+    k1b_plain = fused_step.fused_step_bwd_plain(*k1b_args)
+    k1b_err = max((x - y).abs().max().item() for x, y in zip(k1b, k1b_plain))
+    k1b_rel = max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(k1b, k1b_plain))
+    if not k1b_rel <= 1e-4:
+        raise SystemExit(f"K1b {label}: an output differs from its plain factored form by "
+                         f"{k1b_rel:.3e} of its largest")
+    ms = median_ms(lambda: fused_step._launch_backward(*k1b_args))
+    plain_ms = median_ms(lambda: fused_step.fused_step_bwd_plain(*k1b_args))
+    bound, bound_by, nbytes, flops = k1b_bound_ms(args, g_ne, g_agg)
+    k1_ms = median_ms(lambda: fused_step.fused_mpn_step(*args, *dims))
+    k1_plain_ms = median_ms(lambda: fused_step.fused_mpn_step_plain(*args, *dims))
+    k1_bound, k1_by, _, _ = k1_bound_ms(args)
+    bwd_ms = median_ms(got_backward)
+    bwd_plain_ms = median_ms(want_backward)
+    bwd_bound = bound + g1_bound_ms(k1b[0], plan, n)[0]
+    if g_out is not None:
+        bwd_bound += k2_bound_ms((ne, a, types, valid, we, w_attn), True)[0]
+    log(f"K1 backward {label}: gradients against autograd through the plain version "
+        f"(tol 1e-4 of each max): {'; '.join(parts)}; second backward bit-identical; K1's ne "
+        f"bit-identical to the plain forward's {ne_bits}; dq zero on one side only at "
+        f"{flips} of {got[2].numel()} elements; valid slots {int(valid.sum())}/{valid.numel()}")
+    log(f"K1b {label}: max abs err {k1b_err:.3e} ({k1b_rel:.3e} of the largest) against its "
+        f"plain form; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by "
+        f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); K1 f32 forward "
+        f"kernel_ms={k1_ms:.4f} plain_ms={k1_plain_ms:.4f} bound_ms={k1_bound:.4f} by {k1_by}; "
+        f"whole backward (K2b + K1b + G1) {bwd_ms:.4f} ms against the plain autograd's "
+        f"{bwd_plain_ms:.4f} ms (the three bounds' sum {bwd_bound:.4f})")
+    if all(g is not None for g in cotangents):
+        parts, rest = launch_ms(step, args, K1_FLOATS, cotangents, dims,
+                                {"K1b reduce": "fused_step_bwd_reduce", "K1b": "fused_step_bwd",
+                                 "K1": "fused_step_kernel",
+                                 "K2b reduce": "typed_message_bwd_reduce",
+                                 "K2b": "typed_message_bwd", "G1": "gather_rows"})
+        if not all(parts[k] > 0 for k in ("K1", "K1b", "K1b reduce", "K2b", "G1")):
+            raise SystemExit(f"K1 backward launches: the profiler saw no device time ({parts})")
+        log(f"K1 forward and backward launches, {label} (torch.profiler, device ms per call): "
+            + "; ".join(f"{k} {v:.4f}" for k, v in parts.items() if k != "rest")
+            + f"; rest {parts['rest']:.4f} ({'; '.join(rest)})")
+    return k1b_err, ms, plain_ms, bound, bound_by
+
+
+def phase_k1_backward(batch):
+    """Phase 47: K1's autograd Function against autograd through the plain
+    version (check_k1_backward) on seeded random f32 inputs at the model_58_4
+    training shapes (B = 8: N = 5440, C = 80, T = 17) and on the inputs and
+    cotangents the fused_step model_58_4 training path feeds at MPN steps 0
+    and 9. Returns K1b's numbers at step 0 and the largest error."""
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.train.train_step import build_trainer
+
+    args, dims = random_k1_inputs(torch.float32, seed=21)
+    rng = np.random.RandomState(22)
+    n, t, _ = dims
+    cot = (torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda(),
+           torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda())
+    errs = [check_k1_backward("random f32", args, dims, cot)[0]]
+    del args, cot
+    cfg = w32_512_train()
+    cfg.TPU.MSG_PASS = "fused_step"
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    captured = capture_train_inputs(trainer, batch, "fused_mpn_step")
+    numbers = None
+    for step in (0, 9):
+        args, cot = captured[step]
+        got = check_k1_backward(f"fused_step train path step {step}", args[:13], args[13:],
+                                tuple(cot))
+        errs.append(got[0])
+        numbers = numbers or got
+    del captured, trainer
+    torch.cuda.empty_cache()
+    return numbers, max(errs)
+
+
+def phase_small_fused_train():
+    """Phase 48: small training steps on ``fused_step``, CPU against card, as
+    phase 7 (small_train()) and as phase 38 (the ``simple`` zoo cut, whose
+    last pass reaches no head, against the CPU's float64 step); the counts
+    zeroed just before each and read just after: K1, K1b and G1 once a pass,
+    K2b once a pass whose out reaches a loss. Returns the counts."""
+    from pemp_tpu_torch.config import small_train
+
+    total = {"K1": 0, "K2b": 0, "K1b": 0, "G1": 0}
+    runs = (("small train", small_train(), False, small_train().MODEL.MPN.STEPS, 0),
+            ("small simple train", zoo_cut("simple", {}, False), True,
+             *ZOO_RESEARCH["simple"]))
+    for name, cfg, f64, passes, backward in runs:
+        backward = backward or passes
+        zero_counts()
+        phase_small_train("fused_step", cfg, name, f64_bound=f64)
+        counts = read_counts(f"{name} fused_step",
+                             {"K1": passes, "K2b": backward, "K1b": passes, "G1": passes})
+        for k in total:
+            total[k] += counts[k]
+    return total
+
+
+def phase_fused_train(card, batches, pallas_ms):
+    """Phase 49: model_58_4 training at full width on ``fused_step``, as
+    phase 8 (w32/512, batch 8, f32, the same synthetic batches: one warm-up
+    and 3 timed steps): K1, K2b, K1b and G1 10 times each a step, K2 never;
+    prints the device time a step beside phase 8's on pallas in this call.
+    Returns the counts."""
+    from pemp_tpu_torch.config import w32_512_train
+    from pemp_tpu_torch.train.train_step import build_trainer
+
+    cfg = w32_512_train()
+    cfg.TPU.MSG_PASS = "fused_step"
+    steps = cfg.MODEL.MPN.STEPS
+    trainer = build_trainer(cfg, device="cuda", seed=0)
+    counts = drive_train("fused_step training", trainer, batches,
+                         {"K1": steps, "K2b": steps, "K1b": steps, "G1": steps}, card)
+    log(f"fused_step training: device time a step {counts['device_ms']:.1f} ms against "
+        f"{pallas_ms:.1f} ms on pallas (phase 8, this call)")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3333,6 +3574,7 @@ def main() -> int:
     counts = drive_train("training", trainer, batches[1:],
                          {"K2": steps, "K2b": steps, "G1": steps}, card)
     k2_fwd, k2_bwd, g1_launches = counts["K2"], counts["K2b"], counts["G1"]
+    pallas_ms = counts["device_ms"]
     del trainer
     torch.cuda.empty_cache()
     log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
@@ -3542,9 +3784,27 @@ def main() -> int:
         g1_launches += counts_fit[route]["G1"]
         del trainer
         torch.cuda.empty_cache()
-    del batches
-
     log(f"chip_smoke: phases 1-17 done in {time.perf_counter() - t_start:.1f} s")
+
+    # 47-49, run here on phase 8's batches, beside the other kernel phases
+    # whose device times torch.profiler reads: training on the fused step,
+    # K1's backward (K2b, K1b, G1) against autograd through the plain
+    # version, the small steps CPU against card, model_58_4 at full width
+    t0 = time.perf_counter()
+    k1b_numbers, k1b_err = phase_k1_backward(batches[0])
+    log(f"chip_smoke: phase 47 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts48 = phase_small_fused_train()
+    log(f"chip_smoke: phase 48 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts49 = phase_fused_train(card, batches[1:], pallas_ms)
+    del batches
+    for c in (counts48, counts49):
+        launches += c["K1"]
+        k2_bwd += c["K2b"]
+        g1_launches += c["G1"]
+    k1b_launches = counts48["K1b"] + counts49["K1b"]
+    log(f"chip_smoke: phase 49 done in {time.perf_counter() - t0:.1f} s")
 
     # 18. small TTA slice, CPU against card
     phase_small_tta()
@@ -3746,6 +4006,8 @@ def main() -> int:
          counts_fit["einsum"]["K4b"] + counts_fit["dots"]["K4b"], max(k4b_errs), k4b_numbers),
         ("gather_rows_bwd", "gather_rows.cu", "gather_mm.py:79", g1_launches, max(g1_errs),
          g1_numbers),
+        ("fused_mpn_step_bwd", "fused_step_bwd.cu", "pallas/fused_step.py:208", k1b_launches,
+         k1b_err, k1b_numbers),
     )
     for name, source, replaces, count, err, (_, k_ms, k_plain, k_bound, k_by) in rows:
         kernels.append({
@@ -3754,7 +4016,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-46 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-49 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -234,14 +234,14 @@ FIXED = {
     "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum", "dots"),
 }
 
-# The message-passing forms each path runs (pemp_tpu/models/mpn/layers.py):
-# the fused step (K1, eval only), the typed message kernel (K2, backward
-# K2b), on the symmetric kNN layout with the reverse-edge permutation the
-# slim attention aggregation (K3, backward K3b) or the blocked aggregate
-# (K4, backward K4b), and on the asymmetric layout the all-types projection
-# followed by the blocked aggregate (``dots``).
-ROUTES = {"eval": ("fused_step", "pallas", "hybrid", "einsum", "dots"),
-          "train": ("pallas", "hybrid", "einsum", "dots")}
+# The message-passing forms the eval and training paths both run
+# (pemp_tpu/models/mpn/layers.py): the fused step (K1, backward K2b, K1b
+# and G1), the typed message kernel (K2, backward K2b), on the symmetric
+# kNN layout with the reverse-edge permutation the slim attention
+# aggregation (K3, backward K3b) or the blocked aggregate (K4, backward
+# K4b), and on the asymmetric layout the all-types projection followed by
+# the blocked aggregate (``dots``).
+ROUTES = ("fused_step", "pallas", "hybrid", "einsum", "dots")
 
 # The routes that need type-blocked nodes (type(n) == (n // K) mod J): the
 # fused step's in-kernel types and the reverse-edge permutation's static
@@ -455,7 +455,7 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
     (``unblocked``, a key of :data:`UNBLOCKED`: ``USE_GT``, the group-based
     MPN) ``auto`` is ``pallas`` in both modes and
     :data:`TYPE_BLOCKED_ROUTES` raise. Raises ``NotImplementedError`` for a
-    route the port does not run on that path."""
+    route the port does not run (not one of :data:`ROUTES`)."""
     if plain is not None:
         if msg_pass != "auto":
             raise NotImplementedError(
@@ -468,13 +468,8 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
     if unblocked and route in TYPE_BLOCKED_ROUTES:
         raise NotImplementedError(
             f"TPU.MSG_PASS={msg_pass!r} {UNBLOCKED[unblocked]}; 'pallas' and 'dots' run here")
-    path = "train" if train else "eval"
-    if route not in ROUTES[path]:
-        reason = ("; the JAX package's backward for the fused step (K1) is a jnp "
-                  "recompute, not a kernel" if route == "fused_step" and train else "")
-        raise NotImplementedError(
-            f"TPU.MSG_PASS={msg_pass!r}: the port's {path} path runs only "
-            f"{ROUTES[path]}{reason}")
+    if route not in ROUTES:
+        raise NotImplementedError(f"TPU.MSG_PASS={msg_pass!r}: the port runs only {ROUTES}")
     return route
 
 

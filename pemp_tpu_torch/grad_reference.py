@@ -64,10 +64,12 @@ def plain_versions():
     """The MPN layers' kernel wrappers replaced by their plain versions."""
     from pemp_tpu_torch.models.mpn import layers
     from pemp_tpu_torch.ops.attn_aggregate import fused_attn_aggregate_plain
+    from pemp_tpu_torch.ops.fused_step import fused_mpn_step_plain
     from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
     from pemp_tpu_torch.ops.typed_message import fused_typed_message_plain
 
-    swap = {"fused_attn_aggregate": fused_attn_aggregate_plain,
+    swap = {"fused_mpn_step": lambda *args, plan=None: fused_mpn_step_plain(*args),
+            "fused_attn_aggregate": fused_attn_aggregate_plain,
             "blocked_attn_aggregate": blocked_per_type_attention_aggregate,
             "fused_typed_message_aggregate": fused_typed_message_plain,
             "gather_rows_mm_or_plain": lambda x, j, n_img, plan=None: x[j]}

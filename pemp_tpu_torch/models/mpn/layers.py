@@ -376,8 +376,9 @@ class TypeAwareMPNLayer(nn.Module):
     def forward(self, x, q, cur, pre, sw):
         """One step. x (N, node_in) skip-concatenated nodes; q (E, H) the
         loop-invariant init-edge projection; cur (E, Dc) the edge carry;
-        ``pre`` the loop-invariant index columns; ``sw`` from step_weights.
-        Returns (new nodes (N, D), new edge carry (E, De))."""
+        ``pre`` the loop-invariant index columns (with the forward's
+        ``gather_plan``, None without a gradient); ``sw`` from
+        step_weights. Returns (new nodes (N, D), new edge carry (E, De))."""
         n = x.shape[0]
         dt = q.dtype
         xd = x.to(dt)
@@ -389,7 +390,7 @@ class TypeAwareMPNLayer(nn.Module):
             p, h_node, q, cur.to(dt).contiguous(), a,
             pre["src_local"], pre["src_type"], pre["valid"],
             sw["w_cur"], sw["w_e1"], sw["b_e1"], sw["we"], sw["w_attn"],
-            n, self.num_types, pre["nodes_per_image"],
+            n, self.num_types, pre["nodes_per_image"], plan=pre["gather_plan"],
         )
         out = self.update_mlp(updates.reshape(n, -1).to(dt))
         return out, new_edge

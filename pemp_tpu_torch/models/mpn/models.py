@@ -34,15 +34,16 @@ TPU (pemp_tpu/models/pose_estimation.py:234-256) for the module's mode:
 ``auto`` is the fused step (K1) in eval mode and the typed message kernel
 (``pallas``: K2, differentiable through K2b) in training mode; ``pallas``
 (K2's bf16 form at eval), ``hybrid`` (K3, through K3b), ``einsum`` and
-``dots`` (K4, through K4b) run in both, ``fused_step`` in eval mode only.
+``dots`` (K4, through K4b) and ``fused_step`` (K1, through K2b, K1b and
+G1) run in both.
 The two reverse-permutation routes (``hybrid``, ``einsum``) read the
 reverse-edge involution of the symmetric layout, built once per forward;
 ``dots`` runs on the asymmetric layout, as ``pallas``. Where a gradient can
 flow, the plans of G1 (ops.gather_mm.gather_plan) are built once per
-forward too: the source gather's, and on ``einsum`` and ``dots`` the
-projection's selections'. These kernel routes need the target-major
-blocked kNN layout (``_BLOCKED_C``, ``_NODES_PER_TYPE`` nodes of each
-type an image) and the flagship layer; under ``MODEL.GC.USE_GT``
+forward too: the source gather's (K1's on ``fused_step``), and on
+``einsum`` and ``dots`` the projection's selections'. These kernel routes
+need the target-major blocked kNN layout (``_BLOCKED_C``,
+``_NODES_PER_TYPE`` nodes of each type an image) and the flagship layer; under ``MODEL.GC.USE_GT``
 (``_GT_NODES``) the nodes are the GT joints, person-major, so the source
 types are gathered, ``auto`` is ``pallas`` in both modes and the routes
 that need type-blocked nodes (``fused_step``, ``hybrid``, ``einsum``)
@@ -282,16 +283,20 @@ class _Steps(nn.Module):
             "src_type": sum_node_types(c["NODE_TYPE_SUMMARY"], raw).to(torch.int32).reshape(e),
             "valid": edge_valid.to(torch.int32).reshape(e),
         }
+        n = x.shape[0]
+        n_img = c["NUM_JOINTS"] * npt
+        grad = torch.is_grad_enabled()
         if route == "fused_step":
             pre["src_local"] = edge_src_local.to(torch.int32).reshape(e)
-            pre["nodes_per_image"] = c["NUM_JOINTS"] * npt
+            pre["nodes_per_image"] = n_img
+            # the rows K1 gathers, img_base + src_local, keyed as G1's plan
+            # keys them: its backward scatters dq onto dp through the plan
+            pre["gather_plan"] = gather_plan(pre["src_local"], n_img, n) if grad else None
             return pre
         # the split edge MLP routes (pemp_tpu/models/mpn/models.py:199-211)
-        n = x.shape[0]
         pre["src"] = edge_index[0].long()
-        pre["n_img"] = c["NUM_JOINTS"] * npt
-        grad = torch.is_grad_enabled()
-        pre["gather_plan"] = gather_plan(pre["src"], pre["n_img"], n) if grad else None
+        pre["n_img"] = n_img
+        pre["gather_plan"] = gather_plan(pre["src"], n_img, n) if grad else None
         if route in ("einsum", "dots") and grad:
             pre["select_plans"] = split_linear_plans(pre["src_type"], n, self.num_types,
                                                      route == "dots")

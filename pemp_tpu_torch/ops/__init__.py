@@ -8,6 +8,7 @@ import importlib
 # each kernel's launch counter: {kernel: (module of this package, attribute)}
 LAUNCH_COUNTERS = {
     "K1": ("fused_step", "LAUNCHES"),
+    "K1b": ("fused_step", "LAUNCHES_BWD"),
     "K2": ("typed_message", "LAUNCHES_FWD"),
     "K2b": ("typed_message", "LAUNCHES_BWD"),
     "K3": ("attn_aggregate", "LAUNCHES_FWD"),

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_step", "typed_message", "attn_aggregate", "blocked_attn", "gather_rows")
+SOURCES = ("fused_step", "fused_step_bwd", "typed_message", "attn_aggregate", "blocked_attn",
+           "gather_rows")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

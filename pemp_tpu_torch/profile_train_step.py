@@ -4,7 +4,7 @@
 
 Trains model_58_4 (HigherHRNet-w32 at 512, batch 8, f32, seeded random
 weights, synthetic batches made before timing), with ``TPU.MSG_PASS`` set
-to ROUTE (auto, pallas, hybrid, einsum or dots; default auto, the typed
+to ROUTE (auto, fused_step, pallas, hybrid, einsum or dots; default auto, the typed
 message kernel), with CUDA events between the stages of each step:
 backbone (with the feature gather), graph (detection, kNN graph and edge
 features), labels (the auction matcher and the method-6 labels), MPN

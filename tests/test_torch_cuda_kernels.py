@@ -16,6 +16,7 @@ from pemp_tpu_torch.ops import (
     blocked_attn,
     fused_step,
     gather_mm,
+    launch_counts,
     typed_message,
 )
 from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
@@ -499,3 +500,71 @@ def test_gather_backward_kernel_matches_plain_on_card(case):
     assert torch.equal(out, x.detach()[jc])
     (dx,) = torch.autograd.grad(out, x, gc)
     assert gather_mm.LAUNCHES == before + 3 and torch.equal(dx, got)
+
+
+K1B_COTANGENTS = ("both", "ne only", "out only")
+K1B_GRADS = ("dp", "dh_node", "dq", "dcur", "da", "dw_cur", "dw_e1", "db_e1", "dwe", "dw_attn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", K1B_COTANGENTS)
+def test_fused_step_backward_matches_autograd_on_card(which):
+    # K1's autograd Function on the card (forward K1's f32 form; backward
+    # K2b on the tail, K1b on the edge MLP, G1 on the source gather) against
+    # autograd through the plain version, TF32 off: each of the ten
+    # gradients within 1e-4 of its own largest value (sums in other orders),
+    # a second backward with the same bits. With no cotangent on out (a
+    # pass whose nodes reach no head) K2b does not launch and a, we and
+    # w_attn get no gradient; with none on ne, K1b takes K2b's d_ef alone.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, n, t, n_img = _k1_inputs(seed=9, n_img=20, c=24, t=5)
+    rng = np.random.RandomState(19)
+    g_out = torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda()
+    g_ne = torch.from_numpy(rng.randn(n * 24, 64).astype(np.float32)).cuda()
+    g_out = None if which == "ne only" else g_out
+    g_ne = None if which == "out only" else g_ne
+    tens = [torch.from_numpy(a).cuda() for a in args]
+    plan = gather_mm.gather_plan(tens[5], n_img, n)
+
+    def grads(fn, **kw):
+        leaves = [x.clone().requires_grad_() if x.is_floating_point() else x for x in tens]
+        outs = fn(*leaves, n, t, n_img, **kw)
+        pairs = [(o, g) for o, g in zip(outs, (g_out, g_ne)) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   [x for x in leaves if x.is_floating_point()],
+                                   [g for _, g in pairs], allow_unused=True)
+
+    before = launch_counts()
+    got = grads(fused_step.fused_mpn_step, plan=plan)
+    again = grads(fused_step.fused_mpn_step, plan=plan)
+    want = grads(fused_step.fused_mpn_step_plain)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    k2b = 0 if g_out is None else 2
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after}, "K1": 2, "K1b": 2, "K2b": k2b, "G1": 2}
+    for name, x, x2, y in zip(K1B_GRADS, got, again, want):
+        if y is None:
+            assert x is None and g_out is None and name in ("da", "dwe", "dw_attn"), name
+            continue
+        assert torch.equal(x, x2), name
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_fused_step_backward_refuses_what_it_does_not_take():
+    # bf16 inputs that need a gradient (K1b runs in float32 only), and a
+    # gradient to p without the forward's gather plan
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    args, n, t, n_img = _k1_inputs()
+    tens = [torch.from_numpy(a).cuda() for a in args]
+    half = [x.to(torch.bfloat16) if x.is_floating_point() else x for x in tens]
+    half[3].requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        fused_step.fused_mpn_step(*half, n, t, n_img)
+    tens[0].requires_grad_()
+    with pytest.raises(ValueError, match="gather_plan"):
+        fused_step.fused_mpn_step(*tens, n, t, n_img)

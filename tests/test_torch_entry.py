@@ -243,20 +243,17 @@ def test_valid_path_refuses_what_it_does_not_do(key, value):
     ("pallas", "eval", True),
     ("dots", "eval", True),
     ("dots", "train", True),
-    ("fused_step", "train", False),
+    ("fused_step", "train", True),
 ])
 def test_reverse_permutation_routes(tmp_path, msg_pass, path, runs):
-    """Every route loads from a file; eval runs all five, training all but
-    fused_step, whose JAX backward is a jnp recompute, not a kernel."""
+    """Every route loads from a file and runs on both paths: eval and
+    training take all five, fused_step training through K2b, K1b and G1."""
     file = tmp_path / "c.yaml"
     file.write_text(f"TPU: {{MSG_PASS: {msg_pass}}}\n")
     cfg = update_config(w48_640() if path == "eval" else w32_512_train(), str(file))
     assert cfg.TPU.MSG_PASS == msg_pass
-    if runs:
-        check_path(cfg, path)
-    else:
-        with pytest.raises(NotImplementedError, match="jnp recompute"):
-            check_path(cfg, path)
+    assert runs
+    check_path(cfg, path)
 
 
 def test_config_drops_what_eval_does_not_read(tmp_path):
@@ -279,8 +276,8 @@ def test_config_drops_what_eval_does_not_read(tmp_path):
         cfg.TPU.COMPUTE_DTYPE = "float32"
     with pytest.raises(NotImplementedError, match="MODEL.GC.CC_METHOD"):
         check_path(cfg, "eval")
-    with pytest.raises(NotImplementedError, match="TPU.MSG_PASS"):
-        check_path(_with(w32_512_train(), "fused_step"), "train")
+    # the training path takes MSG_PASS fused_step too
+    check_path(_with(w32_512_train(), "fused_step"), "train")
 
 
 def _with(cfg, msg_pass):
