@@ -11,8 +11,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. K1 (``fused_mpn_step``) against its plain PyTorch version on the card,
    TF32 off: at the flagship eval shapes on seeded random inputs (f32, the
    CUDA-core form, within 1e-4; bf16, the tensor-core form, each output
-   within 2e-2 of its largest), at a ragged bf16 shape (C = 77, T = 17,
-   nodes per image no multiple of the node tile), and on the inputs the
+   within 2e-2 of its largest), at ragged shapes (C = 77, 85 nodes per
+   image, no multiple of either form's node tile; bf16 at T = 17, f32 at
+   T = 14), and on the inputs the
    w48/640 main path feeds it at MPN steps 0 and 9 (bf16); two calls must
    give the same bits. Logs which form serves each dtype; prints errors,
    kernel and plain ms per launch (CUDA events, median of 25 launches) and
@@ -305,8 +306,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    typed message and attention tail, K1b on the edge MLP, G1 on the source
    gather) against autograd through K1's plain version on the card, TF32
    off: on seeded random f32 inputs and cotangents at the model_58_4
-   training shapes and on the inputs and cotangents the fused_step
-   model_58_4 training path feeds at MPN steps 0 and 9. All ten gradients
+   training shapes, at a ragged shape (C = 77, T = 14, 85 nodes an image)
+   and on the inputs and cotangents the fused_step model_58_4 training
+   path feeds at MPN steps 0 and 9. All ten gradients
    (dp, dh_node, dq, dcur, da, dw_cur, dw_e1, db_e1, dwe, dw_attn) each
    within 1e-4 of its own largest value, a second backward with the same
    bits, K1b's outputs within 1e-4 of its plain factored form's largest.
@@ -418,7 +420,10 @@ def k1_bound_ms(args):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def random_k1_inputs(dtype, seed=0, b=8, j=17, k=40, c=80, w=64):
+def random_k1_inputs(dtype, seed=0, b=8, j=17, k=40, c=80, w=64, t=None):
+    """K1's inputs at b images of j * k nodes (k candidates of j joint
+    types), C slots a node and t source types (j by default)."""
+    t = t or j
     rng = np.random.RandomState(seed)
     n_img = j * k
     n = b * n_img
@@ -426,10 +431,10 @@ def random_k1_inputs(dtype, seed=0, b=8, j=17, k=40, c=80, w=64):
     dev = "cuda"
     f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev, dtype)  # noqa: E731
     i = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)  # noqa: E731
-    args = (f(n, w), f(n, w), f(e, w), f(e, w), f(n, j, w),
-            i(rng.randint(0, n_img, e)), i(rng.randint(0, j, e)), i(rng.rand(e) > 0.2),
-            f(w, w) * 0.2, f(w, w) * 0.2, f(w) * 0.1, f(w, j * w) * 0.2, f(w, 1) * 0.2)
-    return args, (n, j, n_img)
+    args = (f(n, w), f(n, w), f(e, w), f(e, w), f(n, t, w),
+            i(rng.randint(0, n_img, e)), i(rng.randint(0, t, e)), i(rng.rand(e) > 0.2),
+            f(w, w) * 0.2, f(w, w) * 0.2, f(w) * 0.1, f(w, t * w) * 0.2, f(w, 1) * 0.2)
+    return args, (n, t, n_img)
 
 
 def check_k1(label, args, dims, tol, fused_step):
@@ -3367,7 +3372,7 @@ def check_k1_backward(label, args, dims, cotangents):
     if all(g is not None for g in cotangents):
         parts, rest = launch_ms(step, args, K1_FLOATS, cotangents, dims,
                                 {"K1b reduce": "fused_step_bwd_reduce", "K1b": "fused_step_bwd",
-                                 "K1": "fused_step_kernel",
+                                 "K1": "fused_step_f32_kernel",
                                  "K2b reduce": "typed_message_bwd_reduce",
                                  "K2b": "typed_message_bwd", "G1": "gather_rows"})
         if not all(parts[k] > 0 for k in ("K1", "K1b", "K1b reduce", "K2b", "G1")):
@@ -3381,9 +3386,10 @@ def check_k1_backward(label, args, dims, cotangents):
 def phase_k1_backward(batch):
     """Phase 47: K1's autograd Function against autograd through the plain
     version (check_k1_backward) on seeded random f32 inputs at the model_58_4
-    training shapes (B = 8: N = 5440, C = 80, T = 17) and on the inputs and
-    cotangents the fused_step model_58_4 training path feeds at MPN steps 0
-    and 9. Returns K1b's numbers at step 0 and the largest error."""
+    training shapes (B = 8: N = 5440, C = 80, T = 17), at a ragged shape
+    (C = 77, T = 14, 85 nodes an image) and on the inputs and cotangents
+    the fused_step model_58_4 training path feeds at MPN steps 0 and 9.
+    Returns K1b's numbers at step 0 and the largest error."""
     from pemp_tpu_torch.config import w32_512_train
     from pemp_tpu_torch.train.train_step import build_trainer
 
@@ -3393,6 +3399,15 @@ def phase_k1_backward(batch):
     cot = (torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda(),
            torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda())
     errs = [check_k1_backward("random f32", args, dims, cot)[0]]
+    del args, cot
+    # ragged: C = 77 is no multiple of 16, T = 14, and 85 nodes an image
+    # fill no whole number of K1's 3-node tiles
+    args, dims = random_k1_inputs(torch.float32, seed=23, j=17, k=5, c=77, t=14)
+    n, t, _ = dims
+    cot = (torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda(),
+           torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda())
+    errs.append(check_k1_backward("ragged f32 (C 77, T 14, 85 nodes per image)", args, dims,
+                                  cot)[0])
     del args, cot
     cfg = w32_512_train()
     cfg.TPU.MSG_PASS = "fused_step"
@@ -3492,9 +3507,12 @@ def main() -> int:
         errs.append(check_k1(f"random {str(dtype)[6:]}", args, dims, tol, fused_step)[0])
         del args
     # ragged: C = 77 is no multiple of 16, 85 nodes per image and 170 in all
-    # fill no whole number of the bf16 form's 3-node tiles
+    # fill no whole number of either form's 3-node tiles
     args, dims = random_k1_inputs(torch.bfloat16, seed=3, b=2, j=17, k=5, c=77)
     errs.append(check_k1("ragged bf16 (C 77, T 17, 85 nodes per image)", args, dims, 2e-2,
+                         fused_step)[0])
+    args, dims = random_k1_inputs(torch.float32, seed=4, b=2, j=17, k=5, c=77, t=14)
+    errs.append(check_k1("ragged f32 (C 77, T 14, 85 nodes per image)", args, dims, 1e-4,
                          fused_step)[0])
     del args
     batch, size = BATCH, INPUT_SIZE

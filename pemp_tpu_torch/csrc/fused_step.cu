@@ -30,15 +30,11 @@
 //
 // Two forms, chosen by dtype in pemp_fused_step at the end of this file:
 //
-// * float32: fused_step_kernel<float>, the first form of this kernel. It
-//   serves the small CPU-against-card checks and the f32 kernel tests. It
-//   does its arithmetic on the CUDA cores in f32, one block of 256 threads
-//   per target node (grid-stride loop, weights staged once per block), slots
-//   grouped by type so one read of a `we` column serves every slot of that
-//   type. With W = kWidth, thread (lane = tid / W, col = tid % W) owns
-//   output column `col` for rows lane, lane + 256/W, ...
 // * bfloat16, the eval main path: tc::fused_step_bf16_kernel, the
 //   tensor-core form (its own note is further down).
+// * float32, the forward of every fused_step training step and of the
+//   small CPU-against-card checks: f32::fused_step_f32_kernel on the CUDA
+//   cores (its own note is at the end of the file).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,228 +42,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWidth = 64;     // every row: H == Dc == De == D, as both presets have
-constexpr int kRows = 8;       // rows per thread per register tile
 constexpr int kMaxTypes = 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// the reference casts h and ef to the working type before using them
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(
-    const T* __restrict__ p, const T* __restrict__ h_node, const T* __restrict__ q,
-    const T* __restrict__ cur, const T* __restrict__ a, const int* __restrict__ src,
-    const int* __restrict__ types, const int* __restrict__ valid,
-    const T* __restrict__ w_cur, const T* __restrict__ w_e1, const T* __restrict__ b_e1,
-    const T* __restrict__ we, const T* __restrict__ w_attn, T* __restrict__ ne,
-    float* __restrict__ out, int num_nodes, int c, int t, int n_img) {
-  constexpr int kLanes = kThreads / W;
-  constexpr int kLd = W + 1;  // padded row stride: column reads hit distinct banks
-  extern __shared__ float smem[];
-  float* s_wcur = smem;               // [k][j], W x W
-  float* s_we1 = s_wcur + W * W;      // [k][j], W x W
-  float* s_be1 = s_we1 + W * W;       // W
-  float* s_wat = s_be1 + W;           // W
-  float* s_x = s_wat + W;             // C x kLd: cur rows, then ef rows
-  float* s_h = s_x + c * kLd;         // C x kLd: hidden rows
-  float* s_logit = s_h + c * kLd;     // C
-  int* s_src = reinterpret_cast<int*>(s_logit + c);
-  int* s_type = s_src + c;
-  int* s_valid = s_type + c;
-  int* s_order = s_valid + c;         // valid slots grouped by type
-  int* s_gstart = s_order + c;        // kMaxTypes
-  int* s_gcount = s_gstart + kMaxTypes;
-
-  const int tid = threadIdx.x;
-  const int col = tid % W;
-  const int lane = tid / W;
-
-  for (int i = tid; i < W * W; i += kThreads) {
-    s_wcur[i] = to_f(w_cur[i]);
-    s_we1[i] = to_f(w_e1[i]);
-  }
-  for (int i = tid; i < W; i += kThreads) {
-    s_be1[i] = to_f(b_e1[i]);
-    s_wat[i] = to_f(w_attn[i]);
-  }
-
-  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x) {
-    const long long slot0 = static_cast<long long>(n) * c;
-    const long long img_base = static_cast<long long>(n / n_img) * n_img;
-    __syncthreads();  // weights staged; the previous node's buffers are free
-    for (int i = tid; i < c * W; i += kThreads) {
-      s_x[(i / W) * kLd + i % W] = to_f(cur[slot0 * W + i]);
-    }
-    for (int r = tid; r < c; r += kThreads) {
-      s_src[r] = src[slot0 + r];
-      s_type[r] = types[slot0 + r];
-      s_valid[r] = valid[slot0 + r] != 0;
-    }
-    __syncthreads();
-
-    // group the valid slots by type, in slot order within a type
-    for (int tt = tid; tt < t; tt += kThreads) {
-      int cnt = 0;
-      for (int r = 0; r < c; ++r) cnt += (s_valid[r] && s_type[r] == tt);
-      s_gcount[tt] = cnt;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int acc = 0;
-      for (int tt = 0; tt < t; ++tt) {
-        s_gstart[tt] = acc;
-        acc += s_gcount[tt];
-      }
-    }
-    __syncthreads();
-    for (int r = tid; r < c; r += kThreads) {
-      if (s_valid[r]) {
-        const int ty = s_type[r];
-        int rank = 0;
-        for (int r2 = 0; r2 < r; ++r2) rank += (s_valid[r2] && s_type[r2] == ty);
-        s_order[s_gstart[ty] + rank] = r;
-      }
-    }
-
-    // stage 1: h = relu(p[j] + h_node[n] + q + cur @ w_cur)
-    const float hn = to_f(h_node[static_cast<long long>(n) * W + col]);
-    for (int r0 = lane; r0 < c; r0 += kLanes * kRows) {
-      float acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-      for (int k = 0; k < W; ++k) {
-        const float wv = s_wcur[k * W + col];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int r = r0 + i * kLanes;
-          if (r < c) acc[i] += s_x[r * kLd + k] * wv;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = r0 + i * kLanes;
-        if (r < c) {
-          const float v = to_f(p[(img_base + s_src[r]) * W + col]) + hn + acc[i] +
-                          to_f(q[(slot0 + r) * W + col]);
-          s_h[r * kLd + col] = round_t<T>(fmaxf(v, 0.f));
-        }
-      }
-    }
-    __syncthreads();
-
-    // stage 2: ef = relu(h @ w_e1 + b_e1), the new edge carry (every slot)
-    const float bias = s_be1[col];
-    for (int r0 = lane; r0 < c; r0 += kLanes * kRows) {
-      float acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-      for (int k = 0; k < W; ++k) {
-        const float wv = s_we1[k * W + col];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int r = r0 + i * kLanes;
-          if (r < c) acc[i] += s_h[r * kLd + k] * wv;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = r0 + i * kLanes;
-        if (r < c) {
-          const T v = from_f<T>(fmaxf(acc[i] + bias, 0.f));
-          s_x[r * kLd + col] = to_f(v);
-          ne[(slot0 + r) * W + col] = v;
-        }
-      }
-    }
-    __syncthreads();
-
-    // attention logits: ef . w_attn (its bias is constant per group: dropped)
-    for (int r = tid; r < c; r += kThreads) {
-      float s = 0.f;
-      for (int k = 0; k < W; ++k) s += s_x[r * kLd + k] * s_wat[k];
-      s_logit[r] = s;
-    }
-    __syncthreads();
-
-    // stage 3, per (n, type) group: typed projection onto the group's own
-    // we slice, ReLU message, softmax-weighted sum. Lane `lane` owns types
-    // lane, lane + kLanes, ...; its W threads share every row and we read.
-    for (int tt = lane; tt < t; tt += kLanes) {
-      const int cnt = s_gcount[tt];
-      const int g0 = s_gstart[tt];
-      const long long o = (static_cast<long long>(n) * t + tt) * W + col;
-      if (cnt == 0) {
-        out[o] = 0.f;
-        continue;
-      }
-      float mx = __int_as_float(0xff800000);  // -inf
-      for (int i = 0; i < cnt; ++i) mx = fmaxf(mx, s_logit[s_order[g0 + i]]);
-      float den = 0.f;
-      for (int i = 0; i < cnt; ++i) den += expf(s_logit[s_order[g0 + i]] - mx);
-      den = fmaxf(den, 1e-16f);
-      const float av = to_f(a[o]);
-      const T* wcol = we + static_cast<long long>(tt) * W + col;  // we[k, tt*W + col]
-      const long long wstride = static_cast<long long>(t) * W;
-      float num = 0.f;
-      for (int i0 = 0; i0 < cnt; i0 += kRows) {
-        int rows[kRows];
-        float acc[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          rows[i] = s_order[g0 + min(i0 + i, cnt - 1)];
-          acc[i] = 0.f;
-        }
-        for (int k = 0; k < W; ++k) {
-          const float wv = to_f(wcol[k * wstride]);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i] += s_x[rows[i] * kLd + k] * wv;
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          if (i0 + i < cnt) num += expf(s_logit[rows[i]] - mx) * fmaxf(av + acc[i], 0.f);
-        }
-      }
-      out[o] = num / den;
-    }
-  }
-}
-
-template <typename T, int W>
-int launch(const void* p, const void* h_node, const void* q, const void* cur, const void* a,
-           const int* src, const int* types, const int* valid, const void* w_cur,
-           const void* w_e1, const void* b_e1, const void* we, const void* w_attn, void* ne,
-           float* out, int num_nodes, int c, int t, int n_img, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * W * W + 2 * W + 2 * c * (W + 1) + c) +
-                      sizeof(int) * (4 * c + 2 * kMaxTypes);
-  auto kernel = fused_step_kernel<T, W>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) per_sm = 1;
-  const int grid = num_nodes < sms * per_sm ? num_nodes : sms * per_sm;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(p), static_cast<const T*>(h_node), static_cast<const T*>(q),
-      static_cast<const T*>(cur), static_cast<const T*>(a), src, types, valid,
-      static_cast<const T*>(w_cur), static_cast<const T*>(w_e1), static_cast<const T*>(b_e1),
-      static_cast<const T*>(we), static_cast<const T*>(w_attn), static_cast<T*>(ne), out,
-      num_nodes, c, t, n_img);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 form: the same function on the tensor cores.
@@ -779,11 +554,500 @@ int launch(const void* p, const void* h_node, const void* q, const void* cur, co
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The f32 form: the same function on the CUDA cores, in float32.
+//
+// What bounds it on an H100: at the model_58_4 training shapes (B = 8:
+// N = 5440, C = 80, E = 435,200, T = 17, widths 64, ~70 % of the slots
+// valid) it does ~9.7 GFLOP, two 64x64 products a slot (h, ef) and one a
+// valid slot (the typed projection): ~0.144 ms at the 67 TFLOP/s f32 rate.
+// It reads q, cur, a and the index columns and writes ne and out (~370 MB,
+// ~0.11 ms at 3.35 TB/s). Bound by operations: the design keeps the FMA
+// units fed, and registers are what runs short (two 256-thread blocks an
+// SM leave 128 a thread).
+//
+// A block owns a tile of whole target nodes (kTileRows / C of them, 3 at
+// C = 80: 240 slot rows) and walks the tiles of a persistent grid, two
+// blocks per SM. Per tile:
+//
+// 1. cp.async brings the tile's index columns, then its cur rows in 16-byte
+//    pieces. While cur is in flight the warps sort the valid slots by type
+//    with the bf16 form's ballot sort: a warp per node, __match_any_sync and
+//    popcount, stable in slot order. A type's run holds its slots node by
+//    node, unpadded.
+// 2. h and ef are register tiles (mlp_pass). A thread owns 8 rows x 4
+//    columns and reads w_cur or w_e1 and the rows as float4 from shared
+//    memory: 12 loads for 128 FMAs. h overwrites the cur rows and ef the h
+//    rows in place. Only the 16 threads of a row group, all in one warp,
+//    read those rows, so a __syncwarp orders it. ne is stored from
+//    registers. Then one thread a row takes its logit ef . w_attn.
+// 3. A thread per (node, type) group takes its softmax: the max, each
+//    slot's e and the denominator.
+// 4. A warp per (type, half of the columns) item projects the type's run of
+//    ef rows onto its half of the type's 64x64 slice of `we` (project_half):
+//    a lane owns one column and loads its 64 weights into registers at
+//    once, one L2 round trip an item; each slice is read once a tile
+//    (~278 KB, ~500 MB a launch at C = 80). The rows go kChunk at a time
+//    (more spill the registers), and the lanes sum each group's messages in
+//    slot order straight into out.
+//
+// Shared memory: ~107 KB a block at C = 80 (weights 33 KB, rows 65 KB, the
+// sort ~6 KB). A second row buffer, filled with the next tile's cur while
+// this one computes, would need 65 KB more and leave one block per SM. Two
+// blocks per SM hide each other's copies and barriers instead. Shared
+// memory bounds C (to ~700 at T = 17: a larger C makes the launch fail with
+// an error; nothing falls back).
+//
+// Every sum has an order the tiling does not change, so ne and out do not
+// depend on it. h, ef, the logit and each projection element are fmaf
+// chains over k = 0..63 in order from 0; pre_h = ((p + h_node) + acc) + q;
+// ef = relu(acc + b_e1); m = relu(a + acc); a group's max, denominator and
+// message sum run over its valid slots in slot order. K1b recomputes pre_h
+// in this order (fused_step_bwd.cu).
+
+namespace f32 {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kW = 64;             // every row width
+constexpr int kLdX = kW + 4;       // row stride of the tile's rows: 16-byte rows, and rows
+                                   // r, r + 1 of one warp's two row groups in distinct banks
+constexpr int kTileRows = 256;     // slot rows per block tile, at most (one node when C > 256)
+constexpr int kMaxTileNodes = 32;  // nodes per block tile, at most
+constexpr int kPassRows = 128;     // rows of one register-tiled pass: 16 row groups x 8
+constexpr int kChunk = 2;          // rows of one projection chunk (more spill registers)
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// one k of a thread's four columns: acc[j] = fmaf(x, w_j, acc[j])
+__device__ __forceinline__ void fma4(float (&acc)[4], float x, const float4& w) {
+  acc[0] = fmaf(x, w.x, acc[0]);
+  acc[1] = fmaf(x, w.y, acc[1]);
+  acc[2] = fmaf(x, w.z, acc[2]);
+  acc[3] = fmaf(x, w.w, acc[3]);
+}
+
+int tile_nodes_for(int c) {
+  return c > 0 ? max(1, min(kMaxTileNodes, kTileRows / c)) : kMaxTileNodes;
+}
+
+// Shared memory of one block, carved from the dynamic allocation; the
+// float4-read arrays first, at 16-byte offsets.
+struct Smem {
+  float* wcur;   // kW x kW: w_cur[k][j]
+  float* we1;    // kW x kW: w_e1[k][j]
+  float* be1;    // kW
+  float* wat;    // kW: w_attn
+  float* x;      // rows16 x kLdX: the tile's cur rows, then h, then ef
+  float* logit;  // rows16: by tile row
+  float* e;      // rows16: by sorted place, exp(logit - the group's max)
+  int* src;      // rows16
+  int* key;      // rows16: types, then the type of a valid slot or -1
+  int* valid;    // rows16
+  int* rank;     // rows16: place within its (type, node) group
+  int* order;    // rows16: sorted place -> tile row
+  int* pnode;    // rows16: sorted place -> node in the tile
+  int* cnt;      // t x tile_nodes: group sizes
+  int* seg0;     // t x tile_nodes: each group's first sorted place
+  float* den;    // t x tile_nodes: each group's softmax denominator
+  int* run0;     // kMaxTypes: each type's first sorted place
+  int* runlen;   // kMaxTypes
+
+  __device__ Smem(float* base, int rows16, int t, int tn) {
+    wcur = base;
+    we1 = wcur + kW * kW;
+    be1 = we1 + kW * kW;
+    wat = be1 + kW;
+    x = wat + kW;
+    logit = x + rows16 * kLdX;
+    e = logit + rows16;
+    src = reinterpret_cast<int*>(e + rows16);
+    key = src + rows16;
+    valid = key + rows16;
+    rank = valid + rows16;
+    order = rank + rows16;
+    pnode = order + rows16;
+    cnt = pnode + rows16;
+    seg0 = cnt + t * tn;
+    den = reinterpret_cast<float*>(seg0 + t * tn);
+    run0 = reinterpret_cast<int*>(den + t * tn);
+    runlen = run0 + kMaxTypes;
+  }
+};
+
+int rows16_for(int c) { return (tile_nodes_for(c) * c + 15) & ~15; }
+
+size_t smem_bytes(int c, int t) {
+  const size_t rows16 = rows16_for(c);
+  return sizeof(float) * (2 * kW * kW + 2 * kW + rows16 * kLdX + 2 * rows16) +
+         sizeof(int) * (6 * rows16 + 3 * t * tile_nodes_for(c) + 2 * kMaxTypes);
+}
+
+// acc[i] = row row0 + 16 i of x times w (kW x kW, [k][j]) at columns
+// c0..c0 + 3: each element an fmaf chain over k = 0..63 in order.
+template <int RT>
+__device__ __forceinline__ void row_product(float (&acc)[RT][4], const float* w, const float* x,
+                                            int row0, int c0) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < kW; k += 4) {
+    float4 wv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wv[j] = ld4(w + (k + j) * kW + c0);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 xv = ld4(x + (row0 + 16 * i) * kLdX + k);
+      fma4(acc[i], xv.x, wv[0]);
+      fma4(acc[i], xv.y, wv[1]);
+      fma4(acc[i], xv.z, wv[2]);
+      fma4(acc[i], xv.w, wv[3]);
+    }
+  }
+}
+
+// h, ef, ne and the logits of tile rows base + rg + 16 i (i < RT), rg the
+// thread's row group; the thread owns columns c0..c0 + 3. Rows at or past
+// `rows` are computed on whatever the buffer holds and never stored.
+template <int RT>
+__device__ void mlp_pass(const Smem& s, const float* __restrict__ p,
+                         const float* __restrict__ h_node, const float* __restrict__ q,
+                         float* __restrict__ ne, int base, int rows, int c, int n0,
+                         long long slot0, int n_img) {
+  const int cg = threadIdx.x & 15, c0 = 4 * cg;
+  const int row0 = base + (threadIdx.x >> 4);
+  float acc[RT][4];
+  // h = relu(((p[j] + h_node[n]) + cur @ w_cur) + q), over the cur rows
+  row_product<RT>(acc, s.wcur, s.x, row0, c0);
+  __syncwarp();  // the row group's reads of cur are done before h overwrites them
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = row0 + 16 * i;
+    if (r < rows) {
+      const long long n = n0 + r / c;
+      const long long j = n / n_img * n_img + s.src[r];
+      const float4 pv = ldg4(p + j * kW + c0), hv = ldg4(h_node + n * kW + c0);
+      const float4 qv = ldg4(q + (slot0 + r) * kW + c0);
+      st4(s.x + r * kLdX + c0,
+          make_float4(fmaxf(((pv.x + hv.x) + acc[i][0]) + qv.x, 0.f),
+                      fmaxf(((pv.y + hv.y) + acc[i][1]) + qv.y, 0.f),
+                      fmaxf(((pv.z + hv.z) + acc[i][2]) + qv.z, 0.f),
+                      fmaxf(((pv.w + hv.w) + acc[i][3]) + qv.w, 0.f)));
+    }
+  }
+  __syncwarp();
+  // ef = relu(h @ w_e1 + b_e1), over the h rows, and to ne
+  row_product<RT>(acc, s.we1, s.x, row0, c0);
+  __syncwarp();
+  const float4 bias = ld4(s.be1 + c0);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = row0 + 16 * i;
+    if (r < rows) {
+      const float4 ef =
+          make_float4(fmaxf(acc[i][0] + bias.x, 0.f), fmaxf(acc[i][1] + bias.y, 0.f),
+                      fmaxf(acc[i][2] + bias.z, 0.f), fmaxf(acc[i][3] + bias.w, 0.f));
+      st4(s.x + r * kLdX + c0, ef);
+      st4(ne + (slot0 + r) * kW + c0, ef);
+    }
+  }
+  __syncwarp();
+  // the logit ef . w_attn (its bias is constant per group: dropped),
+  // thread cg of the row group on the group's row cg
+  const int r = row0 + 16 * cg;
+  if (cg < RT && r < rows) {
+    float v = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < kW; k += 4) {
+      const float4 xv = ld4(s.x + r * kLdX + k), wv = ld4(s.wat + k);
+      v = fmaf(xv.x, wv.x, v);
+      v = fmaf(xv.y, wv.y, v);
+      v = fmaf(xv.z, wv.z, v);
+      v = fmaf(xv.w, wv.w, v);
+    }
+    s.logit[r] = v;
+  }
+}
+
+// The (node, type) group a warp of project_half is summing, at the lane's
+// column.
+struct Group {
+  int nl;     // node in the tile, -1 before the first
+  float av;   // a[n, tt] at the lane's column
+  float den;
+  float num;
+};
+
+// the offset of group (n0 + nl, tt)'s row of a and out
+__device__ __forceinline__ long long group_row(int n0, int nl, int t, int tt) {
+  return ((static_cast<long long>(n0) + nl) * t + tt) * kW;
+}
+
+// Sorted places pos0..pos0 + R - 1 of type tt's run: each row projected
+// onto the lane's column `col` of the type's we slice (w: its 64 k), its
+// message relu(a + projection) weighted by its e and summed into its
+// group, in slot order.
+template <int R>
+__device__ __forceinline__ void project_rows(const Smem& s, const float (&w)[kW],
+                                             const float* __restrict__ a, float* __restrict__ out,
+                                             int pos0, int tt, int t, int tn, int n0, int col,
+                                             Group& g) {
+  int xo[R];  // the rows' offsets in s.x
+#pragma unroll
+  for (int i = 0; i < R; ++i) xo[i] = s.order[pos0 + i] * kLdX;
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kW; k += 4) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 xv = ld4(s.x + xo[i] + k);
+      acc[i] = fmaf(xv.x, w[k], acc[i]);
+      acc[i] = fmaf(xv.y, w[k + 1], acc[i]);
+      acc[i] = fmaf(xv.z, w[k + 2], acc[i]);
+      acc[i] = fmaf(xv.w, w[k + 3], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int pos = pos0 + i;
+    const int nl = s.pnode[pos];
+    if (nl != g.nl) {  // the next group starts: the last one is whole
+      if (g.nl >= 0) out[group_row(n0, g.nl, t, tt) + col] = g.num / g.den;
+      g.nl = nl;
+      g.num = 0.f;
+      g.den = s.den[tt * tn + nl];
+      g.av = __ldg(a + group_row(n0, nl, t, tt) + col);
+    }
+    g.num = fmaf(s.e[pos], fmaxf(g.av + acc[i], 0.f), g.num);
+  }
+}
+
+// Columns 32 half .. 32 half + 31 of type tt in the tile, by one warp, the
+// lane on column col: zeros for the type's empty groups, then its run of
+// valid rows, kChunk at a time. The column's 64 weights are loaded at once
+// into registers: one L2 round trip an item.
+__device__ void project_half(const Smem& s, const float* __restrict__ we,
+                             const float* __restrict__ a, float* __restrict__ out, int tt,
+                             int half, int t, int tn, int nt, int n0) {
+  const int col = 32 * half + (threadIdx.x & 31);
+  for (int nl = 0; nl < nt; ++nl)  // an empty group gives 0
+    if (s.cnt[tt * tn + nl] == 0) out[group_row(n0, nl, t, tt) + col] = 0.f;
+  const int run0 = s.run0[tt], run_end = run0 + s.runlen[tt];
+  if (run_end == run0) return;
+  const float* wcol = we + tt * kW + col;  // we[k, tt W + col] at k * wstride
+  const long long wstride = static_cast<long long>(t) * kW;
+  float w[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) w[k] = __ldg(wcol + k * wstride);
+  Group g{-1, 0.f, 1.f, 0.f};
+  int pos0 = run0;
+  for (; pos0 + kChunk <= run_end; pos0 += kChunk)
+    project_rows<kChunk>(s, w, a, out, pos0, tt, t, tn, n0, col, g);
+  for (; pos0 < run_end; ++pos0) project_rows<1>(s, w, a, out, pos0, tt, t, tn, n0, col, g);
+  out[group_row(n0, g.nl, t, tt) + col] = g.num / g.den;
+}
+
+__global__ void __launch_bounds__(kThreads, 2) fused_step_f32_kernel(
+    const float* __restrict__ p, const float* __restrict__ h_node, const float* __restrict__ q,
+    const float* __restrict__ cur, const float* __restrict__ a, const int* __restrict__ src,
+    const int* __restrict__ types, const int* __restrict__ valid,
+    const float* __restrict__ w_cur, const float* __restrict__ w_e1,
+    const float* __restrict__ b_e1, const float* __restrict__ we,
+    const float* __restrict__ w_attn, float* __restrict__ ne, float* __restrict__ out,
+    int num_nodes, int c, int t, int n_img, int tn, int rows16) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const Smem s(smem_f32, rows16, t, tn);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  for (int i = tid; i < kW * kW / 4; i += kThreads) {
+    st4(s.wcur + 4 * i, ldg4(w_cur + 4 * i));
+    st4(s.we1 + 4 * i, ldg4(w_e1 + 4 * i));
+  }
+  if (tid < kW) {
+    s.be1[tid] = b_e1[tid];
+    s.wat[tid] = w_attn[tid];
+  }
+
+  const int num_tiles = (num_nodes + tn - 1) / tn;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int n0 = tile * tn;
+    const int nt = min(tn, num_nodes - n0);
+    const int rows = nt * c;
+    const long long slot0 = static_cast<long long>(n0) * c;
+
+    // 1. the index columns, then the cur rows, in flight; the sort while
+    // cur arrives
+    for (int r = tid; r < rows; r += kThreads) {
+      tc::cp_async4(s.src + r, src + slot0 + r);
+      tc::cp_async4(s.key + r, types + slot0 + r);
+      tc::cp_async4(s.valid + r, valid + slot0 + r);
+    }
+    tc::cp_async_commit();
+    for (int i = tid; i < rows * (kW / 4); i += kThreads) {
+      const int r = i >> 4, ch = 4 * (i & 15);
+      tc::cp_async16(s.x + r * kLdX + ch, cur + (slot0 + r) * kW + ch, true);
+    }
+    tc::cp_async_commit();
+    for (int i = tid; i < t * tn; i += kThreads) s.cnt[i] = 0;
+    tc::cp_async_wait<1>();
+    __syncthreads();
+
+    // a warp per node ranks its valid slots within (type, node), stably in
+    // slot order
+    for (int nl = warp; nl < nt; nl += kWarps) {
+      for (int b = 0; b < c; b += 32) {
+        const int rl = b + lane;
+        const int r = nl * c + rl;
+        int key = -1;
+        if (rl < c) {
+          const int ty = s.key[r];
+          if (s.valid[r] != 0 && ty >= 0 && ty < t) key = ty;
+        }
+        const unsigned peers = __match_any_sync(0xffffffffu, key);
+        const int base = key >= 0 ? s.cnt[key * tn + nl] : 0;
+        __syncwarp();
+        if (rl < c) s.key[r] = key;
+        if (key >= 0) {
+          s.rank[r] = base + __popc(peers & ((1u << lane) - 1u));
+          if (__ffs(peers) - 1 == lane) s.cnt[key * tn + nl] = base + __popc(peers);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // lay the types' runs out, node by node, unpadded
+      int run = 0;
+      if (lane < t) {
+        for (int nl = 0; nl < nt; ++nl) {
+          s.seg0[lane * tn + nl] = run;
+          run += s.cnt[lane * tn + nl];
+        }
+      }
+      int incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (lane < t) {
+        const int start = incl - run;
+        s.run0[lane] = start;
+        s.runlen[lane] = run;
+        for (int nl = 0; nl < nt; ++nl) s.seg0[lane * tn + nl] += start;
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += kThreads) {
+      const int key = s.key[r];
+      if (key >= 0) {
+        const int nl = r / c;
+        const int pos = s.seg0[key * tn + nl] + s.rank[r];
+        s.order[pos] = r;
+        s.pnode[pos] = nl;
+      }
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();
+
+    // 2. h, ef, ne and the logits, kPassRows rows a pass
+    for (int base = 0; base < rows; base += kPassRows) {
+#define PEMP_MLP_PASS(RT) mlp_pass<RT>(s, p, h_node, q, ne, base, rows, c, n0, slot0, n_img)
+      switch ((min(rows - base, kPassRows) + 15) >> 4) {
+        case 1: PEMP_MLP_PASS(1); break;
+        case 2: PEMP_MLP_PASS(2); break;
+        case 3: PEMP_MLP_PASS(3); break;
+        case 4: PEMP_MLP_PASS(4); break;
+        case 5: PEMP_MLP_PASS(5); break;
+        case 6: PEMP_MLP_PASS(6); break;
+        case 7: PEMP_MLP_PASS(7); break;
+        default: PEMP_MLP_PASS(8); break;
+      }
+#undef PEMP_MLP_PASS
+    }
+    __syncthreads();
+
+    // 3. the softmax of each (node, type) group, a thread per group: its
+    // max and denominator, and each slot's e, in slot order
+    for (int i = tid; i < t * nt; i += kThreads) {
+      const int grp = (i / nt) * tn + i % nt, cnt = s.cnt[grp], seg = s.seg0[grp];
+      float mx = __int_as_float(0xff800000);  // -inf
+      for (int k = 0; k < cnt; ++k) mx = fmaxf(mx, s.logit[s.order[seg + k]]);
+      float den = 0.f;
+      for (int k = 0; k < cnt; ++k) {
+        const float e = expf(s.logit[s.order[seg + k]] - mx);
+        s.e[seg + k] = e;
+        den += e;
+      }
+      s.den[grp] = fmaxf(den, 1e-16f);
+    }
+    __syncthreads();
+
+    // 4. the typed projection and the messages' sums, a warp per (type,
+    // half of the columns)
+    for (int item = warp; item < 2 * t; item += kWarps)
+      project_half(s, we, a, out, item >> 1, item & 1, t, tn, nt, n0);
+    __syncthreads();
+  }
+}
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+int launch(const void* p, const void* h_node, const void* q, const void* cur, const void* a,
+           const int* src, const int* types, const int* valid, const void* w_cur,
+           const void* w_e1, const void* b_e1, const void* we, const void* w_attn, void* ne,
+           float* out, int num_nodes, int c, int t, int n_img, cudaStream_t stream) {
+  // rows, w_cur and w_e1 are read and ne written in 16-byte pieces, a, we and
+  // out in 8-byte pieces
+  if (!(aligned(p, 16) && aligned(h_node, 16) && aligned(q, 16) && aligned(cur, 16) &&
+        aligned(w_cur, 16) && aligned(w_e1, 16) && aligned(ne, 16) && aligned(a, 8) &&
+        aligned(we, 8) && aligned(out, 8)))
+    return -2;
+  const int tn = tile_nodes_for(c);
+  const size_t smem = smem_bytes(c, t);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_step_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_step_f32_kernel,
+                                                           kThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) per_sm = 1;
+  const int num_tiles = (num_nodes + tn - 1) / tn;
+  const int grid = num_tiles < sms * per_sm ? num_tiles : sms * per_sm;
+  fused_step_f32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(p), static_cast<const float*>(h_node),
+      static_cast<const float*>(q), static_cast<const float*>(cur),
+      static_cast<const float*>(a), src, types, valid, static_cast<const float*>(w_cur),
+      static_cast<const float*>(w_e1), static_cast<const float*>(b_e1),
+      static_cast<const float*>(we), static_cast<const float*>(w_attn),
+      static_cast<float*>(ne), out, num_nodes, c, t, n_img, tn, rows16_for(c));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core form), 1 = bfloat16 (the tensor-core
-// form); rows are kWidth wide. Returns a cudaError_t, or -1 for an
-// unsupported dtype and -2 for more than 32 types.
+// form); rows are 64 wide. Returns a cudaError_t, or -1 for an unsupported
+// dtype and -2 for more than 32 types or (float32) misaligned arrays.
 extern "C" int pemp_fused_step(int dtype, const void* p, const void* h_node,
                                const void* q, const void* cur, const void* a, const int* src,
                                const int* types, const int* valid, const void* w_cur,
@@ -793,8 +1057,8 @@ extern "C" int pemp_fused_step(int dtype, const void* p, const void* h_node,
   if (t > kMaxTypes) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, kWidth>(p, h_node, q, cur, a, src, types, valid, w_cur, w_e1, b_e1, we,
-                                 w_attn, ne, out, num_nodes, c, t, n_img, s);
+    return f32::launch(p, h_node, q, cur, a, src, types, valid, w_cur, w_e1, b_e1, we, w_attn,
+                       ne, out, num_nodes, c, t, n_img, s);
   if (dtype == 1)
     return tc::launch(p, h_node, q, cur, a, src, types, valid, w_cur, w_e1, b_e1, we, w_attn, ne,
                       out, num_nodes, c, t, n_img, s);

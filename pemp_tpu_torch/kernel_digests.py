@@ -7,10 +7,13 @@ builds of the port bit for bit on one card.
 Runs K2 and K2b (``ops.typed_message``), K3 and K3b
 (``ops.attn_aggregate``) and K4 in f32 and bf16 (``ops.blocked_attn``,
 forward) at the model_58_4 training shapes (B = 8: N = 5440, T = 17,
-C = 80, widths 64) on inputs made from seed 1, and prints the package it
-imported, then one line per kernel: its name and the first 16 hex digits
-of the sha256 of its outputs' float32 bytes. Two checkouts whose lines
-agree computed the same bits on this card. The digests depend on the card
+C = 80, widths 64) on inputs made from seed 1; then K1's f32 form
+(``ops.fused_step``: out, ne), K1b on that ne and seeded cotangents (its
+six outputs) and K1's autograd Function (K2b, K1b and G1: its ten
+gradients) on inputs made from seed 21 as ``chip_smoke.random_k1_inputs``
+makes them. Prints the package it imported, then one line per output:
+its name and the first 16 hex digits of the sha256 of its float32 bytes.
+Two checkouts whose lines agree computed the same bits on this card. The digests depend on the card
 and the toolchain, so they are compared within one run, never kept. Needs
 a CUDA card.
 """
@@ -23,7 +26,10 @@ import numpy as np
 import torch
 
 import pemp_tpu_torch
-from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, typed_message
+from pemp_tpu_torch.ops import attn_aggregate, blocked_attn, fused_step, gather_mm, typed_message
+
+K1_GRADS = ("dp", "dh_node", "dq", "dcur", "da", "dw_cur", "dw_e1", "db_e1", "dwe", "dw_attn")
+K1B_OUTPUTS = ("dq", "dcur", "dh_node", "dw_cur", "dw_e1", "db_e1")
 
 
 def _digest(*tensors) -> str:
@@ -61,6 +67,48 @@ def main() -> None:
         print("K4", _digest(blocked_attn.blocked_attn_aggregate(ef, logits, types, n, t, valid)))
         print("K4 bf16", _digest(blocked_attn.blocked_attn_aggregate(ef.bfloat16(), logits,
                                                                      types, n, t, valid)))
+    del ef, a, g, logits, leaves, out
+    _k1_digests()
+
+
+def _k1_inputs(seed=21, b=8, j=17, k=40, c=80, w=64):
+    """K1's inputs as chip_smoke.random_k1_inputs makes them (f32)."""
+    rng = np.random.RandomState(seed)
+    n_img = j * k
+    n = b * n_img
+    e = n * c
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()  # noqa: E731
+    i = lambda x: torch.from_numpy(x.astype(np.int32)).cuda()  # noqa: E731
+    args = (f(n, w), f(n, w), f(e, w), f(e, w), f(n, j, w),
+            i(rng.randint(0, n_img, e)), i(rng.randint(0, j, e)), i(rng.rand(e) > 0.2),
+            f(w, w) * 0.2, f(w, w) * 0.2, f(w) * 0.1, f(w, j * w) * 0.2, f(w, 1) * 0.2)
+    return args, (n, j, n_img)
+
+
+def _k1_digests() -> None:
+    args, dims = _k1_inputs()
+    n, t, n_img = dims
+    rng = np.random.RandomState(22)
+    g_out = torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda()
+    g_ne = torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda()
+    g_agg = torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda()
+    with torch.no_grad():
+        out, ne = fused_step.fused_mpn_step(*args, *dims)
+        print("K1 f32 out", _digest(out))
+        print("K1 f32 ne", _digest(ne))
+        p, h_node, q, cur, _, src, _, _, w_cur, w_e1 = args[:10]
+        k1b = fused_step._launch_backward(p, h_node, q, cur, src, w_cur, w_e1, ne, g_ne, g_agg,
+                                          n, n_img)
+        for name, x in zip(K1B_OUTPUTS, k1b):
+            print(f"K1b {name}", _digest(x))
+    del out, ne, k1b
+    floats = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
+    leaves = [x.clone().requires_grad_() if i in floats else x for i, x in enumerate(args)]
+    plan = gather_mm.gather_plan(args[5], n_img, n)
+    outs = fused_step.fused_mpn_step(*leaves, *dims, plan=plan)
+    grads = torch.autograd.grad(outs, [leaves[i] for i in floats], (g_out, g_ne))
+    for name, x in zip(K1_GRADS, grads):
+        print(f"K1 backward {name}", _digest(x))
 
 
 if __name__ == "__main__":

@@ -33,11 +33,16 @@ reference) as three hand-written kernels:
 Bound on an H100 (reckoned from the shapes, see the kernel sources): at
 the flagship eval shapes one K1 launch moves ~209 MB, ~62 us at 3.35 TB/s,
 and does ~10.7 GFLOP, ~11 us at the bf16 tensor-core peak: memory-bound.
-K1b at the model_58_4 training shapes (E = 435,200, widths 64, f32) does
-~17.8 GFLOP, ~0.27 ms at the f32 rate, against ~780 MB, ~0.23 ms:
-bound by operations. K1 keeps every E-sized intermediate on chip, gathers
-source rows by index and projects each slot only onto its own type.
-``FORMS`` says which form of the kernel serves which dtype.
+K1's f32 form at the model_58_4 training shapes (E = 435,200, widths 64)
+does ~9.7 GFLOP, ~0.144 ms at the f32 rate, and K1b ~17.8 GFLOP, ~0.27 ms,
+against ~780 MB, ~0.23 ms: both bound by operations. K1 keeps every
+E-sized intermediate on chip, gathers source rows by index and projects
+each slot only onto its own type. ``FORMS`` says which form of the kernel
+serves which dtype: bf16 on the tensor cores, f32 on the CUDA cores. The
+f32 form and K1b compute their products as register tiles (a thread owns
+rows x 4 columns, float4 loads from shared memory), keeping every
+element's sum in k order, so ``ne`` and K1b's ``dq`` and ``dcur`` do not
+depend on the tiling.
 
 ``LAUNCHES`` counts K1's launches and ``LAUNCHES_BWD`` K1b's (the plain
 versions do not count).
@@ -55,7 +60,8 @@ LAUNCHES = 0
 LAUNCHES_BWD = 0
 
 FORMS = {
-    torch.float32: "f32 CUDA-core form (fused_step_kernel<float>, a block per node)",
+    torch.float32: "f32 CUDA-core form (f32::fused_step_f32_kernel: register-tiled rows, "
+                   "cp.async, node tiles sorted by type, a warp per (type, half) projection)",
     torch.bfloat16: "bf16 tensor-core form (tc::fused_step_bf16_kernel: mma.sync m16n8k16, "
                     "ldmatrix, cp.async, node tiles sorted by type)",
 }

@@ -22,15 +22,17 @@ from pemp_tpu_torch.ops import (
 from pemp_tpu_torch.ops.segment import blocked_per_type_attention_aggregate
 
 
-def _k1_inputs(seed=2, imgs=2, n_img=16, c=8, t=4, w=64):
+def _k1_inputs(seed=2, imgs=2, n_img=16, c=8, t=4, w=64, one_type_nodes=3, empty_type=None):
     rng = np.random.RandomState(seed)
     n = imgs * n_img
     e = n * c
     f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
     types = rng.randint(0, t, e).astype(np.int32)
-    types[: 3 * c] = 0
+    types[: one_type_nodes * c] = 0   # nodes 0-2 see one type only: empty groups
     valid = (rng.rand(e) > 0.2).astype(np.int32)
-    valid[5 * c: 6 * c] = 0
+    valid[5 * c: 6 * c] = 0           # node 5 (where there is one) has no valid slot at all
+    if empty_type is not None:        # no valid slot of this type anywhere
+        valid[types == empty_type] = 0
     args = (
         f(n, w), f(n, w), f(e, w), f(e, w), f(n, t, w),
         rng.randint(0, n_img, e).astype(np.int32), types, valid,
@@ -39,23 +41,57 @@ def _k1_inputs(seed=2, imgs=2, n_img=16, c=8, t=4, w=64):
     return args, n, t, n_img
 
 
+K1_CASES = {
+    # dtype, tolerance, _k1_inputs arguments
+    "f32": (torch.float32, 1e-4, {}),
+    "bf16": (torch.bfloat16, 2e-2, {}),
+    # the flagship widths: 800 nodes fill 267 of the f32 form's 3-node
+    # tiles, more than one launch's blocks, so blocks take several
+    "f32_c80_t17": (torch.float32, 1e-4, dict(seed=13, imgs=4, n_img=200, c=80, t=17)),
+    # ragged: C = 77 is no multiple of 16, and 100 nodes no multiple of the
+    # 3-node tile
+    "f32_c77_t14_ragged": (torch.float32, 1e-4, dict(seed=14, imgs=2, n_img=50, c=77, t=14)),
+    # type 3 has no valid slot (and node 5 none at all)
+    "f32_empty_type": (torch.float32, 1e-4,
+                       dict(seed=15, imgs=2, n_img=20, c=80, t=17, empty_type=3)),
+    # 3 nodes in all: one tile, one block
+    "f32_n3": (torch.float32, 1e-4, dict(seed=16, imgs=1, n_img=3, c=80, t=17,
+                                         one_type_nodes=0)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_kernel_matches_plain_on_card(dtype, tol):
-    # the kernel sums in another order than cuBLAS (f32: 1e-4); in bf16 the
-    # edge carry rounds at the same points but may land one ulp apart (2e-2,
-    # as tests/test_fused_step.py)
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_kernel_matches_plain_on_card(case):
+    # f32 (the CUDA-core form): out and ne within 1e-4 absolute (sums in
+    # another order than cuBLAS); in bf16 the edge carry rounds at the same
+    # points but may land one ulp apart (2e-2, as tests/test_fused_step.py).
+    # Empty groups give exactly 0, and, with no float atomics, a second call
+    # the same bits.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, n, t, n_img = _k1_inputs()
+    dtype, tol, kw = K1_CASES[case]
+    args, n, t, n_img = _k1_inputs(**kw)
     tens = [torch.from_numpy(a).cuda() for a in args]
     tens = [x.to(dtype) if x.is_floating_point() else x for x in tens]
+    before = fused_step.LAUNCHES
     out_k, ne_k = fused_step.fused_mpn_step(*tens, n, t, n_img)
+    out_2, ne_2 = fused_step.fused_mpn_step(*tens, n, t, n_img)
     out_p, ne_p = fused_step.fused_mpn_step_plain(*tens, n, t, n_img)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out_k, out_p, atol=tol, rtol=tol)
-    torch.testing.assert_close(ne_k.float(), ne_p.float(), atol=tol, rtol=tol)
+    assert fused_step.LAUNCHES == before + 2
+    assert torch.equal(out_k, out_2) and torch.equal(ne_k, ne_2)
+    if dtype == torch.float32:
+        assert (out_k - out_p).abs().max().item() <= tol
+        assert (ne_k - ne_p).abs().max().item() <= tol
+    else:
+        torch.testing.assert_close(out_k, out_p, atol=tol, rtol=tol)
+        torch.testing.assert_close(ne_k.float(), ne_p.float(), atol=tol, rtol=tol)
+    c = args[3].shape[0] // n
+    cnt = np.zeros((n, t), np.int64)
+    np.add.at(cnt, (np.arange(n * c) // c, args[6]), args[7])
+    assert bool((out_k.cpu().numpy()[cnt == 0] == 0).all())
 
 
 @pytest.mark.cuda
@@ -504,11 +540,25 @@ def test_gather_backward_kernel_matches_plain_on_card(case):
 
 K1B_COTANGENTS = ("both", "ne only", "out only")
 K1B_GRADS = ("dp", "dh_node", "dq", "dcur", "da", "dw_cur", "dw_e1", "db_e1", "dwe", "dw_attn")
+K1B_CASES = {
+    "c24_t5": dict(seed=9, n_img=20, c=24, t=5),
+    # the flagship widths over 800 nodes: more nodes than one launch's
+    # blocks, so blocks take several
+    "c80_t17": dict(seed=17, imgs=4, n_img=200, c=80, t=17),
+    # ragged: C = 77 is no multiple of 16, 100 nodes no multiple of K1's
+    # 3-node tile
+    "c77_t14_ragged": dict(seed=18, imgs=2, n_img=50, c=77, t=14),
+    # type 3 has no valid slot (and node 5 none at all)
+    "empty_type": dict(seed=19, imgs=2, n_img=20, c=80, t=17, empty_type=3),
+    # 3 nodes in all
+    "n3": dict(seed=20, imgs=1, n_img=3, c=80, t=17, one_type_nodes=0),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", K1B_COTANGENTS)
-def test_fused_step_backward_matches_autograd_on_card(which):
+@pytest.mark.parametrize("case", sorted(K1B_CASES))
+def test_fused_step_backward_matches_autograd_on_card(case, which):
     # K1's autograd Function on the card (forward K1's f32 form; backward
     # K2b on the tail, K1b on the edge MLP, G1 on the source gather) against
     # autograd through the plain version, TF32 off: each of the ten
@@ -516,13 +566,15 @@ def test_fused_step_backward_matches_autograd_on_card(which):
     # a second backward with the same bits. With no cotangent on out (a
     # pass whose nodes reach no head) K2b does not launch and a, we and
     # w_attn get no gradient; with none on ne, K1b takes K2b's d_ef alone.
+    # Then K1b alone against its plain factored form on the same inputs:
+    # each output within 1e-4 of its largest, a second call the same bits.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, n, t, n_img = _k1_inputs(seed=9, n_img=20, c=24, t=5)
+    args, n, t, n_img = _k1_inputs(**K1B_CASES[case])
     rng = np.random.RandomState(19)
     g_out = torch.from_numpy(rng.randn(n, t, 64).astype(np.float32)).cuda()
-    g_ne = torch.from_numpy(rng.randn(n * 24, 64).astype(np.float32)).cuda()
+    g_ne = torch.from_numpy(rng.randn(args[3].shape[0], 64).astype(np.float32)).cuda()
     g_out = None if which == "ne only" else g_out
     g_ne = None if which == "out only" else g_ne
     tens = [torch.from_numpy(a).cuda() for a in args]
@@ -549,6 +601,23 @@ def test_fused_step_backward_matches_autograd_on_card(which):
         if y is None:
             assert x is None and g_out is None and name in ("da", "dwe", "dw_attn"), name
             continue
+        assert torch.equal(x, x2), name
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name
+
+    p, h_node, q, cur, a, src, types, valid, w_cur, w_e1, b_e1, we, w_attn = tens
+    with torch.no_grad():
+        _, ne = fused_step.fused_mpn_step(*tens, n, t, n_img)
+        g_agg = None
+        if g_out is not None:
+            g_agg = typed_message._launch_backward(ne, a, types, valid, we, w_attn, g_out, n,
+                                                   t)[0]
+        k1b_args = (p, h_node, q, cur, src, w_cur, w_e1, ne, g_ne, g_agg, n, n_img)
+        got = fused_step._launch_backward(*k1b_args)
+        again = fused_step._launch_backward(*k1b_args)
+        want = fused_step.fused_step_bwd_plain(*k1b_args)
+    torch.cuda.synchronize()
+    for name, x, x2, y in zip(("dq", "dcur", "dh_node", "dw_cur", "dw_e1", "db_e1"), got, again,
+                              want):
         assert torch.equal(x, x2), name
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item(), name
 

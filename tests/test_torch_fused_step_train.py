@@ -71,13 +71,20 @@ def _assert_grads(got, want, tol):
         np.testing.assert_allclose(g, w, rtol=0, atol=tol * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("seed", [7, 11])
-def test_op_gradients_match_jax_custom_vjp(seed):
+@pytest.mark.parametrize("seed,shape", [
+    pytest.param(7, {}, id="7"),
+    pytest.param(11, {}, id="11"),
+    # C = 77 (no multiple of 16) at model_81_1_2's T = 14, the ragged shape
+    # the card tests hold K1's f32 form and K1b to
+    pytest.param(13, dict(n_img=8, c=77, t=14), id="c77_t14"),
+])
+def test_op_gradients_match_jax_custom_vjp(seed, shape):
     """(a) jax.vjp of the JAX package's fused step (Pallas forward in
     interpret mode, jax.vjp of step_reference backward) against the port's
     wrapper under autograd, on tests/test_fused_step.py's shapes (with
-    empty (node, type) groups and a node with no valid slot)."""
-    args, n, t, n_img = _make(seed=seed)
+    empty (node, type) groups and a node with no valid slot) and at
+    C = 77, T = 14."""
+    args, n, t, n_img = _make(seed=seed, **shape)
     g = _cotangents(args, n, t, seed + 100)
     jargs = [jnp.asarray(a) for a in args]
 
