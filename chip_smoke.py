@@ -74,11 +74,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    each per step, no K2), 5 hybrid w48/640 forwards (K3 10 times per
    forward, no K1), 5 einsum w48/640 forwards (K4 10 times per forward, no
    K1 or K3). Prints steps/s or img/s and peak memory per route.
-13. K2's bf16 form (``fused_typed_message_aggregate`` on bf16 inputs)
-   against its plain version on the pallas w48/640 eval path's step-0
-   inputs: out within 1e-4 of its largest, a second call and the f32 form
-   on the widened inputs bit-identical. Prints errors, kernel and plain ms
-   (median of 25), the bound and K2's device ms from ``torch.profiler``.
+13. K2's bf16 form (``fused_typed_message_aggregate`` on bf16 inputs, the
+   tensor-core kernel) against its plain version on the pallas w48/640
+   eval path's step-0 inputs: out within 1e-4 of its largest, one launch,
+   a second call bit-identical, empty groups exactly 0 over NaN-filled
+   memory, a gradient refused. Logs the form; prints errors, kernel and
+   plain ms (median of 25), the bound and K2's device ms from
+   ``torch.profiler``.
 14. K4b (the blocked aggregate's backward, through K4's autograd Function)
    against its factored plain form and against autograd through the plain
    version, on the einsum model_58_4 training path's step-0 inputs and
@@ -201,8 +203,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of 480x640 (one batch; cut from 16 for the time limit, the first depth
    to go as the smoke grew past 950 s) for fully, score_based, score_based_per_type,
    model_gostic_position and model_nothing: K1 10 times a batch on
-   model_nothing and never on the others; prints img/s, the stage split,
-   peak memory and the valid edges a batch.
+   model_nothing and never on the others; each configuration's persons
+   equal to the host clustering of the same outputs on the CPU on half of
+   the images (even and odd halves in turn, cut from all 8 for the time
+   limit); prints img/s, the stage split, peak memory and the valid edges
+   a batch.
 31. training at full width (model_58_4, batch 8, f32, synthetic batches),
    one warm-up and 3 timed steps, for score_based, model_gostic_position,
    model_50_4 and model_nothing: K2, K2b and G1 10 times a step on
@@ -236,8 +241,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    scale, node threshold 0.5) on phase 30's 8 images of 480x640 (cut from
    16 as the smoke passed 950 s) for tag (grouped by
    its tags on the host) and greedy: K1 10 times a batch; each run's
-   persons equal to the host grouping of the same outputs on the CPU;
-   prints img/s, the stage split and the peak memory.
+   persons equal to the host grouping of the same outputs on the CPU, on
+   the even images for tag and the odd for greedy (cut from all 8 for the
+   time limit); prints img/s, the stage split and the peak memory.
 37. model_58_4 at full width through ``train()`` (w32/512, batch 8, f32,
    pallas, 4 steps on synthetic batches) for tag, background and
    group_based: K2, K2b and G1 10 times a step (20 on group_based, two
@@ -366,6 +372,20 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled function name (its kernel's own
+    name, without namespaces or arguments); an unmangled name as it is."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name = mangled[j:j + int(mangled[i:j])]
+        i = j + int(mangled[i:j])
+    return name
+
+
 def median_ms(fn, n=TIMED_LAUNCHES) -> float:
     """Median device time of ``fn`` over ``n`` runs, with CUDA events. A
     spin kernel keeps the card busy while the host enqueues ``fn``, so the
@@ -475,16 +495,21 @@ def k2_bound_ms(args, backward: bool):
     projection and the logit; K2b: the projection again, d_ef and dwe,
     and the logit terms; the bf16 form's products are of bf16 values, as
     in the TPU branch it ports); the larger. Only the valid slots' ef rows
-    are needed (no output depends on the others); every row of d_ef is an
-    output (the invalid ones are zeros) and is written."""
-    ef, a, valid, we, w_attn = args[0], args[1], args[3], args[4], args[5]
+    are needed (no output depends on the others), and only the a rows (in
+    K2b also the cotangent's rows) of the (node, type) groups that hold a
+    valid slot (an empty group's output is 0, its gradients 0); every row
+    of out and d_ef is an output (the empty and invalid ones are zeros)
+    and is written."""
+    ef, a, types, valid, we, w_attn = args[:6]
     e, de = ef.shape
-    d = a.shape[-1]
+    n, t, d = a.shape
     n_valid = int(valid.sum())
-    ins = n_valid * de * ef.element_size() + sum(
-        t.numel() * t.element_size() for t in args[1:6])
+    node = torch.arange(e, device=types.device) // (e // n)
+    held = int(torch.unique((node * t + types.long())[valid != 0]).numel())
+    ins = (n_valid * de * ef.element_size() + held * d * a.element_size()
+           + sum(x.numel() * x.element_size() for x in (types, valid, we, w_attn)))
     if backward:
-        nbytes = ins + a.numel() * 4 + (ef.numel() + a.numel() + we.numel() + w_attn.numel()) * 4
+        nbytes = ins + held * d * 4 + (ef.numel() + a.numel() + we.numel() + w_attn.numel()) * 4
         flops = n_valid * (3 * 2 * de * d + 4 * de + 6 * d)
     else:
         nbytes = ins + a.numel() * 4
@@ -745,34 +770,81 @@ def check_k4(label, args, tol, blocked_attn, segment):
 
 
 def check_k2_bf16(label, args, dims, typed_message):
-    """K2's bf16 form through the wrapper against the plain version on the
-    same bf16 inputs (ef, a, types, valid, we, w_attn), each computing in
-    f32 on the widened values: out within 1e-4 of its largest plain value;
-    a second call gives the same bits, and so does the f32 form on the
-    widened inputs (the bf16 form runs the f32 code). Times both sides.
-    Returns the numbers."""
-    wide = [x.float() if x.is_floating_point() else x for x in args]
+    """K2's bf16 form (the tensor cores) through the wrapper against the
+    plain version on the same bf16 inputs (ef, a, types, valid, we,
+    w_attn): both take exact bf16 products and sum them in f32, in another
+    order, so out must agree within 1e-4 of its largest plain value. One
+    launch a call; a second call gives the same bits; the empty (node,
+    type) groups give exactly 0 over memory a freed NaN-filled tensor left;
+    a bf16 input that needs a gradient is refused (K2b is f32). Logs the
+    form that ran; times both sides. Returns the numbers."""
+    types, valid = args[2], args[3]
+    n, t = dims
+    c = types.numel() // n
+    node = torch.arange(types.numel(), device=types.device) // c
+    empty = (torch.bincount((node * t + types.long())[valid != 0], minlength=n * t) == 0).view(n, t)
+    log(f"K2 bf16 {label}: form {typed_message.FORMS[torch.bfloat16]}")
     with torch.no_grad():
+        junk = torch.full((n, t, 64), float("nan"), device=types.device)
+        torch.cuda.synchronize()
+        del junk  # out (N, T, 64) f32 reuses this memory
+        before = typed_message.LAUNCHES_FWD
         got = typed_message.fused_typed_message_aggregate(*args, *dims)
+        launches = typed_message.LAUNCHES_FWD - before
         again = typed_message.fused_typed_message_aggregate(*args, *dims)
-        as_f32 = typed_message.fused_typed_message_aggregate(*wide, *dims)
         want = typed_message.fused_typed_message_plain(*args, *dims)
         torch.cuda.synchronize()
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
         if not (np.isfinite(err) and err <= 1e-4 * scale):
             raise SystemExit(f"K2 bf16 {label}: max abs error {err} exceeds 1e-4 of its max "
                              f"|plain| {scale}")
-        if not (torch.equal(got, again) and torch.equal(got, as_f32)):
-            raise SystemExit(f"K2 bf16 {label}: a second call, or the f32 form on the widened "
-                             f"inputs, gives other bits")
+        if launches != 1:
+            raise SystemExit(f"K2 bf16 {label}: {launches} launches counted for one call")
+        if not torch.equal(got, again):
+            raise SystemExit(f"K2 bf16 {label}: a second call gives other bits")
+        if not bool((got[empty] == 0).all()):
+            raise SystemExit(f"K2 bf16 {label}: an empty group is not exactly 0")
         ms = median_ms(lambda: typed_message.fused_typed_message_aggregate(*args, *dims))
         plain_ms = median_ms(lambda: typed_message.fused_typed_message_plain(*args, *dims))
+    try:
+        typed_message.fused_typed_message_aggregate(args[0].clone().requires_grad_(), *args[1:],
+                                                    *dims)
+    except ValueError as e:
+        if "forward only" not in str(e):
+            raise
+    else:
+        raise SystemExit(f"K2 bf16 {label}: a bf16 input that needs a gradient was not refused")
     bound, bound_by, nbytes, flops = k2_bound_ms(args, False)
     log(f"K2 bf16 {label}: max abs err {err:.3e} of max {scale:.3e} (tol 1e-4 of the max); "
-        f"repeat and the f32 form on the widened inputs bit-identical; kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} by {bound_by} ({nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP; valid slots {int(args[3].sum())}/{args[3].numel()})")
+        f"one launch; repeat bit-identical; {int(empty.sum())} empty groups exactly 0; "
+        f"gradient refused; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+        f"by {bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; valid slots "
+        f"{int(valid.sum())}/{valid.numel()})")
     return err, ms, plain_ms, bound, bound_by
+
+
+def phase_k2_bf16(images, cfg):
+    """Phase 13: K2's bf16 form (``check_k2_bf16``) at the step 0 of the
+    eval path ``cfg`` sets (w48/640 on pallas, bf16) on ``images``, and its
+    device ms from ``torch.profiler``. Returns check_k2_bf16's numbers."""
+    from pemp_tpu_torch.ops import typed_message
+    from pemp_tpu_torch.pipeline import build_pipeline
+
+    pipe = build_pipeline(images.shape[0], images.shape[1], dtype=torch.bfloat16, device="cuda",
+                          cfg=cfg, seed=0)
+    args = capture_eval_inputs(pipe, images, "fused_typed_message_aggregate", steps=(0,))[0]
+    if not all(x.dtype == torch.bfloat16 for x in (args[0], args[1], args[4], args[5])):
+        raise SystemExit("pallas eval path: K2's inputs are not bf16")
+    numbers = check_k2_bf16("pallas eval path step 0", args[:6], args[6:], typed_message)
+    parts, rest = launch_ms(typed_message.fused_typed_message_aggregate, args[:6], (), None,
+                            args[6:], {"fwd": "typed_message_fwd"})
+    if not parts["fwd"] > 0:
+        raise SystemExit(f"K2 bf16 launch: the profiler saw no device time ({parts})")
+    log(f"K2 bf16 launch, pallas eval path step 0 (torch.profiler, device ms per call): K2 "
+        f"{parts['fwd']:.4f}; rest {parts['rest']:.4f} ({'; '.join(rest)})")
+    del pipe, args
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def k4b_bound_ms(m, attn, types, valid, num_nodes, num_types):
@@ -1489,13 +1561,17 @@ def measure_batchnorm(model, x):
             h.remove()
 
 
-def check_full_width_decode(label, cfg, model, images):
+def check_full_width_decode(label, cfg, model, images, half=None):
     """The pipeline over ``images`` in batches of 8; each image's persons
     (the card's threshold decode, or the host clustering and its decode on
     the card) against the same outputs decoded on the CPU: person_valid
-    exact, keypoints within phase 18's 2e-3. Fails unless persons form.
-    Returns their number and the largest error; keeps the valid edges and
-    the edge slots over all images in ``check_full_width_decode.edges``."""
+    exact, keypoints within phase 18's 2e-3. With ``half`` 0 or 1 only the
+    images half, half + 2, ... are decoded on the CPU too (the CPU decode
+    is the slowest part of the full-width eval phases; a phase that runs
+    several configurations alternates the halves). Fails unless persons
+    form. Returns their number (the card's, over all images) and the
+    largest error; keeps the valid edges and the edge slots over all
+    images in ``check_full_width_decode.edges``."""
     from pemp_tpu_torch.tta.multi_scale import TTAPipeline
     from pemp_tpu_torch.valid import _greedy_grouping, _host_grouping, _tag_grouping
 
@@ -1508,29 +1584,34 @@ def check_full_width_decode(label, cfg, model, images):
     outs = pipe.run_batched(images, batch_size=8)
     check_full_width_decode.edges = (sum(int(o["edge_valid"].sum()) for o in outs),
                                      sum(o["edge_valid"].numel() for o in outs))
-    for out in outs:
-        host = {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+    for i, out in enumerate(outs):
         if threshold:
             card_p, card_v = out["persons"], out["person_valid"]
+        else:
+            card_p, card_v = (torch.as_tensor(t) for t in host_grouping(out, cfg))
+        found += int(card_v.sum())
+        if half is not None and i % 2 != half:
+            continue
+        host = {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+        if threshold:
             batch = {k: v[None] for k, v in host.items() if torch.is_tensor(v)}
             cpu_p, cpu_v = (t[0] for t in pipe.decode(batch))
         else:
-            card_p, card_v = (torch.as_tensor(t) for t in host_grouping(out, cfg))
             cpu_p, cpu_v = (torch.as_tensor(t) for t in host_grouping(host, cfg))
         if not torch.equal(card_v.cpu(), cpu_v):
             raise SystemExit(f"{label}: the card and the CPU decode other persons from the "
                              f"same outputs")
         if cpu_v.any():
             err = max(err, float((card_p.cpu() - cpu_p)[cpu_v].abs().max()))
-        found += int(cpu_v.sum())
     if found == 0 or not err <= 2e-3:
         raise SystemExit(f"{label}: {found} persons, card against CPU decode {err:.3e}")
     return found, err
 
 
-def drive_valid(label, cfg, eval_set, batches, card, log_dir, model=None, k1=10):
+def drive_valid(label, cfg, eval_set, batches, card, log_dir, model=None, k1=10, half=None):
     """valid.evaluate in batches of 8 at full width, bf16, after
-    check_full_width_decode (which also warms up): a run with the counts
+    check_full_width_decode (which also warms up; ``half`` is its CPU
+    decode's half of the images, None for all): a run with the counts
     zeroed just before and read just after (K1 ``k1`` times a batch,
     nothing else), timed, then one with the stages timed. Checks the report
     and that the results file holds persons; returns the K1 count, the
@@ -1543,7 +1624,7 @@ def drive_valid(label, cfg, eval_set, batches, card, log_dir, model=None, k1=10)
     images = [eval_set.load_raw(i)[3] for i in range(len(eval_set))]
     if model is None:
         model = full_width_model(cfg, [im for im in images if im.shape == images[0].shape])
-    found, err = check_full_width_decode(label, cfg, model, images)
+    found, err = check_full_width_decode(label, cfg, model, images, half)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1566,7 +1647,8 @@ def drive_valid(label, cfg, eval_set, batches, card, log_dir, model=None, k1=10)
     log(f"{label}: {n} images in {batches} batches in {dt:.3f} s: {n / dt:.2f} img/s on "
         f"{card}; launches K1 {counts['K1']} ({counts['K1'] // batches} a batch); peak "
         f"memory {peak:.2f} GiB; {len(results)} persons, AP {stats[0]:.4f}; card against "
-        f"CPU decode of the same outputs: {found} persons, largest error {err:.3e}; valid "
+        f"CPU decode of the same outputs ({'all' if half is None else f'half {half} of the'} "
+        f"images): {found} persons, largest error {err:.3e}; valid "
         f"edges {valid_edges / batches:.0f} a batch of {slots / batches:.0f} slots")
     stage_times = {}
     t0 = time.perf_counter()
@@ -2179,7 +2261,8 @@ def phase_ablations(card, rendered, dataset):
     G1). 30: valid.evaluate at full width (model_58_4's w32/512, bf16, one
     scale, GAEC at node threshold 0.5, as phase 20) on the 8 rendered
     images of 480x640 (one batch) for fully, score_based, score_based_per_type,
-    model_gostic_position and model_nothing: K1 10 times a batch on
+    model_gostic_position and model_nothing, the CPU's reference decode on
+    the even and the odd images in turn: K1 10 times a batch on
     model_nothing, never on the others. 31: training at full width
     (model_58_4, batch 8, f32, synthetic batches), 1 warm-up and 3 timed
     steps, for score_based, model_gostic_position, model_50_4 and
@@ -2209,11 +2292,11 @@ def phase_ablations(card, rendered, dataset):
     # for the smoke's time limit, as the smoke grew past 950 s
     with tempfile.TemporaryDirectory() as tmp:
         eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
-        for name, k1 in ABLATION_EVAL.items():
+        for i, (name, k1) in enumerate(ABLATION_EVAL.items()):
             cfg = ablation(name)
             cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
             count, times, dt = drive_valid(f"valid {short(name)} GAEC", cfg, eval_set, 1, card,
-                                           tmp, k1=k1)
+                                           tmp, k1=k1, half=i % 2)
             counts["K1"] += count
             log(f"valid {short(name)} GAEC: host clustering and its decode "
                 f"{times['cluster']:.3f} s of the staged run's {dt:.3f} "
@@ -2511,8 +2594,8 @@ def phase_zoo_valid(card, rendered, dataset):
     as phase 30, for the smoke's time limit), for ``tag`` (grouped by its
     tags on the host) and ``greedy`` (the greedy grouping on the host), as
     phase 20 (node threshold 0.5): each run's persons equal to the host
-    grouping of the same outputs on the CPU, K1 10 times a batch. Returns
-    the K1 count."""
+    grouping of the same outputs on the CPU (on the even images for tag,
+    the odd for greedy), K1 10 times a batch. Returns the K1 count."""
     import tempfile
 
     from pemp_tpu_torch.config import zoo
@@ -2520,10 +2603,11 @@ def phase_zoo_valid(card, rendered, dataset):
     total = 0
     with tempfile.TemporaryDirectory() as tmp:
         eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
-        for name in ("tag", "greedy"):
+        for i, name in enumerate(("tag", "greedy")):
             cfg = zoo(name)
             cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
-            count, times, dt = drive_valid(f"valid {name}", cfg, eval_set, 1, card, tmp)
+            count, times, dt = drive_valid(f"valid {name}", cfg, eval_set, 1, card, tmp,
+                                           half=i)
             total += count
             log(f"valid {name}: host grouping {times['cluster']:.3f} s of the staged run's "
                 f"{dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
@@ -3492,9 +3576,12 @@ def main() -> int:
     log(f"build: {sorted(report)} in {time.perf_counter() - t0:.1f} s "
         f"(into {_build.build_dir()})")
     for name, entry in sorted(report.items()):
+        kernel = "?"
         for line in entry["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name} ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} ptxas {kernel}: {line.strip()}")
 
     # 3. K1 against its plain version
     from pemp_tpu_torch.pipeline import BATCH, INPUT_SIZE, build_pipeline
@@ -3707,21 +3794,7 @@ def main() -> int:
     for route in ("pallas", "dots"):
         eval_cfgs[route] = w48_640()
         eval_cfgs[route].TPU.MSG_PASS = route
-    pipe = build_pipeline(batch, size, dtype=torch.bfloat16, device="cuda",
-                          cfg=eval_cfgs["pallas"], seed=0)
-    args = capture_eval_inputs(pipe, images, "fused_typed_message_aggregate", steps=(0,))[0]
-    if not all(x.dtype == torch.bfloat16 for x in (args[0], args[1], args[4], args[5])):
-        raise SystemExit("pallas eval path: K2's inputs are not bf16")
-    k2_bf16_numbers = check_k2_bf16("pallas eval path step 0", args[:6], args[6:],
-                                    typed_message)
-    parts, rest = launch_ms(typed_message.fused_typed_message_aggregate, args[:6], (), None,
-                            args[6:], {"fwd": "typed_message_fwd"})
-    if not parts["fwd"] > 0:
-        raise SystemExit(f"K2 bf16 launch: the profiler saw no device time ({parts})")
-    log(f"K2 bf16 launch, pallas eval path step 0 (torch.profiler, device ms per call): K2 "
-        f"{parts['fwd']:.4f}; rest {parts['rest']:.4f} ({'; '.join(rest)})")
-    del pipe, args
-    torch.cuda.empty_cache()
+    k2_bf16_numbers = phase_k2_bf16(images, eval_cfgs["pallas"])
 
     # 14. K4b against its plain versions at the einsum train path's step 0
     # and on random f32 inputs

@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kMaxTypes = 32;
@@ -85,11 +87,19 @@ constexpr int kMaxTypes = 32;
 
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
+using pemp::bf16mma::bf16;
+using pemp::bf16mma::bf2_to_f2;
+using pemp::bf16mma::cp_async16;
+using pemp::bf16mma::kLd;        // bf16 row stride in shared memory: 144 bytes, ldmatrix conflict-free
+using pemp::bf16mma::ldmatrix_x4;
+using pemp::bf16mma::ldmatrix_x4_trans;
+using pemp::bf16mma::mma;
+using pemp::bf16mma::smem_addr;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kW = 64;           // every row width
-constexpr int kLd = kW + 8;      // bf16 row stride in shared memory: 144 bytes, ldmatrix conflict-free
+static_assert(kLd == kW + 8, "the shared stride is of a 64-wide row");
 constexpr int kTileRows = 256;   // slot rows per block tile, at most
 constexpr int kMaxTileNodes = 32;
 constexpr int kScratchLd = kW / 2 + 4;  // f32 stride of a warp's 16-row, half-width product tile
@@ -98,16 +108,6 @@ constexpr int kScratchLd = kW / 2 + 4;  // f32 stride of a warp's 16-row, half-w
 __host__ __device__ constexpr int q_elems(int rows_cap) {
   return rows_cap * kLd > kWarps * 16 * kScratchLd * 2 ? rows_cap * kLd
                                                        : kWarps * 16 * kScratchLd * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -122,36 +122,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 // wait until at most `pending` of this thread's copy groups are in flight
 template <int pending> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16x16, row-major fragment) @ b (16x8, column fragment), f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float2 bf2_to_f2(uint32_t u) {
-  __nv_bfloat162 v;
-  *reinterpret_cast<uint32_t*>(&v) = u;
-  return __bfloat1622float2(v);
 }
 
 __device__ __forceinline__ float2 load_bf2_shared(const bf16* p) {

@@ -65,19 +65,17 @@
 // every run. Both compute on the CUDA cores in f32 (no tensor cores).
 //
 // K2's bf16 form (the pallas eval path; the TPU kernel's bf16 branch,
-// _tile_forward's bf16 selection and projection with f32 accumulation):
-// ef, a, we and w_attn in bf16, out in f32. A product of two bf16 values is
-// exact in f32, so the form widens each value to f32 as it reaches shared
-// memory (ef rows and We_t by 16-byte loads of 8 values in place of the
-// cp.async copies) or registers (a, w_attn) and runs the f32 code on it:
-// the same arithmetic as the plain version on the widened inputs. The f32
-// form's code is unchanged. K2b stays f32.
+// _tile_forward's projection on the MXU with bf16 inputs and f32 sums): ef,
+// a, we and w_attn in bf16, out in f32. It is a kernel of its own,
+// tc::typed_message_fwd_bf16, on the tensor cores; its note is at the
+// kernel. K2b stays f32.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "group_softmax.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -145,35 +143,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// K2's bf16 form reads bf16 and computes in f32: a bf16 x bf16 product is
-// exact in f32, so widening each value as it reaches shared memory or
-// registers and reusing the f32 code gives the f32 arithmetic on the same
-// values. The f32 overloads are the f32 form's own loads.
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Four values of a row of a, in f32 (16 bytes of f32, 8 of bf16).
+// Four values of a row of a (read-only path).
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// Eight bf16 values (16 bytes) from src, widened to f32 at dst.
-__device__ __forceinline__ void widen8(float* dst, const __nv_bfloat16* src) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    dst[2 * i] = v.x;
-    dst[2 * i + 1] = v.y;
-  }
 }
 
 // The nodes of a block: its local node j is node first + j * stride, every
@@ -201,21 +173,12 @@ struct Chunk {
 };
 
 // Copies We_t (we's columns t * kWidth onwards) to dst at row stride kLdR
-// by cp.async; waited for with the first batch's ef rows. In bf16 the
-// values are loaded and widened to f32 in place of the copy.
+// by cp.async; waited for with the first batch's ef rows.
 __device__ void stage_we(float* dst, const float* __restrict__ we, int t, int num_types) {
   const long long we_row = static_cast<long long>(num_types) * kWidth;
   for (int i = threadIdx.x; i < kWidth * kWidth / 4; i += kThreads) {
     const int k = i / (kWidth / 4), q = i % (kWidth / 4);
     cp_async16(dst + k * kLdR + 4 * q, we + k * we_row + t * kWidth + 4 * q);
-  }
-}
-__device__ void stage_we(float* dst, const __nv_bfloat16* __restrict__ we, int t,
-                         int num_types) {
-  const long long we_row = static_cast<long long>(num_types) * kWidth;
-  for (int i = threadIdx.x; i < kWidth * kWidth / 8; i += kThreads) {
-    const int k = i / (kWidth / 8), q = i % (kWidth / 8);
-    widen8(dst + k * kLdR + 8 * q, we + k * we_row + t * kWidth + 8 * q);
   }
 }
 
@@ -317,7 +280,6 @@ __device__ int batch_end(const int* seg, int j0, int nodes, int rows) {
 
 // Starts the cp.async copy of the ef rows of list entries b0..b0 + nr - 1 to
 // dst (stride kLdR) and writes each row's local node to row_node.
-// In bf16 the rows are loaded and widened to f32 in place of the copy.
 __device__ void load_rows(float* dst, int* row_node, const float* __restrict__ ef,
                           const uint16_t* list, int b0, int nr, const Chunk& ch) {
   for (int i = threadIdx.x; i < nr * (kWidth / 4); i += kThreads) {
@@ -326,23 +288,14 @@ __device__ void load_rows(float* dst, int* row_node, const float* __restrict__ e
   }
   for (int r = threadIdx.x; r < nr; r += kThreads) row_node[r] = list[b0 + r] / ch.c;
 }
-__device__ void load_rows(float* dst, int* row_node, const __nv_bfloat16* __restrict__ ef,
-                          const uint16_t* list, int b0, int nr, const Chunk& ch) {
-  for (int i = threadIdx.x; i < nr * (kWidth / 8); i += kThreads) {
-    const int r = i / (kWidth / 8), q = i % (kWidth / 8);
-    widen8(dst + r * kLdR + 8 * q, ef + ch.slot(list[b0 + r]) * kWidth + 8 * q);
-  }
-  for (int r = threadIdx.x; r < nr; r += kThreads) row_node[r] = list[b0 + r] / ch.c;
-}
 
 // pre = a[n, t] + ef @ We_t for rows base + rg + 16 i (i < RT) of the
 // batch, columns c0..c0 + 3, stored to p; rows at or past nr are computed on
 // whatever the buffer holds and not stored. Only the 16 threads of row group
-// rg, all in one warp, read or write these rows here, so p may be ef. a is
-// f32, or bf16 in K2's bf16 form.
-template <int RT, typename TA>
+// rg, all in one warp, read or write these rows here, so p may be ef.
+template <int RT>
 __device__ void project_pass(const float* we_t, const float* ef, float* p, const int* row_node,
-                             const TA* __restrict__ a, int base, int nr, const Chunk& ch) {
+                             const float* __restrict__ a, int base, int nr, const Chunk& ch) {
   const int rg = threadIdx.x >> 4, c0 = 4 * (threadIdx.x & 15);
   float acc[RT][4] = {};
 #pragma unroll 2
@@ -373,11 +326,14 @@ __device__ void project_pass(const float* we_t, const float* ef, float* p, const
 
 // The softmax of a node's rows r0..r1 - 1 (r1 > r0) and their output sum,
 // by the eight lanes of gmask, lane sub on columns c0..c0 + 3 and c1..c1 + 3:
-// writes e[r] = exp(logit[r] - the node's max), leaves sum_r e[r] relu(p[r])
-// (in slot order) in o0, o1 and returns den = max(sum_r e[r], 1e-16).
+// writes e[r] = exp(logit[r] - the node's max), leaves sum_r e[r] relu(pre[r])
+// (in slot order) in o0, o1 and returns den = max(sum_r e[r], 1e-16). pre is
+// p, or with kAddA (K2's bf16 form) p + a, the lane's columns of a in a0, a1.
+template <bool kAddA = false>
 __device__ __forceinline__ float node_softmax_sum(const float* logit, float* e, const float* p,
                                                   int r0, int r1, int sub, int c0, int c1,
-                                                  unsigned gmask, float4& o0, float4& o1) {
+                                                  unsigned gmask, float4& o0, float4& o1,
+                                                  float4 a0 = {}, float4 a1 = {}) {
   float mx = __int_as_float(0xff800000);  // -inf
   for (int r = r0 + sub; r < r1; r += 8) mx = fmaxf(mx, logit[r]);
   mx = group_max(mx, gmask);
@@ -393,7 +349,11 @@ __device__ __forceinline__ float node_softmax_sum(const float* logit, float* e, 
   o1 = o0;
   for (int r = r0; r < r1; ++r) {
     const float ev = e[r];
-    const float4 p0 = ld4(p + r * kLdR + c0), p1 = ld4(p + r * kLdR + c1);
+    float4 p0 = ld4(p + r * kLdR + c0), p1 = ld4(p + r * kLdR + c1);
+    if (kAddA) {
+      p0 = make_float4(p0.x + a0.x, p0.y + a0.y, p0.z + a0.z, p0.w + a0.w);
+      p1 = make_float4(p1.x + a1.x, p1.y + a1.y, p1.z + a1.z, p1.w + a1.w);
+    }
     o0 = make_float4(o0.x + ev * fmaxf(p0.x, 0.f), o0.y + ev * fmaxf(p0.y, 0.f),
                      o0.z + ev * fmaxf(p0.z, 0.f), o0.w + ev * fmaxf(p0.w, 0.f));
     o1 = make_float4(o1.x + ev * fmaxf(p1.x, 0.f), o1.y + ev * fmaxf(p1.y, 0.f),
@@ -453,14 +413,11 @@ size_t fwd_smem_bytes(int c) {
          sizeof(uint16_t) * static_cast<size_t>(kChunkNodes) * c;
 }
 
-// Three blocks per SM: the shared memory of one block allows three. T is
-// the inputs' type (ef, a, we, w_attn): float, or bf16 widened to f32 as it
-// is read; out is f32.
-template <typename T>
+// Three blocks per SM: the shared memory of one block allows three.
 __global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
-    const T* __restrict__ ef, const T* __restrict__ a, const int* __restrict__ types,
-    const int* __restrict__ valid, const T* __restrict__ we,
-    const T* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
+    const float* __restrict__ ef, const float* __restrict__ a, const int* __restrict__ types,
+    const int* __restrict__ valid, const float* __restrict__ we,
+    const float* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
     int num_types) {
   extern __shared__ float4 smem4[];
   const int rows = batch_rows(c);
@@ -469,7 +426,7 @@ __global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
   const Chunk ch(num_nodes, c, num_types, blockIdx.y);
   const int nodes = ch.nodes;
   stage_we(s.we, we, ch.t, num_types);
-  if (tid < kWidth) s.wat[tid] = to_f32(w_attn[tid]);
+  if (tid < kWidth) s.wat[tid] = w_attn[tid];
   list_rows<false>(s.warp_tot, s.list, s.seg, types, valid, nullptr, ch);
   for (int i = tid; i < 2 * nodes; i += kThreads)  // the nodes' a rows to L2
     prefetch_l2(a + ch.row(i >> 1) * kWidth + 32 * (i & 1));
@@ -523,6 +480,384 @@ __global__ void __launch_bounds__(kThreads, 3) typed_message_fwd(
     j1 = j2;
   }
 }
+
+// ---------------------------------------------------------------- K2, bf16
+//
+// The same function with ef, a, we and w_attn in bf16 and the products on
+// the tensor cores, as the TPU kernel's bf16 branch runs them on the MXU:
+// bf16 x bf16 products summed in f32, then pre, the softmax and out in f32.
+// What bounds it on an H100: at the flagship eval shapes (B = 8, ~70 % of
+// the slots valid at MPN step 0) it must move ~69 MB (the valid ef rows
+// ~38 MB, the a rows of the ~29 % of (node, type) groups that hold a slot
+// ~3.4 MB, the index columns 3.5 MB, out 24 MB): ~0.021 ms at 3.35 TB/s,
+// against ~3 us for its ~2.6 GFLOP at the bf16 tensor-core rate.
+//
+// The design keeps the f32 form's plan: a block owns one type and up to 64
+// nodes (Chunk), one scan lists its type-t rows, and it takes them in
+// batches of whole nodes (batch_end; 128 rows, 256 when C > 128). In K1's
+// tensor-core tail (fused_step.cu: node tiles sorted by type, a warp per
+// (type, half) reading its B fragments of `we` from L2) each index entry is
+// read once, but every 3-node tile reads all of `we`'s fragments (~139 KB)
+// again: ~250 MB from L2 at the flagship shapes, against ~60 MB for the 17
+// blocks of a chunk each scanning its index columns here, with We_t (8 KB)
+// staged once a block. (Blocks of three types sharing one scan were tried
+// and measured slower.)
+//
+// The scan (scan_rows) reads the index columns in coalesced 16-byte pieces
+// and places the rows by ballots; a row's entry holds its node and slot, so
+// that no later step divides by C. In each batch cp.async brings the ef
+// rows as bf16 in 16-byte pieces (no widening) at a stride of 144 bytes, so
+// the eight rows an ldmatrix reads fall in distinct banks; rows past the
+// batch's end up to the next multiple of 16 are zero-filled. A warp takes
+// 16-row tiles: A by ldmatrix, B by ldmatrix.trans from We_t staged the
+// same way, 8 n-tiles x 4 k-steps of mma.sync m16n8k16 (bf16 in, f32 sums;
+// the helpers are K1's bf16 form's, from mma_bf16.cuh),
+// and the logit ef . w_attn as an f32 dot over the same A fragments, summed
+// across the four lanes of a row. The products go to an f32 buffer (stride
+// kLdR) that lies over the ef rows, which fill the end of the same region,
+// so a block needs ~55 KB at C = 80 and four fit an SM; a round of 8 tiles
+// reads all its ef rows before the barrier after which its products are
+// written (product row r covers only ef rows <= r). Eight-lane groups then
+// take each node's softmax and output sum in slot order
+// (node_softmax_sum), adding a[n, t] in f32 there, read once a group that
+// holds a slot (those rows are prefetched to L2 after the scan; an empty
+// group's 0 reads no a). The next batch's ef rows are prefetched to L2
+// meanwhile. Rows past the
+// batch's end are neither stored nor summed. Every sum has a fixed order:
+// two calls give the same bits.
+
+namespace tc {
+
+using pemp::bf16mma::bf16;
+using pemp::bf16mma::bf2_to_f2;
+using pemp::bf16mma::cp_async16;
+using pemp::bf16mma::kLd;  // bf16 row stride of We_t and ef: 144 bytes, ldmatrix conflict-free
+using pemp::bf16mma::ldmatrix_x4;
+using pemp::bf16mma::ldmatrix_x4_trans;
+using pemp::bf16mma::mma;
+static_assert(kLd == kWidth + 8, "the shared stride is of a 64-wide row");
+
+// acc + the two bf16 values of u times w
+__device__ __forceinline__ float dot2(float acc, uint32_t u, float2 w) {
+  const float2 x = bf2_to_f2(u);
+  return fmaf(x.y, w.y, fmaf(x.x, w.x, acc));
+}
+
+// Shared memory of one block, carved from the dynamic allocation. The ef
+// rows fill the end of the products' region: product row r ends at byte
+// 272 r + 256 of it and ef row r' starts at byte 128 rows + 144 r', so
+// writing product row r overwrites only ef rows r' <= r.
+struct Smem {
+  bf16* we;         // kWidth x kLd: We_t[k][o] at k * kLd + o
+  float* prod;      // rows x kLdR: a batch's products ef @ We_t
+  bf16* ef;         // rows x kLd: the batch's ef rows, in the end of prod's region
+  float* wat;       // kWidth: w_attn in f32
+  float* logit;     // rows
+  float* e;         // rows: exp(logit - the group's max)
+  int* warp_tot;    // kWarps: rows found per warp of the scan
+  int* seg;         // kChunkNodes + 1: each node's first row in list; seg[nodes] = count
+  uint16_t* list;   // kChunkNodes * C: the chunk's type-t slots as entries (entry_slot)
+
+  __device__ Smem(unsigned char* base, int rows) {
+    we = reinterpret_cast<bf16*>(base);
+    prod = reinterpret_cast<float*>(we + kWidth * kLd);
+    wat = prod + rows * kLdR;
+    ef = reinterpret_cast<bf16*>(wat) - rows * kLd;
+    logit = wat + kWidth;
+    e = logit + rows;
+    warp_tot = reinterpret_cast<int*>(e + rows);
+    seg = warp_tot + kWarps;
+    list = reinterpret_cast<uint16_t*>(seg + kChunkNodes + 1);
+  }
+};
+static_assert(kLdR * sizeof(float) >= kLd * sizeof(bf16) &&
+                  (kLdR * sizeof(float) - kLd * sizeof(bf16)) % 16 == 0,
+              "an ef row fits under a product row, and the ef rows start 16-byte aligned");
+
+size_t smem_bytes(int c) {
+  const int rows = batch_rows(c);
+  return sizeof(bf16) * kWidth * kLd + sizeof(float) * (rows * kLdR + kWidth + 2 * rows) +
+         sizeof(int) * (kWarps + kChunkNodes + 1) +
+         sizeof(uint16_t) * static_cast<size_t>(kChunkNodes) * c;
+}
+
+// Copies We_t to dst at row stride kLd by cp.async, as bf16; waited for with
+// the first batch's ef rows.
+__device__ void stage_we(bf16* dst, const bf16* __restrict__ we, int t, int num_types) {
+  const long long we_row = static_cast<long long>(num_types) * kWidth;
+  for (int i = threadIdx.x; i < kWidth * kWidth / 8; i += kThreads) {
+    const int k = i / (kWidth / 8), q = i % (kWidth / 8);
+    cp_async16(dst + k * kLd + 8 * q, we + k * we_row + t * kWidth + 8 * q, true);
+  }
+}
+
+// A row's entry in the list: its local node j and slot k as j << 8 | k
+// (C <= 256 and j < 64: 14 bits), so that no step divides by C.
+constexpr int kSlotBits = 8;
+static_assert(kMaxSlots <= (1 << kSlotBits) && (kChunkNodes << kSlotBits) <= 65536,
+              "an entry fits 16 bits");
+
+__device__ __forceinline__ long long entry_slot(const Chunk& ch, int entry) {
+  return ch.node(entry >> kSlotBits) * ch.c + (entry & ((1 << kSlotBits) - 1));
+}
+
+// loc / c for loc < 2^14, c <= 256: the float product lies at least 0.5 / c
+// from an integer, far beyond its rounding error
+__device__ __forceinline__ int div_c(int loc, float inv_c) {
+  return __float2int_rz((static_cast<float>(loc) + 0.5f) * inv_c);
+}
+
+// W ints from p (W = 4: one 16-byte load).
+template <int W>
+__device__ __forceinline__ void load_ints(int (&v)[W], const int* p) {
+  if constexpr (W == 4) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    static_assert(W == 1, "pieces of 4 ints or 1");
+    v[0] = __ldg(p);
+  }
+}
+
+// Lists the chunk's type-t valid slots in slot order as entries in list;
+// seg[j] gets local node j's first row, seg[nodes] the count (list_rows
+// does the same for the f32 form). Warp w reads the pieces of W slots
+// (16 bytes of each column, or one slot where C % 4 != 0) w * P, w * P + 1,
+// ..., lane l piece 32 i + l of them in its load i, so that a warp's loads
+// are coalesced, kBurst loads in flight at a time. A lane keeps a bit per
+// slot; a ballot per bit of a piece places the rows. Ends with a
+// block-wide barrier.
+template <int W>
+__device__ void scan_rows(int* warp_tot, uint16_t* list, int* seg, const int* __restrict__ types,
+                          const int* __restrict__ valid, const Chunk& ch) {
+  constexpr int kBurst = 5;  // at C = 80 a lane's five 16-byte pieces of each column
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = ch.c, t = ch.t;
+  const int pieces = ch.nodes * c / W;
+  const int per_warp = ((pieces + kWarps - 1) / kWarps + 31) & ~31;
+  const int p0 = warp * per_warp, p1 = min(p0 + per_warp, pieces);
+  const int loads = per_warp / 32;  // at most 64 / W: a bit per slot fits the mask
+  const float inv_c = 1.f / static_cast<float>(c);
+  unsigned long long mask = 0;
+  for (int i0 = 0; i0 < loads; i0 += kBurst) {
+    int tv[kBurst][W], vv[kBurst][W];
+#pragma unroll
+    for (int q = 0; q < kBurst; ++q) {
+      const int p = p0 + 32 * (i0 + q) + lane;
+      if (i0 + q < loads && p < p1) {
+        const int loc = W * p, jj = div_c(loc, inv_c);
+        const long long k = ch.node(jj) * c + (loc - jj * c);
+        load_ints<W>(tv[q], types + k);
+        load_ints<W>(vv[q], valid + k);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBurst; ++q) {
+      const int p = p0 + 32 * (i0 + q) + lane;
+      if (i0 + q < loads && p < p1) {
+#pragma unroll
+        for (int b = 0; b < W; ++b)
+          if (vv[q][b] != 0 && tv[q][b] == t) mask |= 1ull << (W * (i0 + q) + b);
+      }
+    }
+  }
+  const int count = __reduce_add_sync(0xffffffffu, __popcll(mask));
+  if (lane == 0) warp_tot[warp] = count;
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int v = warp_tot[w];
+    base += w < warp ? v : 0;
+    total += v;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (int i = 0; i < loads; ++i) {
+    const unsigned bits = static_cast<unsigned>(mask >> (W * i)) & ((1u << W) - 1u);
+    int pos = base;
+#pragma unroll
+    for (int b = 0; b < W; ++b) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, (bits >> b) & 1u);
+      pos += __popc(ballot & below);
+      base += __popc(ballot);
+    }
+    if (bits != 0) {  // a piece lies within one node
+      const int loc = W * (p0 + 32 * i + lane), j = div_c(loc, inv_c);
+      const int entry = (j << kSlotBits) | (loc - j * c);
+#pragma unroll
+      for (int b = 0; b < W; ++b)
+        if ((bits >> b) & 1u) list[pos++] = static_cast<uint16_t>(entry + b);
+    }
+  }
+  __syncthreads();
+  if (tid <= ch.nodes) {  // first row at or after node tid
+    const int key = tid << kSlotBits;
+    int lo = 0, hi = total;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (list[mid] < key) lo = mid + 1;
+      else hi = mid;
+    }
+    seg[tid] = lo;
+  }
+  __syncthreads();
+}
+
+// Starts the cp.async copy of the ef rows of list entries b0..b0 + nr - 1 to
+// dst (stride kLd, bf16) and zero-fills the rows after them up to the next
+// multiple of 16 (the rest of the last mma tile).
+__device__ void load_rows(bf16* dst, const bf16* __restrict__ ef, const uint16_t* list, int b0,
+                          int nr, const Chunk& ch) {
+  const int nr16 = (nr + 15) & ~15;
+  for (int i = threadIdx.x; i < nr16 * (kWidth / 8); i += kThreads) {
+    const int r = i / (kWidth / 8), q = i % (kWidth / 8);
+    const bool in = r < nr;
+    const int entry = in ? list[b0 + r] : 0;
+    cp_async16(dst + r * kLd + 8 * q, ef + entry_slot(ch, entry) * kWidth + 8 * q, in);
+  }
+}
+
+// prod = ef @ We_t and logit = ef . w_attn for the batch's nr rows: warp w
+// takes the 16-row tiles w, w + kWarps, ..., in rounds of kWarps tiles. A
+// round reads all its ef rows before the barrier after which its product
+// rows are written over them. Thread (g, tq) of a warp holds columns 8 nt + 2 tq,
+// + 1 of rows g and g + 8 of its tile in acc[nt], and columns 16 kk + 2 tq,
+// + 1, + 8, + 9 of the same rows in its A fragments. Rows past nr are
+// zeros and are not stored.
+__device__ void project_batch(const Smem& s, int nr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  for (int round = 0; round < nr; round += kWarps * 16) {
+    const int m0 = round + 16 * warp;
+    const bool mine = m0 < nr;  // the same on all of a warp's lanes
+    float acc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    float lg[2] = {0.f, 0.f};
+    if (mine) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t fa[4];
+        ldmatrix_x4(fa, s.ef + (m0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+        const float2 w0 = *reinterpret_cast<const float2*>(s.wat + 16 * kk + 2 * tq);
+        const float2 w1 = *reinterpret_cast<const float2*>(s.wat + 16 * kk + 2 * tq + 8);
+        lg[0] = dot2(dot2(lg[0], fa[0], w0), fa[2], w1);
+        lg[1] = dot2(dot2(lg[1], fa[1], w0), fa[3], w1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, s.we + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                                   j * 16 + (lane >> 4) * 8);
+          mma(acc[2 * j], fa, b[0], b[1]);
+          mma(acc[2 * j + 1], fa, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        lg[half] += __shfl_xor_sync(0xffffffffu, lg[half], 1);
+        lg[half] += __shfl_xor_sync(0xffffffffu, lg[half], 2);
+      }
+    }
+    __syncthreads();  // the round's ef rows are read
+    if (mine) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+        if (r < nr) {
+          float* prow = s.prod + r * kLdR + 2 * tq;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            *reinterpret_cast<float2*>(prow + 8 * nt) =
+                make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+          if (tq == 0) s.logit[r] = lg[half];
+        }
+      }
+    }
+  }
+}
+
+// Four bf16 values of a row of a, in f32 (one 8-byte load).
+__device__ __forceinline__ float4 load_a4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = bf2_to_f2(u.x), hi = bf2_to_f2(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Four blocks an SM: ~55 KB of shared memory (at C <= 128) and 64 registers
+// a thread each. __launch_bounds__(256, 4) caps a thread at 64 registers
+// (65,536 a SM over four blocks of 256 threads); ptxas spills 16 bytes a
+// thread under that cap, which is accepted: three blocks an SM, the cost
+// of lifting the cap, hide less of a block's serial chain (scan, copy,
+// products, per-node step).
+__global__ void __launch_bounds__(kThreads, 4) typed_message_fwd_bf16(
+    const bf16* __restrict__ ef, const bf16* __restrict__ a, const int* __restrict__ types,
+    const int* __restrict__ valid, const bf16* __restrict__ we,
+    const bf16* __restrict__ w_attn, float* __restrict__ out, int num_nodes, int c,
+    int num_types) {
+  extern __shared__ float4 smem4[];
+  const int rows = batch_rows(c);
+  const Smem s(reinterpret_cast<unsigned char*>(smem4), rows);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Chunk ch(num_nodes, c, num_types, blockIdx.y);
+  const int nodes = ch.nodes;
+  stage_we(s.we, we, ch.t, num_types);
+  if (c % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(types) | reinterpret_cast<uintptr_t>(valid)) & 15) == 0)
+    scan_rows<4>(s.warp_tot, s.list, s.seg, types, valid, ch);
+  else
+    scan_rows<1>(s.warp_tot, s.list, s.seg, types, valid, ch);
+  if (tid < kWidth) s.wat[tid] = __bfloat162float(w_attn[tid]);
+  for (int j = tid; j < nodes; j += kThreads)  // the a rows (128 bytes) of non-empty groups to L2
+    if (s.seg[j + 1] > s.seg[j]) prefetch_l2(a + ch.row(j) * kWidth);
+
+  // the per-node step: eight-lane groups, a lane on columns c0.. and c1..
+  const int grp = 4 * warp + (lane >> 3), sub = lane & 7, c0 = 4 * sub, c1 = 32 + 4 * sub;
+  const unsigned gmask = 0xffu << (lane & 24);
+
+  int j0 = 0, j1 = batch_end(s.seg, 0, nodes, rows);
+  load_rows(s.ef, ef, s.list, 0, s.seg[j1], ch);
+  while (j0 < nodes) {
+    const int b0 = s.seg[j0], nr = s.seg[j1] - b0;
+    const int j2 = j1 < nodes ? batch_end(s.seg, j1, nodes, rows) : j1;
+    for (int r = s.seg[j1] + tid; r < s.seg[j2]; r += kThreads)  // the next batch's rows to L2
+      prefetch_l2(ef + entry_slot(ch, s.list[r]) * kWidth);
+    cp_async_wait_all();
+    __syncthreads();  // this batch's rows (and, the first time, We_t) are in
+    project_batch(s, nr);
+    __syncthreads();  // the products and the logits are complete
+
+    // a group per node: out = sum e relu(prod + a) / den, 0 for an empty group
+    for (int j = j0 + grp; j < j1; j += kGroups) {
+      const int r0 = s.seg[j] - b0, r1 = s.seg[j + 1] - b0;
+      const long long row = ch.row(j) * kWidth;
+      float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
+      float den = 1.f;
+      if (r1 > r0) {
+        const float4 a0 = load_a4(a + row + c0), a1 = load_a4(a + row + c1);
+        den = node_softmax_sum<true>(s.logit, s.e, s.prod, r0, r1, sub, c0, c1, gmask, o0, o1,
+                                     a0, a1);
+      }
+      const float inv = __frcp_rn(den);  // a product in place of eight divisions
+      *reinterpret_cast<float4*>(out + row + c0) =
+          make_float4(o0.x * inv, o0.y * inv, o0.z * inv, o0.w * inv);
+      *reinterpret_cast<float4*>(out + row + c1) =
+          make_float4(o1.x * inv, o1.y * inv, o1.z * inv, o1.w * inv);
+    }
+    if (j1 < nodes) {
+      __syncthreads();  // the products are read
+      load_rows(s.ef, ef, s.list, s.seg[j1], s.seg[j2] - s.seg[j1], ch);
+    }
+    j0 = j1;
+    j1 = j2;
+  }
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------- K2b
 
@@ -777,17 +1112,32 @@ int set_smem(const void* kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T>
-int launch_fwd(const void* ef, const void* a, const int* types, const int* valid,
-               const void* we, const void* w_attn, float* out, int num_nodes, int c,
-               int num_types, void* stream) {
+int launch_fwd(const float* ef, const float* a, const int* types, const int* valid,
+               const float* we, const float* w_attn, float* out, int num_nodes, int c,
+               int num_types, cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes(c);
-  int err = set_smem(reinterpret_cast<const void*>(typed_message_fwd<T>), smem);
+  int err = set_smem(reinterpret_cast<const void*>(typed_message_fwd), smem);
   if (err != 0) return err;
   const dim3 grid((num_nodes + kChunkNodes - 1) / kChunkNodes, num_types);
-  typed_message_fwd<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(ef), static_cast<const T*>(a), types, valid,
-      static_cast<const T*>(we), static_cast<const T*>(w_attn), out, num_nodes, c, num_types);
+  typed_message_fwd<<<grid, kThreads, smem, stream>>>(ef, a, types, valid, we, w_attn, out,
+                                                      num_nodes, c, num_types);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fwd(const tc::bf16* ef, const tc::bf16* a, const int* types, const int* valid,
+               const tc::bf16* we, const tc::bf16* w_attn, float* out, int num_nodes, int c,
+               int num_types, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(tc::typed_message_fwd_bf16);
+  const size_t smem = tc::smem_bytes(c);
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  // all of the SM's shared memory, so that four blocks fit one
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared));
+  if (err != 0) return err;
+  const dim3 grid((num_nodes + kChunkNodes - 1) / kChunkNodes, num_types);
+  tc::typed_message_fwd_bf16<<<grid, kThreads, smem, stream>>>(ef, a, types, valid, we, w_attn,
+                                                               out, num_nodes, c, num_types);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,11 +1157,14 @@ extern "C" int pemp_typed_message_fwd(const void* ef, const void* a, const int* 
   if (!(aligned16(ef) && aligned16(we) && aligned16(out)) ||
       pemp::misaligned(a, bf16 ? 8 : 16))
     return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_fwd<__nv_bfloat16>(ef, a, types, valid, we, w_attn, out, num_nodes, c,
-                                     num_types, stream);
-  return launch_fwd<float>(ef, a, types, valid, we, w_attn, out, num_nodes, c, num_types,
-                           stream);
+    return launch_fwd(static_cast<const tc::bf16*>(ef), static_cast<const tc::bf16*>(a), types,
+                      valid, static_cast<const tc::bf16*>(we),
+                      static_cast<const tc::bf16*>(w_attn), out, num_nodes, c, num_types, st);
+  return launch_fwd(static_cast<const float*>(ef), static_cast<const float*>(a), types, valid,
+                    static_cast<const float*>(we), static_cast<const float*>(w_attn), out,
+                    num_nodes, c, num_types, st);
 }
 
 // Backward (K2b): writes every row of d_ef (the invalid slots' with zeros);

@@ -1,21 +1,23 @@
-"""Digests of the f32 kernels' outputs on seeded inputs, to compare two
-builds of the port bit for bit on one card.
+"""Digests of the kernels' outputs on seeded inputs, to compare two builds
+of the port bit for bit on one card.
 
     python pemp_tpu_torch/kernel_digests.py
     PYTHONPATH=<other checkout> python pemp_tpu_torch/kernel_digests.py
 
-Runs K2 and K2b (``ops.typed_message``), K3 and K3b
-(``ops.attn_aggregate``) and K4 in f32 and bf16 (``ops.blocked_attn``,
-forward) at the model_58_4 training shapes (B = 8: N = 5440, T = 17,
-C = 80, widths 64) on inputs made from seed 1; then K1's f32 form
-(``ops.fused_step``: out, ne), K1b on that ne and seeded cotangents (its
-six outputs) and K1's autograd Function (K2b, K1b and G1: its ten
-gradients) on inputs made from seed 21 as ``chip_smoke.random_k1_inputs``
-makes them. Prints the package it imported, then one line per output:
-its name and the first 16 hex digits of the sha256 of its float32 bytes.
-Two checkouts whose lines agree computed the same bits on this card. The digests depend on the card
-and the toolchain, so they are compared within one run, never kept. Needs
-a CUDA card.
+Runs K2 and K2b (``ops.typed_message``), K2's bf16 form on the same
+inputs rounded to bf16, K3 and K3b (``ops.attn_aggregate``) and K4 in f32
+and bf16 (``ops.blocked_attn``, forward) at the model_58_4 training shapes
+(B = 8: N = 5440, T = 17, C = 80, widths 64) on inputs made from seed 1;
+then K1's f32 form (``ops.fused_step``: out, ne), K1b on that ne and
+seeded cotangents (its six outputs), K1's bf16 form on the same inputs
+rounded to bf16 (out, ne) and K1's autograd Function (K2b, K1b and G1:
+its ten gradients) on inputs made from seed 21 as
+``chip_smoke.random_k1_inputs`` makes them. Prints the package it
+imported, then one line per output: its name and the first 16 hex digits
+of the sha256 of its float32 bytes. Two checkouts whose lines agree
+computed the same bits on this card. The digests depend on the card and
+the toolchain, so they are compared within one run, never kept. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ def main() -> None:
                                                       leaves[2], leaves[3], n, t)
     print("K2", _digest(out))
     print("K2b", _digest(*torch.autograd.grad(out, leaves, g)))
+    with torch.no_grad():
+        bf = [x.bfloat16() for x in (ef, a, we, wa)]
+        print("K2 bf16", _digest(typed_message.fused_typed_message_aggregate(
+            bf[0], bf[1], types, valid, bf[2], bf[3], n, t)))
     leaves = [x.clone().requires_grad_() for x in (ef, a, logits)]
     out = attn_aggregate.fused_attn_aggregate(leaves[0], leaves[1], types, valid, leaves[2], n, t)
     print("K3", _digest(out))
@@ -101,7 +107,10 @@ def _k1_digests() -> None:
                                           n, n_img)
         for name, x in zip(K1B_OUTPUTS, k1b):
             print(f"K1b {name}", _digest(x))
-    del out, ne, k1b
+        bf = [x.bfloat16() if x.is_floating_point() else x for x in args]
+        for name, x in zip(("out", "ne"), fused_step.fused_mpn_step(*bf, *dims)):
+            print(f"K1 bf16 {name}", _digest(x))
+    del out, ne, k1b, bf
     floats = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
     leaves = [x.clone().requires_grad_() if i in floats else x for i, x in enumerate(args)]
     plan = gather_mm.gather_plan(args[5], n_img, n)

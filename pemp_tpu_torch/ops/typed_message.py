@@ -35,10 +35,15 @@ GFLOP (~0.038 ms either way); K2b moves ~265 MB and does ~7.6 GFLOP
 (~0.114 ms at the f32 rate: bound by operations).
 
 K2 also has a bf16 form, for the ``pallas`` eval path: ef, a, we and
-w_attn all bf16 (out stays float32), widened to float32 as they are read
-and run through the float32 code, so it computes what the plain version
-computes on the same inputs. K2b is float32 only: a bf16 input that needs
-a gradient is refused.
+w_attn all bf16 (out stays float32), a kernel of its own on the tensor
+cores (``mma.sync`` with bf16 inputs and float32 sums, as the TPU kernel's
+bf16 branch runs the MXU): the same plan, with a coalesced scan, the ef
+rows staged as bf16 by ``cp.async`` and a[n, t] added once a (node, type)
+group that holds a slot, in the softmax step. bf16 products are exact in
+float32, so it computes what the plain version computes on the same
+inputs up to the order of the sums.
+``FORMS`` says which form serves which dtype. K2b is float32 only: a bf16
+input that needs a gradient is refused.
 
 ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches of either form
 (the plain version does not count).
@@ -61,6 +66,12 @@ _CHUNK = 64                 # most nodes per block (kChunkNodes in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+FORMS = {
+    torch.float32: "f32 CUDA-core form (typed_message_fwd: register-tiled rows, cp.async, "
+                   "a block per (type, 64-node chunk))",
+    torch.bfloat16: "bf16 tensor-core form (tc::typed_message_fwd_bf16: mma.sync m16n8k16, "
+                    "ldmatrix, cp.async, coalesced scan, a block per (type, 64-node chunk))",
+}
 
 
 def fused_typed_message_plain(ef, a, types, valid, we, w_attn, num_nodes: int,

@@ -46,15 +46,31 @@ CASES = {
     # tests/test_fused_kernel.py:118; its near one-hot softmax leaves the
     # logit gradients as cancellation noise)
     "wide_logit_spread": dict(seed=7, attn_scale=200.0, all_valid=True),
+    # K2's bf16 form (the pallas eval path) at the CUDA kernels' widths: the
+    # same numpy inputs rounded to bf16 go through the JAX kernel's bf16
+    # branch (sel_dt) and the plain version; then ragged, C = 77 and
+    # T = 14 (model_81_1_2's types)
+    "kernel_widths_bf16": dict(seed=4, n=16, c=80, t=17, d=64, de=64, bf16=True),
+    "ragged_bf16": dict(seed=5, n=16, c=77, t=14, d=64, de=64, bf16=True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_forward_matches_jax_kernel(case):
-    args, _, n, t = _make(**CASES[case])
-    want = np.asarray(jax_typed_message(*map(jnp.asarray, args), n, t, interpret=True))
-    got = typed_message.fused_typed_message_plain(*map(torch.from_numpy, args), n, t)
-    # tests/test_fused_kernel.py:39's tolerance (f32, another summation order)
+    kw = dict(CASES[case])
+    bf16 = kw.pop("bf16", False)
+    args, _, n, t = _make(**kw)
+    floats = (0, 1, 4, 5)  # ef, a, we, w_attn
+    jargs = [jnp.asarray(x, jnp.bfloat16 if bf16 and i in floats else None)
+             for i, x in enumerate(args)]
+    targs = [torch.from_numpy(x).to(torch.bfloat16) if bf16 and i in floats
+             else torch.from_numpy(x) for i, x in enumerate(args)]
+    want = np.asarray(jax_typed_message(*jargs, n, t, interpret=True))
+    got = typed_message.fused_typed_message_plain(*targs, n, t)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    # tests/test_fused_kernel.py:39's tolerance (f32, another summation
+    # order); in bf16 too: both sides take the same bf16 values, whose
+    # products are exact in f32, and sum them in f32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
     if case == "seed0":
         assert np.all(got.numpy()[2] == 0.0)          # no valid slot: all zero
