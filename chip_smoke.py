@@ -115,7 +115,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    weights get BatchNorm statistics measured on the images, so that
    persons form (full_width_model). First the pipeline over the images:
    the card's persons are held against the CPU's decode of the same
-   outputs (2e-3), and there must be some. Then a run with the counts
+   outputs (2e-3) on the even images (all 8 before phases 50-51 took the
+   smoke past 1050 s), and there must be some on the card's 8. Then a run with the counts
    zeroed just before and read just after (K1 10 times a batch), timed,
    whose results file must hold persons; prints img/s and peak memory.
    Then a run with each stage timed (host warp, backbone, projection,
@@ -125,8 +126,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    host through the g++ library built at first use) on the same images,
    the node threshold lowered from the file's 1.0 (which no sigmoid score
    passes) to 0.5; the same three runs, the host clustering and its decode
-   held against the same clustering decoded on the CPU; prints img/s and
-   the host clustering's share.
+   held against the same clustering decoded on the CPU on the odd images;
+   prints img/s and the host clustering's share.
 21. scoring: the ground truth as detections scores AP 1.0 through the
    port's KeypointEval; noisy detections score the stats the CPU tests pin
    against the JAX package.
@@ -168,8 +169,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain and bound ms as phases 3 and 6.
 26. model_81_1_2 through ``valid.evaluate`` at full width (w32/512, bf16,
    one scale, GAEC on the host at node threshold 0.5 as phase 20, CrowdPose
-   scoring) on 16 rendered images with 14 joints, as phase 20: K1 10
-   times a batch.
+   scoring) on 16 rendered images with 14 joints, as phase 20 (the CPU's
+   reference decode on the even images): K1 10 times a batch.
 27. model_81_1_2 training at full width (w32/512, batch 8, f32, pallas,
    synthetic 14-joint batches): one warm-up step and 3 timed steps, K2,
    K2b and G1 10 times each a step, losses finite; prints the device time
@@ -262,7 +263,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 39. the zoo at full width (model_58_4's w32/512, batch 8): simple through
    ``valid.evaluate`` as phase 36 (bf16, one scale, GAEC at node threshold
    0.5) on phase 19's 8 images, one batch (cut from 16 for the time
-   limit when phases 40-41 came) with K1 12 times a batch (STEPS + EDGE_STEPS); simple (K2 and G1
+   limit when phases 40-41 came; the CPU's reference decode on the odd
+   images since phases 50-51) with K1 12 times a batch (STEPS +
+   EDGE_STEPS); simple (K2 and G1
    12 a step, K2b 11), two_phase and self_attention (no kernel) through
    ``train()``, 4 steps in f32; prints img/s, the device time a step and
    the peak memory.
@@ -332,13 +335,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step skipped; prints steps/s, the device time a step beside phase 8's
    ``pallas`` reading from the same call, and the peak memory.
 
-Phases 47-49 run after phase 17, on phase 8's batches, next to the other
+50. the JAX package's MPN and graph variants (config.VARIANTS and
+   VARIANT_CUTS) on the small cut, CPU against card, as phase 29: for each,
+   the eval slice and one training step on the routes VARIANT_SMALL lists
+   (``auto`` for all; ``hybrid``, ``fused_step``, ``dots``, ``einsum`` for
+   some), the counts zeroed just before each and read just after: the
+   kernels of the form config.layer_route gives the variant there, once an
+   MPN pass (variant_launches: the per-type edge MLP on K2 where the route
+   names the fused step, the per-type attention on the split linear and
+   K4/K4b, the per-type sum by MPN.AGGR on no kernel; the edge lists and
+   VanillaMPN on none). The feature kNN graph may swap neighbours whose
+   distances tie within float32 rounding (checked in float64), and is then
+   not compared further.
+51. the variants at model_58_4's full width (w32/512, batch 8): for each of
+   edge_mlp_per_type, update_hierarch, attn_per_type, aggr_per_type,
+   node_steps, late_fusion, angle and ae_normed one bf16 eval forward on
+   ``auto`` and two f32 training steps on ``auto`` (a warm-up and a timed
+   one, phase 8's batches); update_hierarch training on ``fused_step``
+   (K1, K2b, K1b, G1 10 a step) and edge_mlp_per_type on ``hybrid``; the
+   counts zeroed just before each timed run and read just after
+   (edge_mlp_per_type's eval: K2 10, K1 0); K2 and K2b against their plain
+   versions on edge_mlp_per_type's training inputs at MPN step 0 (phase
+   6's limits), K4 on attn_per_type's eval inputs at step 0 (bf16, 2e-2);
+   the edge lists (knn_list, feature_knn, topk) one eval forward each.
+   Prints each run's img/s or device ms a step and its peak memory;
+   edge_mlp_per_type's training peak may pass phase 8's by 8 GiB at most.
+
+Phases 47-51 run after phase 17, on phase 8's batches, next to the other
 phases that read kernel times from ``torch.profiler``.
 
 Phases 5, 8, 19, 23, 26, 27, 30, 31, 33, 34, 36, 37, 38, 39, 40, 41,
-42-46, 48 and 49 check the counts the same way: every kernel not named
-launches 0 times (40 and 41 in their own processes, whose counts start at
-0).
+42-46, 48, 49, 50 and 51 check the counts the same way: every kernel not
+named launches 0 times (40 and 41 in their own processes, whose counts
+start at 0).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -956,7 +985,7 @@ def check_g1(label, x, j, plan, g, gather_mm):
     return (err, ms, plain_ms, bound, bound_by), library_ms
 
 
-def drive_eval(label, pipe, images, iters, want, card):
+def drive_eval(label, pipe, images, iters, want, card, model="w48"):
     """The eval path at full width: a warm-up forward, then ``iters``
     forwards with the counts zeroed just before and read just after; each
     kernel of ``want`` must launch that often per forward, every other one
@@ -985,7 +1014,7 @@ def drive_eval(label, pipe, images, iters, want, card):
             raise SystemExit(f"{label}: non-finite {name}")
     g = out["graph"]
     launched = ", ".join(f"{k} {v} ({v // iters} per forward)" for k, v in counts.items() if v)
-    log(f"{label}: w48/{size} batch {batch} bf16, {iters} forwards in {dt:.3f} s: "
+    log(f"{label}: {model}/{size} batch {batch} bf16, {iters} forwards in {dt:.3f} s: "
         f"{batch * iters / dt:.2f} img/s on {card}; launches {launched}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; valid nodes "
         f"{int(g['node_valid'].sum())}/{batch * n}; valid edges "
@@ -1000,7 +1029,8 @@ def drive_train(label, trainer, batches, want, card, model="model_58_4"):
     just after; each kernel of ``want`` must launch that often per step,
     every other one never; losses finite, no step skipped. Prints the
     device time a step (CUDA events around the timed steps). Returns the
-    counts, and the device ms a step under ``device_ms``."""
+    counts, the device ms a step under ``device_ms`` and the peak memory of
+    the timed steps in GiB under ``peak_gib``."""
     trainer.step(batches[0])                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1033,7 +1063,8 @@ def drive_train(label, trainer, batches, want, card, model="model_58_4"):
         f"{int(gr['node_valid'].sum())}/{gr['node_valid'].numel()}, label-positive "
         f"{int(lab['node'].sum())}; valid edges {int(gr['edge_valid'].sum())}/"
         f"{gr['edge_valid'].numel()}, label-positive {int(lab['edge'][0].sum())}")
-    return {**counts, "device_ms": device_ms}
+    return {**counts, "device_ms": device_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def capture_train_inputs(trainer, batch, name, steps=(0, 9)):
@@ -1236,9 +1267,14 @@ def capture_eval_inputs(pipe, images, name, steps=(0, 9)):
     return kept
 
 
-def phase_small_slice(msg_pass="auto", cfg=None, name="small slice"):
+def phase_small_slice(msg_pass="auto", cfg=None, name="small slice", feature_ties=False):
     """The narrow test configuration (or ``cfg``, a small cut) on
-    ``msg_pass``, same weights, CPU against card."""
+    ``msg_pass``, same weights, CPU against card. ``feature_ties``: the
+    graph is kNN among the node features, whose distances the card sums in
+    another order than the CPU; where the two graphs differ, each swapped
+    neighbour's distance (float64, on the CPU's features) must equal the
+    other's within 1e-5 of the larger, and the MPN outputs, which then read
+    other edges, are not compared."""
     from pemp_tpu_torch.config import small
     from pemp_tpu_torch.pipeline import build_pipeline
 
@@ -1255,6 +1291,19 @@ def phase_small_slice(msg_pass="auto", cfg=None, name="small slice"):
                      {k: v[-1].cpu() for k, v in out["preds"].items()
                       if v is not None and v[-1] is not None})
     (pc, vc, gc, mc), (pg, vg, gg, mg) = runs["cpu"], runs["cuda"]
+    if feature_ties and not (torch.equal(gc["edge_index"], gg["edge_index"])
+                             and torch.equal(gc["edge_valid"], gg["edge_valid"])):
+        differ = (gc["edge_index"][1] != gg["edge_index"][1]).nonzero()[:, 0]
+        x = gc["x"].double()
+        src = gc["edge_index"][0, differ].long()
+        d_cpu = ((x[src] - x[gc["edge_index"][1, differ].long()]) ** 2).sum(-1)
+        d_card = ((x[src] - x[gg["edge_index"][1, differ].long()]) ** 2).sum(-1)
+        if not bool(((d_cpu - d_card).abs() <= 1e-5 * torch.maximum(d_cpu, d_card)).all()):
+            raise SystemExit(f"{name} {msg_pass}: the feature kNN graphs differ past float32 "
+                             f"rounding of their distances")
+        log(f"{name} {msg_pass}: {len(differ)} neighbours swapped within float32 rounding "
+            f"of their feature distances; MPN outputs not compared")
+        return
     for key in ("nodes", "edge_index", "edge_valid", "node_valid"):
         if not torch.equal(gc[key], gg[key]):
             raise SystemExit(f"{name} {msg_pass}: graph field {key} differs between CPU "
@@ -2207,8 +2256,10 @@ def phase_model_81_1_2(card, sizes):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         eval_set = RenderedSet(tmp, rendered14, dataset14)
+        # the CPU's reference decode on half of the images (the even
+        # ones), as phases 30 and 36: the smoke passed 1050 s with phases 50-51
         out["K1"], times, dt = drive_valid("valid model_81_1_2 GAEC", cfg81, eval_set, 2, card,
-                                           tmp, model=model81)
+                                           tmp, model=model81, half=0)
     del model81
     torch.cuda.empty_cache()
     log(f"valid model_81_1_2 GAEC: host clustering and its decode {times['cluster']:.3f} s "
@@ -2769,7 +2820,8 @@ def phase_zoo_research(card, rendered, dataset):
         cfg = zoo("simple")
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
         steps = cfg.MODEL.MPN.STEPS + cfg.MODEL.MPN.EDGE_STEPS
-        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 1, card, tmp, k1=steps)
+        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 1, card, tmp, k1=steps,
+                                    half=1)
         log(f"valid simple: host clustering and its decode {times['cluster']:.3f} s of the "
             f"staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
     counts, _ = zoo_train_entry(card, ZOO_RESEARCH_TRAIN)
@@ -3554,6 +3606,183 @@ def phase_fused_train(card, batches, pallas_ms):
     return counts
 
 
+# Phases 50-51: the JAX package's MPN and graph variants (config.VARIANTS;
+# VARIANT_CUTS on the small cut only). The kernels a card run launches once
+# an MPN pass, by the form config.layer_route gives the variant on the
+# run's route (eval, training): K4 and K4b only for an attention
+FORM_LAUNCHES = {
+    False: {"fused_step": {"K1": 1}, "pallas": {"K2": 1}, "hybrid": {"K3": 1},
+            "einsum": {"K4": 1}, "dots": {"K4": 1}},
+    True: {"fused_step": {"K1": 1, "K2b": 1, "K1b": 1, "G1": 1},
+           "pallas": {"K2": 1, "K2b": 1, "G1": 1}, "hybrid": {"K3": 1, "K3b": 1, "G1": 1},
+           "einsum": {"K4": 1, "K4b": 1, "G1": 2}, "dots": {"K4": 1, "K4b": 1, "G1": 3}},
+}
+# phase 50: each variant's (eval routes, training routes) on the small cut
+VARIANT_SMALL = {
+    "edge_mlp_per_type": (("auto", "hybrid"), ("auto", "hybrid", "fused_step")),
+    "update_hierarch": (("auto", "dots"), ("auto", "fused_step")),
+    "attn_per_type": (("auto", "einsum"), ("auto",)),
+    "aggr_per_type": (("auto",), ("auto",)),
+    "aggr_max": (("auto",), ("auto",)),
+    "aggr_mean": (("hybrid",), ()),
+    "node_steps": (("auto",), ("auto",)),
+    "late_fusion": (("auto",), ("auto",)),
+    "angle": (("auto",), ("auto",)),
+    "ae_normed": (("auto",), ("auto",)),
+    "ae": (("auto",), ()),
+    "ae_normed_alone": (("auto",), ()),
+    "ae_tracking_1": (("auto",), ()),
+    "knn_list": (("auto",), ("auto",)),
+    "topk": (("auto",), ("auto",)),
+    "feature_knn": (("auto",), ()),
+    "vanilla_per_type": (("auto",), ("auto",)),
+    "vanilla_update_mlp": (("auto",), ("auto",)),
+    "vanilla_drop_dist": (("auto",), ("auto",)),
+}
+# phase 51: the variants at model_58_4's full width; the edge lists run one
+# eval forward each
+VARIANT_FULL = ("edge_mlp_per_type", "update_hierarch", "attn_per_type", "aggr_per_type",
+                "node_steps", "late_fusion", "angle", "ae_normed")
+VARIANT_EDGE_LISTS = ("knn_list", "feature_knn", "topk")
+# the most memory the per-type edge MLP may add to model_58_4's pallas
+# training peak: its saved edge activations are ~E x 320 floats a step
+# against the agnostic MLP's E x 128; an (E, T, D) form would add ~38 GB
+PER_TYPE_PEAK_GIB = 8.0
+
+
+def variant_launches(cfg, train):
+    """The launches one forward (eval) or one step (``train``) of ``cfg``'s
+    MPN must show on the card: its form's kernels (FORM_LAUNCHES) once an
+    MPN pass (STEPS + NODE_STEPS); none on the kernel-free routes."""
+    from pemp_tpu_torch.config.defaults import layer_route, msg_pass_route, plain_route
+
+    if plain_route(cfg):
+        return {}
+    mpn = cfg.MODEL.MPN
+    route = layer_route(msg_pass_route(cfg.TPU.MSG_PASS, train), mpn.EDGE_MLP, mpn.AGGR_SUB)
+    attn = mpn.AGGR_SUB in ("node_edge_attn", "node_edge_attn_per_type")
+    passes = mpn.STEPS + mpn.get("NODE_STEPS", 0)
+    return {k: v * passes for k, v in FORM_LAUNCHES[train][route].items()
+            if attn or k not in ("K4", "K4b")}
+
+
+def variant_cut(name, msg_pass, eval_cut, base=None):
+    """``base`` (small_train() when None) with the variant ``name`` merged,
+    on ``msg_pass``; for an eval run without a checkpoint, threshold
+    grouping at node threshold 0.1."""
+    from pemp_tpu_torch.config import small_train, variant
+
+    cfg = variant(name, small_train() if base is None else base)
+    cfg.TPU.MSG_PASS = msg_pass
+    if eval_cut:
+        cfg.merge_from_other({"MODEL": {"PRETRAINED": "", "GC": {"CC_METHOD": "threshold"},
+                                        "MPN": {"NODE_THRESHOLD": 0.1}}})
+    return cfg
+
+
+def phase_small_variants():
+    """Phase 50: each variant of :data:`VARIANT_SMALL` on the small cut, CPU
+    against card, as phase 29 (the eval slice, every head within 2e-3 and
+    the graph exact, but for the feature kNN graph's float32 ties; one
+    training step held to the CPU's float64 step), on each route listed;
+    the counts zeroed just before each pair of runs and read just after:
+    each card run launches its form's kernels once an MPN pass
+    (:func:`variant_launches`) and no other. Returns the counts."""
+    total = {}
+    for name, (evals, trains) in VARIANT_SMALL.items():
+        for train, routes in ((False, evals), (True, trains)):
+            for route in routes:
+                cfg = variant_cut(name, route, not train)
+                label = f"small {name} {'train' if train else 'slice'}"
+                zero_counts()
+                if train:
+                    phase_small_train(route, cfg, label, f64_bound=True)
+                else:
+                    phase_small_slice(route, cfg, label, feature_ties=name == "feature_knn")
+                counts = read_counts(f"{label} {route}", variant_launches(cfg, train))
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+    log(f"small variants: launches {total}")
+    return total
+
+
+def phase_variants(card, batches, pallas_peak):
+    """Phase 51: model_58_4 at full width (w32/512, batch 8) with each
+    variant of :data:`VARIANT_FULL`: one bf16 forward of the eval pipeline
+    on ``auto`` on 8 random images, then two f32 training steps on ``auto``
+    (``pallas``; a warm-up and a timed step on phase 8's batches), the
+    counts zeroed just before each timed run and read just after
+    (:func:`variant_launches`); then update_hierarch training on
+    ``fused_step`` and edge_mlp_per_type training on ``hybrid``. K2 and K2b
+    are held against their plain versions on edge_mlp_per_type's training
+    inputs at MPN step 0 (phase 6's limits), K4 on attn_per_type's eval
+    inputs at step 0 (bf16, 2e-2 of the largest). The edge lists of
+    :data:`VARIANT_EDGE_LISTS` run one eval forward each (the segment
+    route: no kernel). Prints each run's device ms, img/s and peak memory;
+    edge_mlp_per_type's training peak may pass ``pallas_peak`` (phase 8's,
+    this call) by :data:`PER_TYPE_PEAK_GIB` at most. Returns the counts
+    and the K2, K2b and K4 errors and numbers, with the launches of K2's
+    bf16 form (the eval forwards' K2) under "K2 bf16", apart from the
+    counts."""
+    from pemp_tpu_torch.config import variant, w32_512_train
+    from pemp_tpu_torch.ops import blocked_attn, segment, typed_message
+    from pemp_tpu_torch.pipeline import build_pipeline
+    from pemp_tpu_torch.train.train_step import build_trainer
+
+    total, peaks, numbers = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if k not in ("device_ms", "peak_gib"):
+                total[k] = total.get(k, 0) + v
+
+    images = torch.rand(8, 512, 512, 3, generator=torch.Generator().manual_seed(2)).cuda()
+    for name in (*VARIANT_FULL, *VARIANT_EDGE_LISTS):
+        cfg = variant_cut(name, "auto", True, w32_512_train())
+        pipe = build_pipeline(8, 512, dtype=torch.bfloat16, device="cuda", cfg=cfg, seed=0)
+        counts = drive_eval(f"{name} eval", pipe, images, 1, variant_launches(cfg, False), card,
+                            model="w32")
+        numbers["K2 bf16"] = numbers.get("K2 bf16", 0) + counts["K2"]     # K2's bf16 form
+        add({k: v for k, v in counts.items() if k != "K2"})
+        peaks[f"{name} eval"] = torch.cuda.max_memory_allocated() / 2**30
+        if name == "attn_per_type":
+            args = capture_eval_inputs(pipe, images, "blocked_attn_aggregate", steps=(0,))[0]
+            numbers["K4"] = check_k4("attn_per_type eval path step 0 bf16", args, 2e-2,
+                                     blocked_attn, segment)
+            del args
+        del pipe
+        torch.cuda.empty_cache()
+    runs = [(name, "auto") for name in VARIANT_FULL] + [("update_hierarch", "fused_step"),
+                                                        ("edge_mlp_per_type", "hybrid")]
+    for name, route in runs:
+        cfg = variant(name)
+        cfg.TPU.MSG_PASS = route
+        trainer = build_trainer(cfg, device="cuda", seed=0)
+        got = drive_train(f"{name} {route} training", trainer, batches[:2],
+                          variant_launches(cfg, True), card, model=f"model_58_4 {name}")
+        add(got)
+        peaks[f"{name} {route} training"] = got["peak_gib"]
+        if (name, route) == ("edge_mlp_per_type", "auto"):
+            captured = capture_train_inputs(trainer, batches[0], "fused_typed_message_aggregate",
+                                            steps=(0,))
+            args, g = captured[0]
+            numbers["K2"] = check_k2("edge_mlp_per_type train path step 0", args[:6], g,
+                                     args[6:], typed_message)
+            del captured, args, g
+            extra = got["peak_gib"] - pallas_peak
+            if not extra <= PER_TYPE_PEAK_GIB:
+                raise SystemExit(f"edge_mlp_per_type training: peak {got['peak_gib']:.2f} GiB, "
+                                 f"{extra:.2f} above model_58_4's {pallas_peak:.2f} on pallas "
+                                 f"(at most {PER_TYPE_PEAK_GIB})")
+            log(f"edge_mlp_per_type training: peak {got['peak_gib']:.2f} GiB, {extra:.2f} GiB "
+                f"above model_58_4's {pallas_peak:.2f} on pallas (phase 8, this call)")
+        del trainer
+        torch.cuda.empty_cache()
+    log("variants' peak memory (GiB): " + "; ".join(f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"full-width variants: launches {total}")
+    return total, numbers
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3679,7 +3908,7 @@ def main() -> int:
     counts = drive_train("training", trainer, batches[1:],
                          {"K2": steps, "K2b": steps, "G1": steps}, card)
     k2_fwd, k2_bwd, g1_launches = counts["K2"], counts["K2b"], counts["G1"]
-    pallas_ms = counts["device_ms"]
+    pallas_ms, pallas_peak = counts["device_ms"], counts["peak_gib"]
     del trainer
     torch.cuda.empty_cache()
     log(f"chip_smoke: phases 1-8 done in {time.perf_counter() - t_start:.1f} s")
@@ -3889,13 +4118,35 @@ def main() -> int:
     log(f"chip_smoke: phase 48 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts49 = phase_fused_train(card, batches[1:], pallas_ms)
-    del batches
     for c in (counts48, counts49):
         launches += c["K1"]
         k2_bwd += c["K2b"]
         g1_launches += c["G1"]
     k1b_launches = counts48["K1b"] + counts49["K1b"]
     log(f"chip_smoke: phase 49 done in {time.perf_counter() - t0:.1f} s")
+
+    # 50-51, here on phase 8's batches too: the JAX package's MPN and graph
+    # variants, the small cuts CPU against card, then model_58_4 at full
+    # width
+    t0 = time.perf_counter()
+    variant_counts = phase_small_variants()
+    log(f"chip_smoke: phase 50 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    full_counts, variant_numbers = phase_variants(card, batches, pallas_peak)
+    del batches
+    for c in (variant_counts, full_counts):
+        launches += c.get("K1", 0)
+        k2_fwd += c.get("K2", 0)
+        k2_bwd += c.get("K2b", 0)
+        g1_launches += c.get("G1", 0)
+        k1b_launches += c.get("K1b", 0)
+    variant_k34 = {k: variant_counts.get(k, 0) + full_counts.get(k, 0)
+                   for k in ("K3", "K3b", "K4", "K4b")}
+    variant_k2_bf16 = variant_numbers["K2 bf16"]
+    for way in k2_errs:
+        k2_errs[way].append(variant_numbers["K2"][way][0])
+    k4_errs.append(variant_numbers["K4"][0])
+    log(f"chip_smoke: phase 51 done in {time.perf_counter() - t0:.1f} s")
 
     # 18. small TTA slice, CPU against card
     phase_small_tta()
@@ -3915,14 +4166,18 @@ def main() -> int:
         eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         cfg = w48_640()
         cfg.merge_from_other({"TEST": {"FLIP_TEST": True, "SCALE_FACTOR": [2.0, 1.0, 0.5]}})
+        # the CPU's reference decode on half of the images, the even ones
+        # here and the odd ones in phase 20 (as phases 30 and 36): the
+        # smoke passed 1050 s with phases 50-51
         valid_launches, _, _ = drive_valid("valid w48/640 multi-scale + flip", cfg, eval_set,
-                                           1, card, tmp)
+                                           1, card, tmp, half=0)
 
         # 20. model_58_4 as its file says: w32/512, one scale, no flip, GAEC
         # on the host through the g++ library built at first use
         cfg = w32_512_train()
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid score passes it
-        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 1, card, tmp)
+        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 1, card, tmp,
+                                       half=1)
         valid_launches += count
         log(f"valid model_58_4 GAEC: host clustering and its decode {times['cluster']:.3f} s "
             f"of the staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
@@ -4083,18 +4338,20 @@ def main() -> int:
         ("fused_typed_message_aggregate_bwd", "typed_message.cu",
          "pallas/fused_typed_message.py:352", k2_bwd, max(k2_errs["bwd"]), k2_numbers["bwd"]),
         ("fused_attn_aggregate", "attn_aggregate.cu", "pallas/fused_typed_message.py:596",
-         counts_train["K3"] + counts_eval["hybrid"]["K3"], max(k3_errs["fwd"]),
-         k3_numbers["fwd"]),
+         counts_train["K3"] + counts_eval["hybrid"]["K3"] + variant_k34["K3"],
+         max(k3_errs["fwd"]), k3_numbers["fwd"]),
         ("fused_attn_aggregate_bwd", "attn_aggregate.cu", "pallas/fused_typed_message.py:630",
-         counts_train["K3b"], max(k3_errs["bwd"]), k3_numbers["bwd"]),
+         counts_train["K3b"] + variant_k34["K3b"], max(k3_errs["bwd"]), k3_numbers["bwd"]),
         ("blocked_attn_aggregate", "blocked_attn.cu", "pallas/blocked_attn.py:68",
          counts_eval["einsum"]["K4"] + counts_eval["dots"]["K4"] + counts_fit["einsum"]["K4"]
-         + counts_fit["dots"]["K4"], max(k4_errs), k4_numbers),
+         + counts_fit["dots"]["K4"] + variant_k34["K4"], max(k4_errs), k4_numbers),
         ("fused_typed_message_aggregate_bf16", "typed_message.cu",
-         "pallas/fused_typed_message.py:412", counts_eval["pallas"]["K2"], k2_bf16_numbers[0],
+         "pallas/fused_typed_message.py:412", counts_eval["pallas"]["K2"] + variant_k2_bf16,
+         k2_bf16_numbers[0],
          k2_bf16_numbers),
         ("blocked_attn_aggregate_bwd", "blocked_attn.cu", "segment.py:172",
-         counts_fit["einsum"]["K4b"] + counts_fit["dots"]["K4b"], max(k4b_errs), k4b_numbers),
+         counts_fit["einsum"]["K4b"] + counts_fit["dots"]["K4b"] + variant_k34["K4b"],
+         max(k4b_errs), k4b_numbers),
         ("gather_rows_bwd", "gather_rows.cu", "gather_mm.py:79", g1_launches, max(g1_errs),
          g1_numbers),
         ("fused_mpn_step_bwd", "fused_step_bwd.cu", "pallas/fused_step.py:208", k1b_launches,
@@ -4107,7 +4364,7 @@ def main() -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": g1_library_ms if name == "gather_rows_bwd" else None,
         })
-    log(f"chip_smoke: phases 1-49 done in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-51 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ A YAML file of the repo's ``configs/`` loads through :func:`update_config`
 
 * a key of the tree below: merged;
 * a key of :data:`FIXED`, whose value no path of the port implements
-  otherwise (the backbone, the graph layout, collect-at-eval, the message
+  otherwise (the backbone, the graph type, collect-at-eval, the message
   passing forms): a file giving another value raises
   ``NotImplementedError``;
 * a key of :data:`NOT_READ`, which no path reads (device and run
@@ -29,8 +29,8 @@ The presets (:data:`PRESETS`: :func:`w48_640`, :func:`w32_512_train`,
 :func:`model_81_1_2`, :func:`hg_512` and :func:`w32_512`) carry five files
 of ``configs/`` as Python, for machines without PyYAML;
 :func:`load_config` resolves a ``--config`` name to a preset or a file.
-:data:`ABLATIONS` and :data:`ZOO` hold deltas over model_58_4
-(:func:`ablation`, :func:`zoo`).
+:data:`ABLATIONS`, :data:`ZOO` and :data:`VARIANTS` hold deltas over
+model_58_4 (:func:`ablation`, :func:`zoo`, :func:`variant`).
 """
 
 import ast
@@ -205,17 +205,20 @@ _C = CN({
         "KNN_K": 50,
         "KNN_CAP_IN": 30,       # C = KNN_K + KNN_CAP_IN slots per node
         "MSG_PASS": "auto",
+        # the kNN graph's layout: target-major blocks of C in-edge slots a
+        # node (the kernel routes), or the edge list of pemp_tpu/ops/knn.py:
+        # 36-71 (the segment route)
+        "TARGET_MAJOR": True,
         "MATCHER": "hungarian",
         "S2D_DECONV": -1,
     },
 })
 
-# The graphs graph.constructor builds (pemp_tpu/graph/constructor.py:143-170)
-# that a file of configs/ sets: the target-major kNN graph, fully
-# connected, and the two root-joint graphs. ``topk``, ``feature_knn`` and
-# the kNN edge list (``TPU.TARGET_MAJOR`` false) wait for a configuration
-# that runs them.
-GRAPH_TYPES = ("knn", "fully", "score_based", "score_based_per_type")
+# The graphs graph.constructor builds (pemp_tpu/graph/constructor.py:143-170):
+# kNN (target-major, or an edge list with ``TPU.TARGET_MAJOR`` false),
+# fully connected, the two root-joint graphs, the per-type top-k graph and
+# kNN in the node features' space.
+GRAPH_TYPES = ("knn", "fully", "score_based", "score_based_per_type", "topk", "feature_knn")
 
 # Values no path of the port implements otherwise: the three backbones
 # (HigherHRNet, the same network under mmpose's checkpoint names, the
@@ -229,7 +232,6 @@ FIXED = {
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.BLOCK": ("BASIC",) for i in (2, 3, 4)},
     **{f"MODEL.HRNET.EXTRA.STAGE{i}.FUSE_METHOD": ("SUM",) for i in (2, 3, 4)},
     "MODEL.GC.GRAPH_TYPE": GRAPH_TYPES,
-    "TPU.TARGET_MAJOR": (True,),
     "TPU.COLLECT_AUX": (False,),
     "TPU.MSG_PASS": ("auto", "fused_step", "pallas", "hybrid", "einsum", "dots"),
 }
@@ -411,11 +413,12 @@ def plain_route(cfg):
     """The kernel-free route ``cfg``'s MPN runs (:data:`PLAIN_ROUTES`), or
     None where it runs the kernel routes: ``agnostic`` for the MPNs of
     :data:`AGNOSTIC_MPNS` and ``MODEL.MPN.AGGR_TYPE`` agnostic, else
-    ``segment`` unless the graph is the target-major kNN one."""
+    ``segment`` unless the graph is the target-major kNN one (the kNN
+    graph with ``TPU.TARGET_MAJOR`` false is an edge list)."""
     mpn = cfg.MODEL.MPN
     if mpn.NAME in AGNOSTIC_MPNS or mpn.AGGR_TYPE == "agnostic":
         return "agnostic"
-    if cfg.MODEL.GC.GRAPH_TYPE != "knn":
+    if cfg.MODEL.GC.GRAPH_TYPE != "knn" or not cfg.TPU.TARGET_MAJOR:
         return "segment"
     return None
 
@@ -470,6 +473,31 @@ def msg_pass_route(msg_pass: str, train: bool, plain: str | None = None,
             f"TPU.MSG_PASS={msg_pass!r} {UNBLOCKED[unblocked]}; 'pallas' and 'dots' run here")
     if route not in ROUTES:
         raise NotImplementedError(f"TPU.MSG_PASS={msg_pass!r}: the port runs only {ROUTES}")
+    return route
+
+
+def layer_route(route: str, edge_mlp: str, aggr_sub: str) -> str:
+    """The form of the per-type layer that runs on the kernel route
+    ``route`` (:data:`ROUTES`) given ``MODEL.MPN.EDGE_MLP`` and
+    ``AGGR_SUB``, as the JAX layer chooses it on a TPU
+    (pemp_tpu/models/mpn/layers.py:393-404, 551-556, 630-662), else
+    ``route`` itself:
+
+    * K1, K2 and K3 aggregate by one attention head. With an ``AGGR_SUB``
+      other than ``node_edge_attn`` the JAX layer runs its split linear,
+      then the blocked aggregate (K4 for ``node_edge_attn_per_type``, a
+      plain per-type sum by ``MPN.AGGR`` otherwise): with the reverse-edge
+      projection on the symmetric layout (``einsum``, for ``hybrid`` and
+      ``einsum``), with the all-types one on the asymmetric layout
+      (``dots``, for the other routes).
+    * The fused step (K1) computes the agnostic edge MLP in the kernel.
+      With ``EDGE_MLP`` per_type the JAX layer takes its typed message
+      kernel there instead (K2, and K2b in training): ``pallas``.
+    """
+    if aggr_sub != "node_edge_attn":
+        return "einsum" if route in ("hybrid", "einsum") else "dots"
+    if route == "fused_step" and edge_mlp != "agnostic":
+        return "pallas"
     return route
 
 
@@ -940,6 +968,62 @@ def zoo(name: str, base=None):
     key of :data:`ZOO` or :data:`ZOO_CUTS`) merged over it."""
     cfg = w32_512_train() if base is None else base
     cfg.merge_from_other({**ZOO, **ZOO_CUTS}[name])
+    return cfg
+
+
+def _mpn(**keys):
+    return {"MODEL": {"MPN": keys}}
+
+
+def _vanilla(**keys):
+    """train/model_50_4 (VanillaMPN, the edge loss, a frozen backbone) with
+    ``keys`` in its MPN."""
+    delta = ABLATIONS["train/model_50_4"]
+    return {**delta, "MODEL": {**delta["MODEL"], "MPN": {**delta["MODEL"]["MPN"], **keys}}}
+
+
+def _edge_set(sets, width):
+    return {"MODEL": {"GC": {"EDGE_FEATURES_TO_USE": sets}, "MPN": {"EDGE_INPUT_DIM": width}}}
+
+
+# The JAX package's MPN and graph variants that no file of configs/ sets
+# (the architecture and graph ablations of the thesis code), as deltas over
+# model_58_4 in the JAX package's keys; the vanilla ones over
+# train/model_50_4. :func:`variant` merges one over a base. The layer
+# variants run on the kernel routes (config.layer_route says which form),
+# the graph variants on the segment route, VanillaMPN's on agnostic.
+VARIANTS = {
+    "edge_mlp_per_type": _mpn(EDGE_MLP="per_type"),
+    "update_hierarch": _mpn(UPDATE_TYPE="hierarch_mlp"),
+    "attn_per_type": _mpn(AGGR_SUB="node_edge_attn_per_type"),
+    "aggr_per_type": _mpn(AGGR_SUB="None"),
+    "node_steps": _mpn(NODE_STEPS=2),
+    "late_fusion": _mpn(LATE_FUSION_POS=True),
+    "angle": _edge_set(["position", "angle", "connection_type"], 20),
+    "ae_normed": _edge_set(["position", "connection_type", "ae_normed"], 20),
+    "knn_list": {"TPU": {"TARGET_MAJOR": False}},
+    "topk": {"MODEL": {"GC": {"GRAPH_TYPE": "topk"}}},
+    "feature_knn": {"MODEL": {"GC": {"GRAPH_TYPE": "feature_knn"}}},
+    "vanilla_per_type": _vanilla(EDGE_MLP="per_type"),
+    "vanilla_update_mlp": _vanilla(USE_NODE_UPDATE_MLP=True),
+    "vanilla_drop_dist": _vanilla(DROP_FEATURE="edge_dist"),
+}
+# and the values of the same keys that run on the small cut only: the
+# per-type aggregation by max and mean, the tag-distance sets alone
+VARIANT_CUTS = {
+    "aggr_max": _mpn(AGGR_SUB="None", AGGR="max"),
+    "aggr_mean": _mpn(AGGR_SUB="None", AGGR="mean"),
+    "ae": _edge_set(["ae"], 1),
+    "ae_normed_alone": _edge_set(["ae_normed"], 1),
+    "ae_tracking_1": _edge_set(["ae_tracking_1"], 1),
+}
+
+
+def variant(name: str, base=None):
+    """``base`` (the model_58_4 preset when None) with the delta ``name`` (a
+    key of :data:`VARIANTS` or :data:`VARIANT_CUTS`) merged over it."""
+    cfg = w32_512_train() if base is None else base
+    cfg.merge_from_other({**VARIANTS, **VARIANT_CUTS}[name])
     return cfg
 
 

@@ -7,12 +7,13 @@ Detection (NMS + per-type top-K) gives J*K padded nodes per image, or under
 to J*K; reference ConstructGraph.py:76-87); the
 target-major kNN builder gives C = k + cap_in in-edge slots per node, the
 other graphs of ``MODEL.GC.GRAPH_TYPE`` (fully connected, the root-joint
-graphs) an edge list of fixed length with a validity mask (ops.knn). The
-per-image graphs are flattened into one disjoint graph by offsetting node
-ids (reference: src/graph_constructor/ConstructGraph.py:221-231), so the MPN
-runs once over (B*N, B*E). Edge features are the sets of
-``MODEL.GC.EDGE_FEATURES_TO_USE`` that the files of configs/ use:
-position and connection type together or alone, or nothing.
+graphs, the per-type top-k graph, kNN among the node features, and the kNN
+graph itself with ``TPU.TARGET_MAJOR`` false) an edge list of fixed length
+with a validity mask (ops.knn). The per-image graphs are flattened into one
+disjoint graph by offsetting node ids (reference:
+src/graph_constructor/ConstructGraph.py:221-231), so the MPN runs once over
+(B*N, B*E). Edge features are the sets of ``MODEL.GC.EDGE_FEATURES_TO_USE``
+the JAX package builds (:func:`_edge_features`).
 
 Labels (reference ConstructGraph.py:577-942): an OKS-style similarity
 between every GT joint and every detection, thresholded at the matching
@@ -49,10 +50,13 @@ import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.detection import joint_det_from_scoremaps
 from pemp_tpu_torch.ops.knn import (
+    feature_knn_edges,
     fully_connected_edges,
+    knn_edges,
     knn_edges_target_major,
     score_based_edges,
     score_based_per_type_edges,
+    top_k_per_type_edges,
 )
 from pemp_tpu_torch.ops.matching import auction_assignment, greedy_assignment
 
@@ -72,6 +76,7 @@ class GCConfig:
     nodes_per_type: int = 40
     knn_k: int = 50
     knn_cap_in: int = 30
+    target_major: bool = True   # the kNN graph in blocks of C in-edge slots
     graph_type: str = "knn"
     pool_kernel: int = 3
     detect_threshold: float | None = 0.1
@@ -100,6 +105,7 @@ class GCConfig:
             nodes_per_type=config.TPU.NODES_PER_TYPE,
             knn_k=config.TPU.KNN_K,
             knn_cap_in=cap_in if cap_in > 0 else config.TPU.KNN_K,
+            target_major=bool(config.TPU.TARGET_MAJOR),
             graph_type=gc.GRAPH_TYPE,
             pool_kernel=gc.POOL_KERNEL_SIZE,
             detect_threshold=gc.DETECT_THRESHOLD if gc.DETECT_THRESHOLD <= 1.5 else None,
@@ -122,9 +128,9 @@ class GCConfig:
 
     @property
     def blocked(self) -> bool:
-        """Whether the edges come in target-major blocks (the kNN graph);
-        every other graph is an edge list."""
-        return self.graph_type == "knn"
+        """Whether the edges come in target-major blocks (the kNN graph
+        with ``target_major``); every other graph is an edge list."""
+        return self.graph_type == "knn" and self.target_major
 
     @property
     def slots(self) -> int:
@@ -165,16 +171,24 @@ class GraphBatch:
     class_mask: Any = None       # (N*,)
 
 
-def _build_edges(cfg: GCConfig, det, valid, scores):
+def _build_edges(cfg: GCConfig, det, valid, scores, node_feats):
     """The graph ``cfg.graph_type`` names, per image
     (pemp_tpu/graph/constructor.py:143-170): det (B, N, 3), valid and
-    scores (B, N). Returns edge_index (B, 2, E) and edge_valid (B, E)."""
+    scores (B, N), node_feats (B, N, F) the node features (``feature_knn``
+    reads them). Returns edge_index (B, 2, E) and edge_valid (B, E)."""
     pos = det[..., :2].float()
     kind = cfg.graph_type
     if kind == "knn":
-        return knn_edges_target_major(pos, valid, cfg.knn_k, cfg.knn_cap_in, cfg.knn_symmetric)
+        if cfg.target_major:
+            return knn_edges_target_major(pos, valid, cfg.knn_k, cfg.knn_cap_in,
+                                          cfg.knn_symmetric)
+        return knn_edges(pos, valid, cfg.knn_k)
     if kind == "fully":
         return fully_connected_edges(valid)
+    if kind == "feature_knn":
+        return feature_knn_edges(node_feats, valid, cfg.knn_k)
+    if kind == "topk":
+        return top_k_per_type_edges(pos, valid, det[..., 2], cfg.num_joints, 10)
     if kind == "score_based":
         return score_based_edges(pos, valid, scores, 75)
     if kind == "score_based_per_type":
@@ -183,49 +197,85 @@ def _build_edges(cfg: GCConfig, det, valid, scores):
     raise NotImplementedError(f"MODEL.GC.GRAPH_TYPE={kind!r}")
 
 
-def _edge_features(cfg: GCConfig, det, edge_index, hw):
-    """The edge features ``cfg.edge_features`` names, on the flat graph:
-    position offsets and the connection-type hot vector, either alone, or a
-    zero column for ``nothing``.
+# the edge-feature sets of the JAX package (pemp_tpu/graph/constructor.py:
+# 237-268), each as the columns it concatenates, in order
+_FEATURE_SETS = {
+    frozenset({"position", "connection_type"}): ("dx", "dy", "conn"),
+    frozenset({"connection_type"}): ("conn",),
+    frozenset({"position"}): ("dx", "dy"),
+    frozenset({"nothing"}): ("zero",),
+    frozenset({"position", "angle", "connection_type"}): ("dx", "dy", "theta", "conn"),
+    frozenset({"ae"}): ("tag_dist",),
+    frozenset({"ae_normed"}): ("ae_normed",),
+    frozenset({"ae_tracking_1"}): ("ae_tracking",),
+    frozenset({"position", "connection_type", "ae_normed"}): ("dx", "dy", "conn", "tag_dist"),
+}
 
-    reference: ConstructGraph.py:288-359 (pemp_tpu/graph/constructor.py:
-    173-269). det (N*, 3), edge_index (2, E*). Types are index arithmetic
-    on the type-blocked layout of detections (type(n) == (n // K) mod J),
-    and the nodes' own under ``use_gt`` (person-major GT joints). On the
-    blocked layout the target of slot s is s // C, so its row is a repeat;
-    on an edge list a gather. The angle and tag-distance sets wait for a
-    configuration that uses them.
+
+def _edge_features(cfg: GCConfig, det, scores, tags, edge_index, hw):
+    """The edge features ``cfg.edge_features`` names, on the flat graph
+    (reference: ConstructGraph.py:288-359; pemp_tpu/graph/constructor.py:
+    173-269): position offsets, the connection-type hot vector, the angle
+    of the offset, and the tag distance (the norm over the tag channels,
+    several under flip), alone or as the JAX package combines them
+    (:data:`_FEATURE_SETS`), or a zero column for ``nothing``.
+
+    det (N*, 3), scores (N*,), tags (N*,) or (N*, S), edge_index (2, E*).
+    Types are index arithmetic on the type-blocked layout of detections
+    (type(n) == (n // K) mod J), and the nodes' own under ``use_gt``
+    (person-major GT joints). On the blocked layout the target of slot s is
+    s // C, so its row is a repeat; on an edge list a gather. ``ae_normed``
+    alone is the rounded tag distance times 100 less the source's score.
     """
-    feats = set(cfg.edge_features)
+    feats = frozenset(cfg.edge_features)
+    if feats not in _FEATURE_SETS:
+        raise NotImplementedError(f"MODEL.GC.EDGE_FEATURES_TO_USE={list(cfg.edge_features)}")
     src, dst = edge_index[0].long(), edge_index[1].long()
     e = src.shape[0]
-    if feats == {"nothing"}:
+    columns = _FEATURE_SETS[feats]
+    if columns == ("zero",):
         return torch.zeros((e, 1), dtype=torch.float32, device=det.device)
-    if not feats or not feats <= {"position", "connection_type"}:
-        raise NotImplementedError(f"MODEL.GC.EDGE_FEATURES_TO_USE={list(cfg.edge_features)}")
+
+    def at_dst(x):
+        if cfg.blocked:
+            return torch.repeat_interleave(x, e // x.shape[0], dim=0)
+        return x[dst]
+
+    cols = {}
     norm = float(max(hw)) if cfg.norm_node_distance else 1.0
-    j = cfg.num_joints
     row = det[:, :2].float()
-    rs = row[src]
-    if cfg.blocked:
-        rd = torch.repeat_interleave(row, e // row.shape[0], dim=0)
-    else:
-        rd = row[dst]
-    dx = (rd[:, 0] - rs[:, 0]) / norm
-    dy = (rd[:, 1] - rs[:, 1]) / norm
-    if cfg.use_gt:
-        types = det[:, 2].long()
-        ts = types[src]
-        td = torch.repeat_interleave(types, e // types.shape[0]) if cfg.blocked else types[dst]
-    else:
-        ts, td = (src // cfg.nodes_per_type) % j, (dst // cfg.nodes_per_type) % j
-    hot_s, hot_d = F.one_hot(ts, j).float(), F.one_hot(td, j).float()
-    # a same-type edge keeps a single hot at its type (the reference sets
-    # the same position twice)
-    conn = torch.clamp(hot_s + hot_d, 0.0, 1.0)
-    parts = {"position": [dx[:, None], dy[:, None]], "connection_type": [conn]}
-    return torch.cat([p for name in ("position", "connection_type") if name in feats
-                      for p in parts[name]], dim=-1)
+    rs, rd = row[src], at_dst(row)
+    cols["dx"] = (rd[:, 0] - rs[:, 0]) / norm
+    cols["dy"] = (rd[:, 1] - rs[:, 1]) / norm
+    if "theta" in columns:
+        ax, ay = rs[:, 0] - rd[:, 0], rs[:, 1] - rd[:, 1]
+        denom = torch.sqrt(ax * ax + ay * ay)
+        cos = torch.where(denom > 0, ax / torch.clamp(denom, min=1e-12), torch.ones_like(ax))
+        cols["theta"] = torch.where(denom > 0, torch.abs(torch.arccos(cos)),
+                                    torch.zeros_like(ax))
+    if "conn" in columns:
+        j = cfg.num_joints
+        if cfg.use_gt:
+            types = det[:, 2].long()
+            ts, td = types[src], at_dst(types)
+        else:
+            ts, td = (src // cfg.nodes_per_type) % j, (dst // cfg.nodes_per_type) % j
+        # a same-type edge keeps a single hot at its type (the reference
+        # sets the same position twice)
+        cols["conn"] = torch.clamp(F.one_hot(ts, j).float() + F.one_hot(td, j).float(), 0.0, 1.0)
+    if {"tag_dist", "ae_normed", "ae_tracking"} & set(columns):
+        t2 = (tags if tags.dim() == 2 else tags[:, None]).float()
+        diff = at_dst(t2) - t2[src]
+        # the square root in float64, rounded once: with two tag channels
+        # (flip) a float32 root differs from XLA's in the last place on
+        # ~0.7 % of pairs, the float64 one on ~5e-6 of them (200,000 drawn
+        # pairs on the CPU), and ae_normed rounds the distance
+        dist = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=0.0).double()).float()
+        cols["tag_dist"] = dist
+        cols["ae_normed"] = torch.round(dist) * 100.0 - scores.float()[src]
+        cols["ae_tracking"] = (1.8425 - dist) / 1.8425
+    return torch.cat([cols[c] if cols[c].dim() == 2 else cols[c][:, None] for c in columns],
+                     dim=-1)
 
 
 def _similarity(det, det_valid, joints_gt, factors, hw):
@@ -537,7 +587,7 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
             cfg, det, scores, valid, sm, joints_gt)
     node_feats = _at(features, det)                         # (B, N, F)
     tags_at = _at(tagmaps, det, types=True)                 # (B, N[, S])
-    ei, ev = _build_edges(cfg, det, valid, scores)          # (B, 2, E), (B, E)
+    ei, ev = _build_edges(cfg, det, valid, scores, node_feats)   # (B, 2, E), (B, E)
     labels = None
     if joints_gt is not None:
         labels = _construct_labels(cfg, det, valid, ei, joints_gt, factors, (h, w), injected)
@@ -547,7 +597,8 @@ def construct_graph_batch(cfg: GCConfig, scoremaps, features, tagmaps, masks=Non
     det_flat = det.reshape(b * n, 3)
     gb = GraphBatch(
         x=node_feats.reshape(b * n, -1),
-        edge_attr=_edge_features(cfg, det_flat, edge_index, (h, w)),
+        edge_attr=_edge_features(cfg, det_flat, scores.reshape(b * n),
+                                 tags_at.reshape(b * n, *tags_at.shape[2:]), edge_index, (h, w)),
         edge_index=edge_index,
         joint_det=det_flat,
         joint_scores=scores.reshape(b * n),

@@ -3,25 +3,35 @@ pemp_tpu.models.mpn.layers).
 
 Module and parameter names follow the original reference
 (src/Models/MessagePassingNetwork/layers.py), so its ``state_dict`` keys
-load unchanged. The flagship ``TypeAwareMPNLayer`` is ported with an
-agnostic edge MLP, ``node_edge_attn`` aggregation, skip connections, the
-target-major blocked layout with type-blocked nodes and an ``mlp`` update,
-in the five forms of ``TPU.MSG_PASS``: the fused step (K1), and the split
-edge MLP followed by the typed message kernel (``pallas``: K2, backward
-K2b), by the reverse-permutation projection and the slim attention
-aggregation (``hybrid``: K3, backward K3b), by the same projection and the
-blocked aggregate (``einsum``: K4, backward K4b), or by the all-types
-projection and the blocked aggregate (``dots``). All five read the same
-parameters. The split forms gather the edge MLP's source rows through
-ops.gather_mm (G1 in the backward). On an edge list (every graph but the
-target-major kNN one) the layer's ``forward_segment`` runs the JAX
-package's unfused form of the same flagship layer. ``MPLayer`` is the
-type-agnostic layer (``MPN.AGGR_TYPE: agnostic``, VanillaMPN), on either
-layout. Neither of the last two runs a kernel: the JAX package computes
-them in plain XLA. Every layer computes in its input's dtype. The JAX
-package's other variants (the per-type edge MLP, ``AGGR_SUB`` other than
-``node_edge_attn``, the ``hierarch_mlp`` update, the node update MLP)
-wait for a configuration that sets them.
+load unchanged. The flagship ``TypeAwareMPNLayer`` runs on the
+target-major blocked layout with type-blocked nodes in the five forms of
+``TPU.MSG_PASS``: the fused step (K1), and the split edge MLP followed by
+the typed message kernel (``pallas``: K2, backward K2b), by the
+reverse-permutation projection and the slim attention aggregation
+(``hybrid``: K3, backward K3b), by the same projection and the blocked
+aggregate (``einsum``: K4, backward K4b), or by the all-types projection
+and the blocked aggregate (``dots``). All five read the same parameters.
+The split forms gather the edge MLP's source rows through ops.gather_mm
+(G1 in the backward). On an edge list (every graph but the target-major
+kNN one) the layer's ``forward_segment`` runs the JAX package's unfused
+form of the same layer. ``MPLayer`` is the type-agnostic layer
+(``MPN.AGGR_TYPE: agnostic``, VanillaMPN), on either layout. Neither of
+the last two runs a kernel: the JAX package computes them in plain XLA.
+Every layer computes in its input's dtype.
+
+The JAX package's layer variants, on every form they take there
+(config.layer_route says which): the per-type edge MLP
+(``MPN.EDGE_MLP: per_type``, :class:`TypeAwareEdgeUpdate`, on both
+layers), the skeleton-hierarchy update (``UPDATE_TYPE: hierarch_mlp``,
+:class:`HierarchUpdateMlp`), T attention heads
+(``AGGR_SUB: node_edge_attn_per_type``) or a plain per-type aggregation
+by ``MPN.AGGR`` (any other ``AGGR_SUB``), and MPLayer's node update MLP
+(``USE_NODE_UPDATE_MLP``). No reference converter or docstring records
+the reference's names of the per-type edge MLP and the hierarchical
+update, so theirs follow the JAX scopes: ``mlp_edge.layer_1`` and
+``mlp_edge.layer_2`` (``weight`` (T, Dout, Din), ``bias`` (T, Dout)),
+``mlp_edge.edge_layer``, ``mlp_edge.out``; ``update_mlp.first_{i}``,
+``update_mlp.second_{i}``, ``update_mlp.final``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from pemp_tpu_torch.ops.fused_step import fused_mpn_step
 from pemp_tpu_torch.ops.gather_mm import gather_plan, gather_rows_mm_or_plain
 from pemp_tpu_torch.ops.segment import (
     blocked_aggregate,
+    blocked_per_type_aggregate,
+    per_type_aggregate,
     per_type_attention_aggregate,
     segment_aggregate,
 )
@@ -275,10 +287,120 @@ def _split_edge_mlp(lin0, x, edges, pre):
 def _targets_part(lin, x, pre):
     """lin's weight columns for x_i (its first ``x.shape[1]``), projected
     per node and taken for each edge's target. Returns (E, Dout)."""
-    y = x @ lin.weight.to(x.dtype)[:, :x.shape[1]].t()
-    if pre["blocked_c"]:
-        return torch.repeat_interleave(y, pre["blocked_c"], dim=0)
+    return at_targets(x @ lin.weight.to(x.dtype)[:, :x.shape[1]].t(), pre, pre["src"].numel())
+
+
+def at_targets(y, pre, num_edges: int):
+    """Each edge's target row of the per-node ``y`` (N, D): a repeat over
+    the C slots of the blocked layout (``pre`` without ``dst``, or with
+    ``blocked_c``), else a gather by ``pre["dst"]``. Returns (E, D)."""
+    if pre.get("blocked_c") or "dst" not in pre:
+        return torch.repeat_interleave(y, num_edges // y.shape[0], dim=0)
     return y[pre["dst"]]
+
+
+def node_type_columns(types, num_types: int) -> dict:
+    """The per-node type columns the per-type edge MLP reads: ``node_type``
+    (N,) and ``node_order`` (:func:`type_order` of it), once per forward."""
+    return {"node_type": types.long(), "node_order": type_order(types, num_types)}
+
+
+class TypeAwareLinear(nn.Module):
+    """``num_types`` Linears, each row taking its type's
+    (pemp_tpu.models.mpn.layers.TypeAwareLinear): ``weight`` (T, Dout, Din)
+    in nn.Linear's layout, ``bias`` (T, Dout)."""
+
+    def __init__(self, num_types: int, din: int, dout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_types, dout, din))
+        self.bias = nn.Parameter(torch.zeros(num_types, dout))
+        for w in self.weight:
+            nn.init.kaiming_uniform_(w, a=5 ** 0.5)
+
+
+class TypeAwareEdgeUpdate(nn.Module):
+    """The per-type edge MLP (``MPN.EDGE_MLP: per_type`` or ``per_type_2``;
+    pemp_tpu.models.mpn.layers.TypeAwareEdgeUpdate, reference layers.py:
+    276-303): relu(out(relu([layer_1(x_i by the target's type),
+    layer_2(x_j by the source's type), edge_layer(e)]))), ``width``
+    (EDGE_FEATURE_HIDDEN) wide.
+
+    x_i and x_j are node rows, so both typed products are taken once a node
+    with its own type, (N, width), never an (E, T, width) tensor; and as
+    ``out`` is linear, its thirds on them are taken per node too, then
+    repeated over the target's slots and gathered by source. Only the edge
+    third is computed per edge."""
+
+    def __init__(self, num_types: int, node_in: int, edge_in: int, width: int):
+        super().__init__()
+        self.layer_1 = TypeAwareLinear(num_types, node_in, width)
+        self.layer_2 = TypeAwareLinear(num_types, node_in, width)
+        self.edge_layer = Linear(edge_in, width)
+        self.out = Linear(3 * width, width)
+
+    def node_terms(self, x, pre):
+        """out's first two thirds on the per-node typed products: (r_i,
+        r_j), (N, width) each; ``pre`` holds :func:`node_type_columns`."""
+        dt = x.dtype
+        h = self.out.weight.shape[0]
+        w = torch.cat([self.layer_1.weight, self.layer_2.weight], dim=1).to(dt)
+        b = torch.cat([self.layer_1.bias, self.layer_2.bias], dim=1).to(dt)
+        p = torch.relu(typed_projection(x, w, pre["node_order"]) + b[pre["node_type"]])
+        wo = self.out.weight.to(dt)
+        return p[:, :h] @ wo[:, :h].t(), p[:, h:] @ wo[:, h:2 * h].t()
+
+    def combine(self, r_i, r_j_src, e_pre, pre):
+        """The new edges from the per-node terms (r_j taken at each source)
+        and the edge layer's output before its ReLU. Returns (E, width)."""
+        dt = e_pre.dtype
+        h = self.out.weight.shape[0]
+        e_part = torch.relu(e_pre) @ self.out.weight.to(dt)[:, 2 * h:].t()
+        return torch.relu(e_part + self.out.bias.to(dt) + r_j_src
+                          + at_targets(r_i, pre, e_pre.shape[0]))
+
+    def forward(self, x, edges, pre):
+        """x (N, node_in), edges (E, edge_in); ``pre`` the plain routes'
+        index columns with :func:`node_type_columns`. Returns (E, width)."""
+        r_i, r_j = self.node_terms(x, pre)
+        return self.combine(r_i, r_j[pre["src"]], self.edge_layer(edges), pre)
+
+
+# the skeleton hierarchy of HierarchUpdateMlp (reference layers.py:89-128):
+# the type groups of the first level, COCO's order for 17 types and
+# CrowdPose's otherwise, and the pairs of first-level groups of the second
+_HIERARCHY = {
+    17: [(0, 1, 2, 3, 4), (5, 6), (7, 9), (8, 10), (11, 12), (13, 15), (14, 16)],
+    14: [(0, 1), (2, 3), (4, 6), (5, 7), (8, 9), (10, 12), (11, 13)],
+}
+_HIERARCHY_2 = [(0, 1), (1, 2), (1, 3), (1, 4), (4, 5), (4, 6)]
+
+
+class HierarchUpdateMlp(nn.Module):
+    """The skeleton-hierarchy update over the (N, T, D) per-type messages
+    (``MPN.UPDATE_TYPE: hierarch_mlp``; pemp_tpu.models.mpn.layers.
+    HierarchUpdateMlp): relu(first_i) over each group of types, relu(second_i)
+    over pairs of those, relu(final) over them all; D // 2 wide inside. The
+    JAX layer takes COCO's groups for 17 types and CrowdPose's for any
+    other count; the port has the two counts they are written for."""
+
+    def __init__(self, node_dim: int, num_types: int):
+        super().__init__()
+        half = node_dim // 2
+        self.order = _HIERARCHY[num_types]
+        for i, types in enumerate(self.order):
+            self.add_module(f"first_{i}", Linear(len(types) * node_dim, half))
+        for i in range(len(_HIERARCHY_2)):
+            self.add_module(f"second_{i}", Linear(2 * half, half))
+        self.final = Linear(len(_HIERARCHY_2) * half, node_dim)
+
+    def forward(self, update):
+        n = update.shape[0]
+        first = torch.stack([torch.relu(getattr(self, f"first_{i}")(update[:, list(t)]
+                                                                    .reshape(n, -1)))
+                             for i, t in enumerate(self.order)], dim=1)
+        second = [torch.relu(getattr(self, f"second_{i}")(first[:, list(pair)].reshape(n, -1)))
+                  for i, pair in enumerate(_HIERARCHY_2)]
+        return torch.relu(self.final(torch.cat(second, dim=1)))
 
 
 def edge_mlp(node_in: int, edge_in: int, edge_dim: int, edge_hidden: int):
@@ -295,36 +417,65 @@ def run_edge_mlp(mlp_edge, x, edges, pre):
     return torch.relu(mlp_edge[2](h))
 
 
+def _edge_module(node_in, edge_in, edge_dim, edge_hidden, num_types, kind):
+    """The layers' edge MLP ``mlp_edge`` by ``MPN.EDGE_MLP``: the agnostic
+    :func:`edge_mlp` (``edge_dim`` wide), or :class:`TypeAwareEdgeUpdate`
+    (``per_type``, ``per_type_2``: ``edge_hidden`` wide, as the JAX layer
+    builds it)."""
+    if kind == "agnostic":
+        return edge_mlp(node_in, edge_in, edge_dim, edge_hidden)
+    if kind in ("per_type", "per_type_2"):
+        return TypeAwareEdgeUpdate(num_types, node_in, edge_in, edge_hidden)
+    raise NotImplementedError(f"MPN EDGE_MLP={kind!r}")
+
+
+def new_edges(mlp_edge, x, edges, pre):
+    """The new edges of either edge MLP on the plain routes."""
+    if isinstance(mlp_edge, TypeAwareEdgeUpdate):
+        return mlp_edge(x, edges, pre)
+    return run_edge_mlp(mlp_edge, x, edges, pre)
+
+
 class MPLayer(nn.Module):
     """Type-agnostic message-passing layer (pemp_tpu.models.mpn.layers.
     MPLayer; reference layers.py:32-86): the edge MLP on [x_i, x_j, e]
-    (Sequential(Linear, ReLU, Linear, ReLU) as ``mlp_edge``), the message
-    relu(mlp_node([x_i, e'])) and ``aggr`` over each node's valid in-edges
+    (Sequential(Linear, ReLU, Linear, ReLU) as ``mlp_edge``, or the per-type
+    :class:`TypeAwareEdgeUpdate` with ``edge_mlp`` per_type), the message
+    relu(mlp_node([x_i, e'])), ``aggr`` over each node's valid in-edges
     (``add``, ``max``, ``mean``; blocked on the target-major layout, a
-    segment op on an edge list). State-dict names are the reference's
+    segment op on an edge list), and with ``use_node_update_mlp``
+    relu(update_mlp(.)). State-dict names are the reference's
     (pemp_tpu/train/convert.py:354-381). Products with x_i and x_j are
     taken per node and gathered."""
 
     def __init__(self, node_in: int, edge_in: int, node_dim: int, edge_dim: int,
-                 edge_hidden: int, aggr: str = "max"):
+                 edge_hidden: int, aggr: str = "max", edge_mlp: str = "agnostic",
+                 num_types: int = 17, use_node_update_mlp: bool = False):
         super().__init__()
         self.aggr = aggr
-        self.mlp_edge = edge_mlp(node_in, edge_in, edge_dim, edge_hidden)
-        self.mlp_node = nn.Sequential(Linear(node_in + edge_dim, node_dim), nn.ReLU())
+        self.mlp_edge = _edge_module(node_in, edge_in, edge_dim, edge_hidden, num_types,
+                                     edge_mlp)
+        width = edge_dim if edge_mlp == "agnostic" else edge_hidden
+        self.mlp_node = nn.Sequential(Linear(node_in + width, node_dim), nn.ReLU())
+        if use_node_update_mlp:
+            self.update_mlp = nn.Sequential(Linear(node_dim, node_dim), nn.ReLU())
 
     def forward(self, x, edges, pre):
         """x (N, node_in) nodes, edges (E, edge_in); ``pre`` the
         loop-invariant index columns (``src``, ``dst`` (E,) each edge's
         source and target, ``blocked_c`` (C, or 0 on an edge list),
-        ``valid``). Returns (new nodes (N, node_dim), new edges (E,
-        edge_dim))."""
+        ``valid``; with the per-type edge MLP :func:`node_type_columns`).
+        Returns (new nodes (N, node_dim), new edges (E, width))."""
         n = x.shape[0]
-        new_edge = run_edge_mlp(self.mlp_edge, x, edges, pre)
+        new_edge = new_edges(self.mlp_edge, x, edges, pre)
         lin = self.mlp_node[0]
         w = lin.weight.to(x.dtype)
         m = torch.relu(_targets_part(lin, x, pre) + new_edge @ w[:, x.shape[1]:].t()
                        + lin.bias.to(x.dtype))
-        return _aggregate(m, pre, n, self.aggr), new_edge
+        out = _aggregate(m, pre, n, self.aggr)
+        if hasattr(self, "update_mlp"):
+            out = self.update_mlp(out)
+        return out, new_edge
 
 
 class TypeAwareMPNLayer(nn.Module):
@@ -336,21 +487,70 @@ class TypeAwareMPNLayer(nn.Module):
 
     ``node_in`` / ``edge_in`` are the widths of the skip-concatenated node
     and edge inputs; ``init_edge_dim`` is the width of their loop-invariant
-    first half. The layer is the flagship's: agnostic edge MLP,
-    ``node_edge_attn`` aggregation, ``mlp`` update.
+    first half. The flagship's layer has the agnostic edge MLP,
+    ``node_edge_attn`` aggregation and the ``mlp`` update; ``edge_mlp``,
+    ``aggr_sub`` (with ``aggr``) and ``update_type`` take the JAX layer's
+    other values (module docstring). The fused step runs the flagship's
+    edge MLP and one attention head only, and K2 and K3 one head
+    (config.layer_route keeps the other variants off them).
     """
 
     def __init__(self, node_in: int, edge_in: int, init_edge_dim: int,
-                 node_dim: int, edge_dim: int, edge_hidden: int, num_types: int):
+                 node_dim: int, edge_dim: int, edge_hidden: int, num_types: int,
+                 edge_mlp: str = "agnostic", aggr: str = "add",
+                 aggr_sub: str = "node_edge_attn", update_type: str = "mlp"):
         super().__init__()
         self.node_in = node_in
         self.init_edge_dim = init_edge_dim
         self.num_types = num_types
         self.node_dim = node_dim
-        self.mlp_edge = edge_mlp(node_in, edge_in, edge_dim, edge_hidden)
-        self.mlp_node = _TypedNodeMLP(num_types, node_in + edge_dim, node_dim)
-        self.attn_net = nn.Sequential(Linear(edge_dim, 1))
-        self.update_mlp = nn.Sequential(Linear(num_types * node_dim, node_dim), nn.ReLU())
+        self.aggr = aggr
+        self.mlp_edge = _edge_module(node_in, edge_in, edge_dim, edge_hidden, num_types,
+                                     edge_mlp)
+        width = edge_dim if edge_mlp == "agnostic" else edge_hidden
+        self.mlp_node = _TypedNodeMLP(num_types, node_in + width, node_dim)
+        heads = {"node_edge_attn": 1, "node_edge_attn_per_type": num_types}.get(aggr_sub)
+        if heads:
+            self.attn_net = nn.Sequential(Linear(width, heads))
+        if update_type == "mlp":
+            self.update_mlp = nn.Sequential(Linear(num_types * node_dim, node_dim), nn.ReLU())
+        elif update_type == "hierarch_mlp":
+            self.update_mlp = HierarchUpdateMlp(node_dim, num_types)
+        else:
+            raise NotImplementedError(f"MPN UPDATE_TYPE={update_type!r}")
+
+    def _update(self, updates, dt):
+        """The node update on the (N, T, D) per-type messages, in ``dt``."""
+        u = updates.to(dt)
+        if isinstance(self.update_mlp, HierarchUpdateMlp):
+            return self.update_mlp(u)
+        return self.update_mlp(u.reshape(u.shape[0], -1))
+
+    def _typed_aggregate(self, m, new_edge, pre, num_nodes: int):
+        """The (N, T, D) per-type aggregate of the messages ``m`` (E, D):
+        the softmax of one attention head, or of each slot's source type's
+        head (``node_edge_attn_per_type``), within each (node, source type)
+        group, then the weighted sum (K4 on the blocked layout); or
+        ``MPN.AGGR`` over each group (plain: the JAX package has no Pallas
+        form of it). The scores drop their bias, one constant within each
+        group (a group's slots share their source type, so their head), as
+        the other routes' logits do."""
+        t, dt = self.num_types, m.dtype
+        src_type, valid = pre["src_type"], pre["valid"]
+        edge_list = "dst" in pre and not pre.get("blocked_c")
+        if not hasattr(self, "attn_net"):
+            if edge_list:
+                return per_type_aggregate(m, pre["dst"], src_type, num_nodes, t, self.aggr, valid)
+            return blocked_per_type_aggregate(m, src_type, num_nodes, t, self.aggr, valid)
+        scores = new_edge @ self.attn_net[0].weight.to(dt).t()          # (E, heads)
+        if scores.shape[1] == 1:
+            scores = scores[:, 0]
+        else:
+            scores = torch.gather(scores, 1, src_type.long()[:, None])[:, 0]
+        if edge_list:
+            return per_type_attention_aggregate(m, scores, pre["dst"], src_type, num_nodes, t,
+                                                valid)
+        return blocked_attn_aggregate(m.contiguous(), scores, src_type, num_nodes, t, valid)
 
     def step_weights(self, dtype):
         """Loop-invariant weight views for the fused step, in ``dtype``."""
@@ -392,8 +592,21 @@ class TypeAwareMPNLayer(nn.Module):
             sw["w_cur"], sw["w_e1"], sw["b_e1"], sw["we"], sw["w_attn"],
             n, self.num_types, pre["nodes_per_image"], plan=pre["gather_plan"],
         )
-        out = self.update_mlp(updates.reshape(n, -1).to(dt))
-        return out, new_edge
+        return self._update(updates, dt), new_edge
+
+    def split_invariants(self, init_nodes, init_edges, dtype):
+        """The loop-invariant halves of the split routes' edge MLP for the
+        stack whose initial features are ``init_nodes`` and ``init_edges``:
+        (q (E, H), the init-edge projection; init_proj (N, H), the init half
+        of the source projection, None for the per-type edge MLP, whose
+        node products are per node and type)."""
+        dn, dec = self.node_in, self.init_edge_dim
+        if isinstance(self.mlp_edge, TypeAwareEdgeUpdate):
+            lin = self.mlp_edge.edge_layer
+            return init_edges @ lin.weight.to(dtype)[:, :dec].t() + lin.bias.to(dtype), None
+        w0 = self.mlp_edge[0].weight.to(dtype)
+        q = init_edges @ w0[:, 2 * dn:2 * dn + dec].t()
+        return q, init_nodes @ w0[:, dn:dn + (dn - self.node_dim)].t()
 
     def _edge_mlp(self, x, q, init_proj, cur, pre):
         """The blocked split edge MLP of the JAX package
@@ -404,8 +617,17 @@ class TypeAwareMPNLayer(nn.Module):
         half is gathered by ``pre["src"]`` (E,) through
         ops.gather_mm.gather_rows_mm_or_plain with ``pre["n_img"]`` nodes an
         image and the forward's ``pre["gather_plan"]`` (None without a
-        gradient). Returns the new edge carry (E, De)."""
+        gradient). Returns the new edge carry (E, De). The per-type edge MLP
+        (:class:`TypeAwareEdgeUpdate`) takes its typed products per node,
+        gathers the source's through the same plan, and adds q (its edge
+        layer's init half with the bias) to the carry's half."""
         dt = x.dtype
+        if isinstance(self.mlp_edge, TypeAwareEdgeUpdate):
+            mlp = self.mlp_edge
+            r_i, r_j = mlp.node_terms(x, pre)
+            r_src = gather_rows_mm_or_plain(r_j, pre["src"], pre["n_img"], pre["gather_plan"])
+            e_pre = q + cur @ mlp.edge_layer.weight.to(dt)[:, self.init_edge_dim:].t()
+            return mlp.combine(r_i, r_src, e_pre, pre)
         dn, di = self.node_in, self.node_in - self.node_dim
         lin0, lin1 = self.mlp_edge[0], self.mlp_edge[2]
         w0 = lin0.weight.to(dt)
@@ -436,8 +658,7 @@ class TypeAwareMPNLayer(nn.Module):
         updates = fused_typed_message_aggregate(
             new_edge.contiguous(), a.contiguous(), pre["src_type"], pre["valid"],
             we.contiguous(), self.attn_net[0].weight.to(dt).t().contiguous(), n, t)
-        out = self.update_mlp(updates.reshape(n, -1).to(dt))
-        return out, new_edge
+        return self._update(updates, dt), new_edge
 
     def forward_hybrid(self, x, q, init_proj, cur, pre):
         """One step of the ``hybrid`` path (pemp_tpu/models/mpn/layers.py:
@@ -458,34 +679,28 @@ class TypeAwareMPNLayer(nn.Module):
         logits = logits.to(torch.promote_types(dt, torch.float32))
         updates = fused_attn_aggregate(b.contiguous(), a.contiguous(), pre["src_type"],
                                        pre["valid"], logits.contiguous(), n, self.num_types)
-        out = self.update_mlp(updates.reshape(n, -1).to(dt))
-        return out, new_edge
+        return self._update(updates, dt), new_edge
 
     def forward_einsum(self, x, q, init_proj, cur, pre):
         """One step of the ``einsum`` and ``dots`` paths
         (pemp_tpu/models/mpn/layers.py:627-676): messages by
-        :func:`type_aware_split_linear` and ReLU, the attention scores, then
-        K4 (``ops.blocked_attn``, backward K4b), all in x's dtype. The
-        scores drop their bias, which is constant within each softmax group
-        (its gradient is zero), as the other routes' logits do. On
-        ``einsum`` ``pre`` is as :meth:`forward_hybrid`'s; on ``dots`` it
-        has no ``rev_perm`` and the projection takes the all-types branch."""
+        :func:`type_aware_split_linear` and ReLU, then
+        :meth:`_typed_aggregate` (K4, backward K4b, for the attention
+        aggregations), all in x's dtype. On ``einsum`` ``pre`` is as
+        :meth:`forward_hybrid`'s; on ``dots`` it has no ``rev_perm`` and the
+        projection takes the all-types branch."""
         n, dt = x.shape[0], x.dtype
         new_edge = self._edge_mlp(x, q, init_proj, cur, pre)
         wn, bn = self.mlp_node.stacked()
         m = torch.relu(type_aware_split_linear(
             x, new_edge, pre["src_type"], wn.to(dt), bn.to(dt), pre.get("rev_perm"),
             *pre.get("blocks", (0, 0)), pre.get("type_sum_map"), pre.get("select_plans")))
-        scores = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0]
-        updates = blocked_attn_aggregate(m.contiguous(), scores, pre["src_type"], n,
-                                         self.num_types, pre["valid"])
-        out = self.update_mlp(updates.reshape(n, -1))
-        return out, new_edge
+        return self._update(self._typed_aggregate(m, new_edge, pre, n), dt), new_edge
 
     def forward_segment(self, x, edges, pre):
         """One step on an edge list (the ``segment`` route): the JAX
-        package's unfused layer (pemp_tpu/models/mpn/layers.py:526-533,
-        542-544, 630-676) in x's dtype. x (N, node_in), edges (E, edge_in)
+        package's unfused layer (pemp_tpu/models/mpn/layers.py:526-545,
+        630-676) in x's dtype. x (N, node_in), edges (E, edge_in)
         skip-concatenated; ``pre`` as MPLayer's, with ``src_type`` and
         ``type_order`` (:func:`type_order` of ``src_type``). The edge MLP's
         products with x_i and x_j, and the message's with x_i, are taken per
@@ -493,17 +708,11 @@ class TypeAwareMPNLayer(nn.Module):
         :func:`typed_projection`. Returns (new nodes (N, D), new edges)."""
         n, dt = x.shape[0], x.dtype
         dn = self.node_in
-        new_edge = run_edge_mlp(self.mlp_edge, x, edges, pre)
+        new_edge = new_edges(self.mlp_edge, x, edges, pre)
         wn, bn = self.mlp_node.stacked()                # (T, D, dn + De), (T, D)
         wn, bn = wn.to(dt), bn.to(dt)
         t = self.num_types
         a = torch.einsum("ni,toi->nto", x, wn[:, :, :dn]) + bn[None]
         a_sel = a.reshape(n * t, -1)[pre["dst"] * t + pre["src_type"]]
         m = torch.relu(a_sel + typed_projection(new_edge, wn[:, :, dn:], pre["type_order"]))
-        # without the bias, as the kernel routes: the head's bias is one
-        # constant within each (node, source type) softmax group, so the
-        # weights do not depend on it and its gradient is zero
-        scores = (new_edge @ self.attn_net[0].weight.to(dt).t())[:, 0]
-        updates = per_type_attention_aggregate(m, scores, pre["dst"], pre["src_type"], n, t,
-                                               pre["valid"])
-        return self.update_mlp(updates.reshape(n, -1)), new_edge
+        return self._update(self._typed_aggregate(m, new_edge, pre, n), dt), new_edge

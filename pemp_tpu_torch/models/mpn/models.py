@@ -35,7 +35,12 @@ TPU (pemp_tpu/models/pose_estimation.py:234-256) for the module's mode:
 (``pallas``: K2, differentiable through K2b) in training mode; ``pallas``
 (K2's bf16 form at eval), ``hybrid`` (K3, through K3b), ``einsum`` and
 ``dots`` (K4, through K4b) and ``fused_step`` (K1, through K2b, K1b and
-G1) run in both.
+G1) run in both. The layer variants of the flagship and VanillaMPN
+(models.mpn.layers) take the form config.defaults.layer_route gives them
+on that route, as the JAX layer does on a TPU: the per-type edge MLP takes
+K2 where the route names the fused step, an aggregation other than one
+attention head the split linear (``einsum``'s on the symmetric layout,
+``dots``' on the asymmetric one) with K4 or a plain per-type sum.
 The two reverse-permutation routes (``hybrid``, ``einsum``) read the
 reverse-edge involution of the symmetric layout, built once per forward;
 ``dots`` runs on the asymmetric layout, as ``pallas``. Where a gradient can
@@ -71,12 +76,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pemp_tpu_torch.config.defaults import AGNOSTIC_MPNS, PLAIN_ROUTES, msg_pass_route
+from pemp_tpu_torch.config.defaults import (
+    AGNOSTIC_MPNS,
+    PLAIN_ROUTES,
+    layer_route,
+    msg_pass_route,
+)
 from pemp_tpu_torch.models.mpn.layers import (
+    _HIERARCHY,
     MLP,
     Linear,
     MPLayer,
     TypeAwareMPNLayer,
+    node_type_columns,
     num_summary_types,
     split_linear_plans,
     sum_node_types,
@@ -85,21 +97,69 @@ from pemp_tpu_torch.models.mpn.layers import (
 from pemp_tpu_torch.ops.gather_mm import gather_plan
 from pemp_tpu_torch.ops.knn import reverse_edge_perm
 
-# the MPN keys' values the port implements, absent keys taking them: the
-# JAX package's other variants (the per-type edge MLP, the node update MLP,
-# VanillaMPN's dropped edge distances, the late-fused position MLP, node-only
-# steps but on the tag model) wait for a configuration that sets them
+# the MPN keys' values every model implements, absent keys taking them
 _PORTED = {"EDGE_MLP": "agnostic", "USE_NODE_UPDATE_MLP": False, "DROP_FEATURE": "",
            "LATE_FUSION_POS": False, "NODE_STEPS": 0}
 # and of the per-type layer on every route (attention aggregation, mlp update)
 _PER_TYPE_LAYER = {"AGGR_SUB": "node_edge_attn", "UPDATE_TYPE": "mlp"}
+# the flagship (and its background-class name) and VanillaMPN take the JAX
+# package's variants of these keys where the JAX model reads them
+# (:func:`_variant_values`); the other models, which no test holds with
+# them, keep the values above
+_FLAGSHIP = ("NodeClassificationMPN", "NodeClassificationMPNWithBackground")
 # the models whose layer is MPLayer (or, VanillaMPN2, a kernel-free one of
 # its own) whatever AGGR_TYPE says, and those that take NODE_STEPS
 _AGNOSTIC = (*AGNOSTIC_MPNS, "MPNTag")
 _NODE_STEPS = ("NodeClassificationMPNTag", "NodeClassificationMPNAttention",
-               "NodeClassificationMPNWithRef")
+               "NodeClassificationMPNWithRef", *_FLAGSHIP)
 # the baselines, which pass no message (pemp_tpu/models/mpn/models.py:461-508)
 _BASELINES = ("TagThreshold", "PlainTag", "LogisticEdgeClassifier")
+
+
+def _variant_values(name: str, agnostic: bool) -> dict:
+    """The values of :data:`_PORTED`'s keys model ``name`` runs beside the
+    defaults, where the JAX model reads the key: the per-type edge MLP on
+    the flagship's layers and VanillaMPN's MPLayer (``per_type_2`` the same
+    on the per-type layer; MPLayer raises on it), MPLayer's node update
+    MLP, the late-fused position MLP on the flagship and the group-based
+    model, VanillaMPN's dropped edge distances."""
+    values = {}
+    if name in _FLAGSHIP or name == "VanillaMPN":
+        values["EDGE_MLP"] = ("per_type",) if agnostic else ("per_type", "per_type_2")
+        if agnostic:
+            values["USE_NODE_UPDATE_MLP"] = (True,)
+    if name in _FLAGSHIP or name == "NodeClassificationMPNGroupBased":
+        values["LATE_FUSION_POS"] = (True,)
+    if name == "VanillaMPN":
+        values["DROP_FEATURE"] = ("edge_dist",)
+    return values
+
+
+def _check_per_type_layer(c: dict, name: str) -> None:
+    """The per-type layer's ``AGGR_SUB``, ``AGGR`` and ``UPDATE_TYPE``: on
+    the flagship any ``AGGR_SUB`` (the two attentions, else the per-type
+    aggregation by ``AGGR``: add, max, mean) and the ``mlp`` or
+    ``hierarch_mlp`` update (the latter at 17 or 14 types, the two counts
+    its hierarchy is written for); on the other models the values of
+    :data:`_PER_TYPE_LAYER`."""
+    if name not in _FLAGSHIP:
+        for key, value in _PER_TYPE_LAYER.items():
+            if c.get(key, value) != value:
+                raise NotImplementedError(f"MPN {key}={c.get(key)!r}: not ported on {name} "
+                                          f"({key}={value!r} is)")
+        return
+    sub = c.get("AGGR_SUB", "node_edge_attn")
+    if sub not in ("node_edge_attn", "node_edge_attn_per_type") and c.get("AGGR") not in (
+            "add", "max", "mean"):
+        raise NotImplementedError(f"MPN AGGR={c.get('AGGR')!r}: add, max or mean")
+    update = c.get("UPDATE_TYPE", "mlp")
+    if update not in ("mlp", "hierarch_mlp"):
+        raise NotImplementedError(f"MPN UPDATE_TYPE={update!r}: mlp or hierarch_mlp")
+    types = num_summary_types(c.get("NODE_TYPE_SUMMARY", "not"), c["NUM_JOINTS"])
+    if update == "hierarch_mlp" and types not in _HIERARCHY:
+        raise NotImplementedError(
+            f"MPN UPDATE_TYPE=hierarch_mlp at {types} types: its hierarchy is written for "
+            f"{sorted(_HIERARCHY)} (the JAX layer indexes CrowdPose's 14 for any count but 17)")
 
 
 def mpn_cfg_from_config(mpn_config) -> dict:
@@ -112,8 +172,9 @@ def mpn_cfg_from_config(mpn_config) -> dict:
 def _check_flagship(c: dict) -> None:
     """Raises ``NotImplementedError`` unless the port has the MPN ``c``
     asks for: a model of :func:`registry`, the values of :data:`_PORTED`
-    (``NODE_STEPS`` free on the models of :data:`_NODE_STEPS`), a known
-    aggregation type, the flagship's per-type layer, and on the kernel
+    and :func:`_variant_values` (``NODE_STEPS`` free on the models of
+    :data:`_NODE_STEPS`), a known aggregation type, the per-type layer's
+    values (:func:`_check_per_type_layer`), and on the kernel
     routes (``_PLAIN_ROUTE`` unset) skip connections and the blocked,
     type-blocked layout."""
     name = c.get("NAME")
@@ -148,11 +209,21 @@ def _check_flagship(c: dict) -> None:
             f"NodeClassificationMPNWithRef with NODE_STEPS={c['NODE_STEPS']}: its node stack's "
             f"edge width changes after one pass (the JAX model fails at the second)")
     agnostic = name in _AGNOSTIC or c["AGGR_TYPE"] == "agnostic"
-    ported = {k: v for k, v in _PORTED.items() if not (k == "NODE_STEPS" and name in _NODE_STEPS)}
-    for key, value in {**ported, **({} if agnostic else _PER_TYPE_LAYER)}.items():
-        if c.get(key, value) != value:
-            raise NotImplementedError(f"MPN {key}={c.get(key)!r}: not ported "
-                                      f"({key}={value!r} is)")
+    values = _variant_values(name, agnostic)
+    for key, default in _PORTED.items():
+        value = c.get(key, default)
+        if key == "NODE_STEPS" and name in _NODE_STEPS:
+            continue
+        if value != default and value not in values.get(key, ()):
+            raise NotImplementedError(f"MPN {key}={value!r}: not ported on {name} ({key}="
+                                      f"{(default, *values.get(key, ()))!r} are)")
+    if name == "VanillaMPN" and c.get("EDGE_MLP", "agnostic") != "agnostic" and c.get(
+            "NODE_TYPE_SUMMARY", "not") != "not":
+        raise NotImplementedError("VanillaMPN's per-type edge MLP with a NODE_TYPE_SUMMARY: the "
+                                  "JAX model types the sources by the summary and the targets "
+                                  "by the raw types")
+    if not agnostic:
+        _check_per_type_layer(c, name)
     if agnostic or c.get("_PLAIN_ROUTE"):
         return
     if not c.get("SKIP"):
@@ -162,11 +233,20 @@ def _check_flagship(c: dict) -> None:
         raise NotImplementedError("the flagship MPN needs the blocked, type-blocked layout")
 
 
+def edge_width(c: dict) -> int:
+    """The width of the edge carry the steps put out: ``EDGE_FEATURE_DIM``,
+    or ``EDGE_FEATURE_HIDDEN`` with the per-type edge MLP, whose output is
+    that wide (pemp_tpu/models/mpn/layers.py:542-544)."""
+    if c.get("EDGE_MLP", "agnostic") == "agnostic":
+        return c["EDGE_FEATURE_DIM"]
+    return c["EDGE_FEATURE_HIDDEN"]
+
+
 def _widths(c: dict, node_init: int | None = None, edge_init: int | None = None):
     """(node_in, edge_in) of a shared layer: with ``SKIP`` the step's
     inputs are its stack's initial features (the embeddings by default)
     concatenated with the carry."""
-    nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+    nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
     if c["SKIP"]:
         node_init = c["NODE_EMB"]["OUTPUT_SIZES"][-1] if node_init is None else node_init
         edge_init = c["EDGE_EMB"]["OUTPUT_SIZES"][-1] if edge_init is None else edge_init
@@ -180,31 +260,63 @@ def _type_aware_layer(c: dict, num_types: int, node_init=None, edge_init=None):
     return TypeAwareMPNLayer(
         node_in=node_in, edge_in=edge_in, init_edge_dim=init_edge,
         node_dim=c["NODE_FEATURE_DIM"], edge_dim=c["EDGE_FEATURE_DIM"],
-        edge_hidden=c["EDGE_FEATURE_HIDDEN"], num_types=num_types)
+        edge_hidden=c["EDGE_FEATURE_HIDDEN"], num_types=num_types,
+        edge_mlp=c.get("EDGE_MLP", "agnostic"), aggr=c.get("AGGR", "add"),
+        aggr_sub=c.get("AGGR_SUB", "node_edge_attn"), update_type=c.get("UPDATE_TYPE", "mlp"))
 
 
-def _mp_layer(c: dict, node_init=None, edge_init=None):
+def _mp_layer(c: dict, node_init=None, edge_init=None, num_types=None):
     node_in, edge_in = _widths(c, node_init, edge_init)
     return MPLayer(node_in, edge_in, c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"],
-                   c["EDGE_FEATURE_HIDDEN"], c["AGGR"])
+                   c["EDGE_FEATURE_HIDDEN"], c["AGGR"], edge_mlp=c.get("EDGE_MLP", "agnostic"),
+                   num_types=num_types or c["NUM_JOINTS"],
+                   use_node_update_mlp=c.get("USE_NODE_UPDATE_MLP", False))
 
 
 def _shared_layer(c: dict, num_types: int, node_init=None, edge_init=None):
     """The step's shared layer: an MPLayer for ``AGGR_TYPE: agnostic``
     (pemp_tpu/models/mpn/models.py:94-107), else the per-type layer."""
     if c["AGGR_TYPE"] == "agnostic":
-        return _mp_layer(c, node_init, edge_init)
+        return _mp_layer(c, node_init, edge_init, num_types)
     return _type_aware_layer(c, num_types, node_init, edge_init)
+
+
+class LateFusionEdgeMLP(nn.Module):
+    """The edge embedding with the position fused late
+    (``MPN.LATE_FUSION_POS``; pemp_tpu.models.mpn.models.LateFusionEdgeMLP,
+    reference NodeClassificationMPNSimple.py:7-21): an MLP ``pos_mlp`` on the
+    first two edge columns (the offsets) and one ``edge_mlp`` on the rest,
+    each half of ``EDGE_EMB``'s widths but the last, then ``out`` on relu of
+    both. Names are the JAX scopes (no converter records the
+    reference's)."""
+
+    def __init__(self, in_dim: int, output_sizes, bn: bool, end_with_relu: bool):
+        super().__init__()
+        single = [w // 2 for w in output_sizes[:-1]]
+        self.pos_mlp = MLP(2, single, bn, end_with_relu)
+        self.edge_mlp = MLP(in_dim - 2, single, bn, end_with_relu)
+        self.out = Linear(2 * single[-1], output_sizes[-1])
+
+    def forward(self, edge_attr, valid=None):
+        p = self.pos_mlp(edge_attr[:, :2], valid)
+        c = self.edge_mlp(edge_attr[:, 2:], valid)
+        return self.out(torch.relu(torch.cat([p, c], dim=-1)))
 
 
 def _embeddings(c: dict, bn=None, end=None):
     """(node_embedding, edge_embedding) MLPs: each with its own ``BN`` and
-    ``END_WITH_RELU``, or ``bn`` and ``end`` for both (VanillaMPN)."""
+    ``END_WITH_RELU``, or ``bn`` and ``end`` for both (VanillaMPN); with
+    ``LATE_FUSION_POS`` the edge embedding is :class:`LateFusionEdgeMLP`."""
     def mlp(key, in_dim):
         e = c[key]
         return MLP(c[in_dim], e["OUTPUT_SIZES"], e["BN"] if bn is None else bn,
                    e.get("END_WITH_RELU", False) if end is None else end)
-    return mlp("NODE_EMB", "NODE_INPUT_DIM"), mlp("EDGE_EMB", "EDGE_INPUT_DIM")
+    edge = mlp("EDGE_EMB", "EDGE_INPUT_DIM")
+    if c.get("LATE_FUSION_POS"):
+        e = c["EDGE_EMB"]
+        edge = LateFusionEdgeMLP(c["EDGE_INPUT_DIM"], e["OUTPUT_SIZES"], e["BN"],
+                                 e.get("END_WITH_RELU", False))
+    return mlp("NODE_EMB", "NODE_INPUT_DIM"), edge
 
 
 def plain_pre(c: dict, edge_index, edge_valid, types, num_types: int, per_type: bool) -> dict:
@@ -212,7 +324,8 @@ def plain_pre(c: dict, edge_index, edge_valid, types, num_types: int, per_type: 
     (pemp_tpu/models/mpn/models.py:124-148): each edge's source and target
     (the target a repeat on the blocked layout), validity, and with
     ``per_type`` the source types from ``types`` (N,) and their order for
-    the message projection."""
+    the message projection; with the per-type edge MLP the node types'
+    columns (layers.node_type_columns)."""
     blocked_c = c.get("_BLOCKED_C", 0)
     src = edge_index[0].long()
     if blocked_c:
@@ -224,6 +337,8 @@ def plain_pre(c: dict, edge_index, edge_valid, types, num_types: int, per_type: 
     if per_type:
         pre["src_type"] = types.long()[src]
         pre["type_order"] = type_order(pre["src_type"], num_types)
+    if c.get("EDGE_MLP", "agnostic") != "agnostic":
+        pre.update(node_type_columns(types, num_types))
     return pre
 
 
@@ -244,18 +359,26 @@ class _Steps(nn.Module):
 
     def _route(self, route):
         """The route of this forward: ``route`` when given, else
-        ``_MSG_PASS`` resolved for the module's mode (module docstring)."""
+        ``_MSG_PASS`` resolved for the module's mode (module docstring);
+        on a kernel route the form the layer's variant takes there
+        (config.defaults.layer_route)."""
         c = self.cfg
         plain = c.get("_PLAIN_ROUTE")
         why = "use_gt" if c.get("_GT_NODES") else (
             "group_based" if c["NAME"] == "NodeClassificationMPNGroupBased" else None)
         if route is None or (plain and route != plain):
-            return msg_pass_route(route or c.get("_MSG_PASS", "auto"), self.training, plain, why)
-        if not plain and route in PLAIN_ROUTES:
-            raise NotImplementedError(f"route {route!r}: this MPN runs the kernel routes")
-        if why:
-            msg_pass_route(route, self.training, None, why)   # refuses type-blocked routes
-        return route
+            route = msg_pass_route(route or c.get("_MSG_PASS", "auto"), self.training, plain,
+                                   why)
+        else:
+            if not plain and route in PLAIN_ROUTES:
+                raise NotImplementedError(f"route {route!r}: this MPN runs the kernel routes")
+            if why:
+                msg_pass_route(route, self.training, None, why)   # refuses type-blocked routes
+        if route in PLAIN_ROUTES:
+            return route
+        # the form the layer's variant takes there, as the JAX layer's
+        return layer_route(route, c.get("EDGE_MLP", "agnostic"),
+                           c.get("AGGR_SUB", "node_edge_attn"))
 
     def _pre(self, route, x, edge_index, edge_valid, edge_src_local, node_types):
         """The loop-invariant inputs of every step of ``route``
@@ -265,14 +388,15 @@ class _Steps(nn.Module):
         source gather's plan where a gradient can flow, and the
         projection's and the reverse permutation's columns."""
         c = self.cfg
+        types = None
+        if node_types is not None:
+            types = sum_node_types(c["NODE_TYPE_SUMMARY"], node_types.long())
+        typed_edges = c.get("EDGE_MLP", "agnostic") != "agnostic"
+        if types is None and (route == "segment" or typed_edges):
+            raise ValueError("the per-type layer and the per-type edge MLP need node_types")
         if route in PLAIN_ROUTES:
-            types = None
-            if node_types is not None:
-                types = sum_node_types(c["NODE_TYPE_SUMMARY"], node_types.long())
-            per_type = route == "segment"
-            if types is None and per_type:
-                raise ValueError("the per-type layer needs node_types")
-            return plain_pre(c, edge_index, edge_valid, types, self.num_types, per_type)
+            return plain_pre(c, edge_index, edge_valid, types, self.num_types,
+                             route == "segment")
         npt = c["_NODES_PER_TYPE"]
         e = edge_index.shape[1]
         if c.get("_GT_NODES"):
@@ -286,6 +410,8 @@ class _Steps(nn.Module):
         n = x.shape[0]
         n_img = c["NUM_JOINTS"] * npt
         grad = torch.is_grad_enabled()
+        if typed_edges:
+            pre.update(node_type_columns(types, self.num_types))
         if route == "fused_step":
             pre["src_local"] = edge_src_local.to(torch.int32).reshape(e)
             pre["nodes_per_image"] = n_img
@@ -343,10 +469,7 @@ class _Steps(nn.Module):
             return fused
         fn = {"pallas": layer.forward_typed, "hybrid": layer.forward_hybrid,
               "einsum": layer.forward_einsum, "dots": layer.forward_einsum}[route]
-        dn, dec = layer.node_in, layer.init_edge_dim
-        w0 = layer.mlp_edge[0].weight.to(dtype)
-        q = init_edges @ w0[:, 2 * dn:2 * dn + dec].t()
-        init_proj = init_nodes @ w0[:, dn:dn + (dn - layer.node_dim)].t()
+        q, init_proj = layer.split_invariants(init_nodes, init_edges, dtype)
 
         def split(nodes, edges, pre):
             return fn(torch.cat([init_nodes, nodes], dim=-1), q, init_proj, edges, pre)
@@ -362,7 +485,10 @@ class NodeClassificationMPN(_Steps):
     package's build_pose_model sets them, ``_MSG_PASS`` (``TPU.MSG_PASS``,
     ``auto`` when absent) and ``_PLAIN_ROUTE`` (config.defaults.plain_route;
     None for the kernel routes). ``AGGR_TYPE: agnostic`` makes the shared
-    layer an MPLayer (pemp_tpu/models/mpn/models.py:94-107).
+    layer an MPLayer (pemp_tpu/models/mpn/models.py:94-107). With
+    ``NODE_STEPS`` a second stack ``mpn_node``, its own weights on the
+    same route, takes the first's final features as its initial ones after
+    the edge head and feeds the node and class heads (:279, 310-314).
     """
 
     def __init__(self, mpn_cfg: dict):
@@ -371,7 +497,9 @@ class NodeClassificationMPN(_Steps):
         c = self.cfg
         self.node_embedding, self.edge_embedding = _embeddings(c)
         self.mpn_node_cls = _shared_layer(c, self.num_types)
-        nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+        nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
+        if c.get("NODE_STEPS", 0):
+            self.mpn_node = _shared_layer(c, self.num_types, nd, ed)
         self.edge_classification = MLP(ed, c["EDGE_CLASS"]["OUTPUT_SIZES"], c["BN"])
         self.node_classification = MLP(nd, c["NODE_CLASS"]["OUTPUT_SIZES"], c["BN"])
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])
@@ -383,11 +511,12 @@ class NodeClassificationMPN(_Steps):
         ids, edge_valid (E,), edge_src_local (E,) source ids within their
         image; ``dtype`` is the working type; ``node_valid`` (N,) masks the
         BatchNorm statistics in training; ``node_types`` (N,) the raw joint
-        types, which the kernel-free routes read (on the kernel routes'
-        type-blocked layout they are index arithmetic, but for the GT
-        joints of ``_GT_NODES``); ``joint_tags`` is read by the tag model
-        only. The route is ``route`` when given, else ``_MSG_PASS``
-        resolved for the module's mode (module docstring)."""
+        types, which the kernel-free routes and the per-type edge MLP read
+        (on the kernel routes' type-blocked layout the source types are
+        index arithmetic, but for the GT joints of ``_GT_NODES``);
+        ``joint_tags`` is read by the tag model only. The route is
+        ``route`` when given, else ``_MSG_PASS`` resolved for the module's
+        mode (module docstring)."""
         c = self.cfg
         route = self._route(route)
         pre = self._pre(route, x, edge_index, edge_valid, edge_src_local, node_types)
@@ -405,6 +534,10 @@ class NodeClassificationMPN(_Steps):
                     self.edge_classification(edge_features, edge_valid)[..., 0])
         if not self.training:
             preds["edge"].append(self.edge_classification(edge_features, edge_valid)[..., 0])
+        if c.get("NODE_STEPS", 0):
+            step = self._stepper(self.mpn_node, route, node_features, edge_features, dtype)
+            for _ in range(c["NODE_STEPS"]):
+                node_features, edge_features = step(node_features, edge_features, pre)
         preds["node"].append(self.node_classification(node_features, node_valid)[..., 0])
         preds["class"].append(self.classification(node_features, node_valid))
         return preds
@@ -560,17 +693,22 @@ class VanillaMPN(_Steps):
             c, c["BN"], c["NODE_EMB"].get("END_WITH_RELU", False))
         self.node_embedding = node_embedding
         self.mpn_node_cls = _mp_layer(c)
-        self.edge_classification = MLP(c["EDGE_FEATURE_DIM"], c["EDGE_CLASS"]["OUTPUT_SIZES"],
-                                       c["BN"])
+        self.edge_classification = MLP(edge_width(c), c["EDGE_CLASS"]["OUTPUT_SIZES"], c["BN"])
 
     def forward(self, x, edge_attr, edge_index, edge_valid, edge_src_local, dtype,
                 node_valid=None, route=None, node_types=None, joint_tags=None,
                 **unread):
         """As NodeClassificationMPN.forward, on the ``agnostic`` route
-        (``node_types`` is not read)."""
+        (``node_types`` is read by the per-type edge MLP only). With
+        ``DROP_FEATURE: edge_dist`` the first two edge columns (the
+        offsets) are zeroed (pemp_tpu/models/mpn/models.py:342-347)."""
         c = self.cfg
         route = self._route(route)
-        pre = self._pre(route, x, edge_index, edge_valid, edge_src_local, None)
+        typed = c.get("EDGE_MLP", "agnostic") != "agnostic"
+        pre = self._pre(route, x, edge_index, edge_valid, edge_src_local,
+                        node_types if typed else None)
+        if c.get("DROP_FEATURE") == "edge_dist":
+            edge_attr = torch.cat([torch.zeros_like(edge_attr[:, :2]), edge_attr[:, 2:]], dim=1)
         edge_features = self.edge_embedding(edge_attr.to(dtype), edge_valid)
         node_features = self.node_embedding(x.to(dtype), node_valid)
         step = self._stepper(self.mpn_node_cls, route, node_features, edge_features, dtype)

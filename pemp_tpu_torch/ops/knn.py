@@ -7,10 +7,11 @@ involution those two read. The other builders of the files of configs/
 give an edge list of static length with a validity mask (the reference's
 ``to_undirected + remove_self_loops`` by masking, ConstructGraph.py:
 376-381, 405-449): ``fully_connected_edges``, ``score_based_edges`` and
-``score_based_per_type_edges``. They take a batch axis: (B, N, ...) in,
-edge_index (B, 2, E) int32 and edge_valid (B, E) out, E the same for every
-image. The JAX package's edge-list kNN, feature kNN and per-type top-k
-builders wait for a configuration that runs them.
+``score_based_per_type_edges``, the kNN edge list ``knn_edges``
+(``TPU.TARGET_MAJOR`` false), ``feature_knn_edges`` (kNN among the node
+features) and ``top_k_per_type_edges`` (the k nearest of every type). They
+take a batch axis: (B, N, ...) in, edge_index (B, 2, E) int32 and
+edge_valid (B, E) out, E the same for every image.
 
 Convention as in the reference MPN: ``edge_index[0]`` is the message
 source j, ``edge_index[1]`` the target i (reference layers.py:210).
@@ -19,7 +20,9 @@ Tie order is part of the contract: detections sit on integer pixels, so
 equal distances are common. ``lax.top_k(-d2)`` takes the lower index first,
 which a stable ascending sort on ``d2`` reproduces (and ``lax.top_k(s)`` a
 stable descending sort on ``s``); the transpose edges are placed by a
-stable sort on the target id.
+stable sort on the target id. The masking sums (``BIG`` added to the
+distances of invalid or excluded pairs) are taken in the JAX package's
+order in float32, so that the padded slots' indices tie and order alike.
 """
 
 from __future__ import annotations
@@ -32,6 +35,85 @@ BIG = 1e9
 def pairwise_dist2(pos: torch.Tensor) -> torch.Tensor:
     diff = pos[..., :, None, :] - pos[..., None, :, :]
     return torch.sum(diff * diff, dim=-1)
+
+
+def _masked_dist2(d2, valid, sources: bool):
+    """``d2`` (B, N, N) + BIG on the invalid columns (and with ``sources``
+    on the invalid rows) + BIG on the diagonal, in that order."""
+    n = d2.shape[-1]
+    zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
+    big = torch.full((), BIG, dtype=d2.dtype, device=d2.device)
+    d2 = d2 + torch.where(~valid[:, None, :], big, zero)
+    if sources:
+        d2 = d2 + torch.where(~valid[:, :, None], big, zero)
+    return d2 + torch.eye(n, dtype=d2.dtype, device=d2.device) * BIG
+
+
+def _nearest(d2, k: int):
+    """(distances, indices) of the k smallest along the last axis, lower
+    index first among equals (``lax.top_k(-d2, k)``)."""
+    d, idx = torch.sort(d2, dim=-1, stable=True)
+    return d[..., :k], idx[..., :k]
+
+
+def knn_edges(pos: torch.Tensor, valid: torch.Tensor, k: int):
+    """The kNN graph as an edge list (pemp_tpu.ops.knn.knn_edges;
+    reference ConstructGraph.py:363-368): each node's k nearest valid
+    nodes (euclidean on (B, N, D) positions, no self loops) as a forward
+    block source-major (edge s * k + m is s -> its m-th neighbour), then
+    the reverse of each, invalid where the pair is mutual (the forward
+    block holds it) or touches an invalid node. Returns edge_index
+    (B, 2, 2*N*k) int32, edge_valid (B, 2*N*k)."""
+    b, n = valid.shape
+    k = min(k, max(n - 1, 1))
+    d2 = _masked_dist2(pairwise_dist2(pos.float()), valid, True)
+    d, nbr = _nearest(d2, k)                                       # (B, N, k)
+    fwd_valid = valid[:, :, None] & _gather(valid, nbr) & (d < BIG / 2)
+    src = torch.arange(n, device=pos.device)[None, :, None].expand(b, n, k)
+    # mutual: s is among the neighbours of its neighbour, whose forward
+    # edge to s the reverse copy would duplicate
+    nbr_of_nbr = torch.gather(nbr, 1, nbr.reshape(b, n * k, 1).expand(b, n * k, k))
+    mutual = (nbr_of_nbr.reshape(b, n, k, k) == src[..., None]).any(-1)
+    return _forward_and_reverse(src, nbr, fwd_valid, fwd_valid & ~mutual)
+
+
+def feature_knn_edges(features: torch.Tensor, valid: torch.Tensor, k: int):
+    """kNN in the space of the node features (B, N, F), cast to float32
+    (pemp_tpu.ops.knn.feature_knn_edges; reference ConstructGraph.py:
+    370-374): :func:`knn_edges` on them. The squared distances sum F
+    products, in another order than XLA's, so two candidates within
+    float32 rounding of each other can trade places. The (B, N, N, F)
+    differences are taken one image at a time."""
+    parts = [knn_edges(features[i:i + 1].float(), valid[i:i + 1], k)
+             for i in range(features.shape[0])]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def top_k_per_type_edges(pos: torch.Tensor, valid: torch.Tensor, types: torch.Tensor,
+                         num_types: int, k: int):
+    """Each node to its k nearest of every type (pemp_tpu.ops.knn.
+    top_k_per_type_edges; reference ConstructGraph.py:383-403, k = 10): the
+    forward block node-major, then type-major, then by distance (edge
+    (s * T + t) * k + m is s -> its m-th nearest node of type t), then its
+    reverse, invalid where mutual. pos (B, N, 2), valid and types (B, N).
+    Returns edge_index (B, 2, 2*N*T*k) int32, edge_valid."""
+    b, n = valid.shape
+    dev = pos.device
+    d2 = _masked_dist2(pairwise_dist2(pos.float()), valid, False)
+    other = types.long()[:, None, :] != torch.arange(num_types, device=dev)[None, :, None]
+    zero = torch.zeros((), dtype=d2.dtype, device=dev)
+    big = torch.full((), BIG, dtype=d2.dtype, device=dev)
+    d2t = d2[:, :, None, :] + torch.where(other, big, zero)[:, None]      # (B, N, T, N)
+    d, nbr = _nearest(d2t.reshape(b, n * num_types, n), k)              # (B, N*T, k)
+    src = torch.arange(n, device=dev).repeat_interleave(num_types)[None, :, None]
+    src = src.expand(b, n * num_types, k)
+    fwd_valid = (d < BIG / 2) & _gather(valid, src) & _gather(valid, nbr)
+    # mutual: s is among the per-type neighbours of its neighbour
+    nbr_flat = nbr.reshape(b, n, num_types * k).to(torch.int32)
+    tk = num_types * k
+    of_dst = torch.gather(nbr_flat, 1, nbr.reshape(b, -1, 1).expand(b, n * tk, tk))
+    mutual = (of_dst.reshape(b, n * num_types, k, tk) == src[..., None]).any(-1)
+    return _forward_and_reverse(src, nbr, fwd_valid, fwd_valid & ~mutual)
 
 
 def knn_edges_target_major(pos: torch.Tensor, valid: torch.Tensor, k: int,

@@ -4,12 +4,15 @@ the reference's torch_scatter calls, layers.py:5, 234-251).
 The segment ops take edges as a list with a fixed number of segments and a
 validity mask (invalid rows contribute nothing, an empty segment gives 0):
 ``segment_sum``, ``segment_max``, ``segment_mean``, ``segment_softmax``,
-``segment_aggregate``, and the per-(target, source type) form
-``per_type_attention_aggregate`` over the combined index ``target * T +
-type``. They run on the edge-list routes, where the JAX package computes
-them in plain XLA. The blocked forms (``blocked_aggregate``,
+``segment_aggregate``, and the per-(target, source type) forms
+``per_type_aggregate`` and ``per_type_attention_aggregate`` over the
+combined index ``target * T + type``. They run on the edge-list routes,
+where the JAX package computes them in plain XLA. The blocked forms
+(``blocked_aggregate``, ``blocked_per_type_aggregate``,
 ``blocked_per_type_attention_aggregate``) reduce the target-major layout's
-C slots of each node densely.
+C slots of each node densely. The per-type sums by ``MPN.AGGR``
+(``AGGR_SUB`` other than an attention) are plain on every device: the JAX
+package has no Pallas form of them.
 
 ``blocked_per_type_attention_aggregate`` is also the plain version of K4
 (``ops.blocked_attn``), the einsum and dots message paths' aggregate on
@@ -85,6 +88,15 @@ def segment_aggregate(data, segment_ids, num_segments: int, kind: str, valid=Non
     return ops[kind](data, segment_ids, num_segments, valid)
 
 
+def per_type_aggregate(data, target_ids, source_types, num_nodes: int, num_types: int,
+                       kind: str, valid=None):
+    """``kind`` (``MPN.AGGR``) over each (target, source type) group of
+    valid edges: data (E, D) -> (N, T, D) (pemp_tpu/ops/segment.py:74-85)."""
+    combined = target_ids.long() * num_types + source_types.long()
+    out = segment_aggregate(data, combined, num_nodes * num_types, kind, valid)
+    return out.reshape(num_nodes, num_types, data.shape[-1])
+
+
 def per_type_attention_aggregate(data, attn_scores, target_ids, source_types,
                                  num_nodes: int, num_types: int, valid=None):
     """Softmax of ``attn_scores`` (E,) within each (target, source type)
@@ -116,6 +128,31 @@ def blocked_aggregate(data, num_nodes: int, kind: str, valid=None):
         total = torch.where(v, x, torch.zeros_like(x)).sum(dim=1)
         return total / v.sum(dim=1).to(x.dtype).clamp_min(1.0)
     raise NotImplementedError(f"MPN.AGGR={kind!r}")
+
+
+def blocked_per_type_aggregate(data, source_types, num_nodes: int, num_types: int, kind: str,
+                               valid=None):
+    """(N*C, D) in the target-major layout -> (N, T, D): ``kind`` over each
+    node's valid slots of each source type, 0 for none (the mean's count
+    clamped at 1) (pemp_tpu/ops/segment.py:147-169). The sums are one-hot
+    products as the JAX package's; the maximum is a scatter over the
+    (node, type) groups, where the JAX package builds an (N, C, T, D)
+    tensor."""
+    d = data.shape[-1]
+    c = data.shape[0] // num_nodes
+    t = source_types.reshape(num_nodes, c).long()
+    if kind == "max":
+        node = torch.arange(num_nodes, device=data.device).repeat_interleave(c)
+        return per_type_aggregate(data, node, t.reshape(-1), num_nodes, num_types, "max", valid)
+    if kind not in ("add", "mean"):
+        raise NotImplementedError(f"MPN.AGGR={kind!r}")
+    hot = (t[:, :, None] == torch.arange(num_types, device=data.device)).to(data.dtype)
+    if valid is not None:
+        hot = hot * (valid.reshape(num_nodes, c, 1) != 0).to(data.dtype)
+    out = torch.einsum("nct,ncd->ntd", hot, data.reshape(num_nodes, c, d))
+    if kind == "mean":
+        out = out / hot.sum(dim=1).clamp_min(1.0)[..., None]
+    return out
 
 
 def blocked_per_type_attention_aggregate(m, attn, types, num_nodes: int, num_types: int,

@@ -1,6 +1,6 @@
 """Where the main path's time goes on the card, stage by stage.
 
-    python -m pemp_tpu_torch.profile_main_path [--msg-pass ROUTE]
+    python -m pemp_tpu_torch.profile_main_path [--msg-pass ROUTE] [--variant NAME]
 
 Runs the w48/640 eval pipeline at batch 8 (bf16, seeded random weights),
 with ``TPU.MSG_PASS`` set to ROUTE (auto, fused_step, pallas, hybrid,
@@ -10,7 +10,9 @@ gather, graph construction, MPN, decode; the heatmap resize and slicing
 count to the graph stage) and prints each stage's median time over 5
 forwards and their peak device memory, then ``torch.profiler``'s device
 time per kernel over one forward. Needs a CUDA
-card; it does not run on the CPU.
+card; it does not run on the CPU. ``--variant`` merges one of
+config.VARIANTS (the JAX package's MPN and graph variants) over the
+configuration.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import subprocess
 import numpy as np
 import torch
 
-from pemp_tpu_torch.config import w48_640
+from pemp_tpu_torch.config import variant, w48_640
 from pemp_tpu_torch.pipeline import BATCH, INPUT_SIZE, build_pipeline
 
 ITERS = 5
@@ -54,6 +56,7 @@ def _stages(pipe, images):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Stage times of the w48/640 eval path on the card")
     p.add_argument("--msg-pass", default="auto", help="TPU.MSG_PASS for the MPN")
+    p.add_argument("--variant", default=None, help="a key of config.VARIANTS to merge")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -61,7 +64,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    cfg = w48_640()
+    cfg = w48_640() if args.variant is None else variant(args.variant, w48_640())
     cfg.TPU.MSG_PASS = args.msg_pass
     pipe = build_pipeline(BATCH, INPUT_SIZE, dtype=torch.bfloat16, device="cuda", cfg=cfg)
     gen = torch.Generator().manual_seed(0)
@@ -72,7 +75,7 @@ def main(argv=None) -> None:
         runs = [_stages(pipe, images) for _ in range(ITERS)]
         total = [sum(r.values()) for r in runs]
         print(f"card: {card}; w48/{INPUT_SIZE} batch {BATCH} bf16, MSG_PASS "
-              f"{args.msg_pass}, median of {ITERS}")
+              f"{args.msg_pass}, variant {args.variant}, median of {ITERS}")
         for k in runs[0]:
             ms = float(np.median([r[k] for r in runs]))
             print(f"  {k:9s} {ms:9.3f} ms  {100 * ms / np.median(total):5.1f} %")

@@ -1,6 +1,6 @@
 """Where a model_58_4 training step's time goes on the card, stage by stage.
 
-    python -m pemp_tpu_torch.profile_train_step [--msg-pass ROUTE]
+    python -m pemp_tpu_torch.profile_train_step [--msg-pass ROUTE] [--variant NAME]
 
 Trains model_58_4 (HigherHRNet-w32 at 512, batch 8, f32, seeded random
 weights, synthetic batches made before timing), with ``TPU.MSG_PASS`` set
@@ -13,6 +13,8 @@ Prints each stage's median over 3 steps after a warm-up and their peak
 device memory, then ``torch.profiler``'s device time per kernel over one
 step and per autograd backward node (``IndexBackward0``: the plain
 gathers' backward). Needs a CUDA card; it does not run on the CPU.
+``--variant`` merges one of config.VARIANTS (the JAX package's MPN and
+graph variants) over the configuration.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import subprocess
 import numpy as np
 import torch
 
-from pemp_tpu_torch.config import w32_512_train
+from pemp_tpu_torch.config import variant, w32_512_train
 from pemp_tpu_torch.data.synthetic import make_batch
 from pemp_tpu_torch.graph import constructor
 from pemp_tpu_torch.train.train_step import batch_to_torch, build_trainer
@@ -83,6 +85,7 @@ def _step(trainer, batch):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Stage times of a model_58_4 training step")
     p.add_argument("--msg-pass", default="auto", help="TPU.MSG_PASS for the MPN")
+    p.add_argument("--variant", default=None, help="a key of config.VARIANTS to merge")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -90,7 +93,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
-    cfg = w32_512_train()
+    cfg = w32_512_train() if args.variant is None else variant(args.variant, w32_512_train())
     cfg.TPU.MSG_PASS = args.msg_pass
     bs, size = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.INPUT_SIZE
     rng = np.random.RandomState(0)
@@ -103,6 +106,7 @@ def main(argv=None) -> None:
     runs = [_step(trainer, b) for b in batches[1:STEPS + 1]]
     total = [sum(r.values()) for r in runs]
     print(f"card: {card}; model_58_4 w32/{size} batch {bs} f32, MSG_PASS {args.msg_pass}, "
+          f"variant {args.variant}, "
           f"median of {STEPS} steps")
     for k in runs[0]:
         ms = float(np.median([r[k] for r in runs]))

@@ -18,7 +18,12 @@ and ``convert_hourglass_state_dict`` (their layout maps, inverted here):
 and the fused MPN layer's stacked ``mlp_node`` kernel (T, din, dout) becomes
 the reference's T separate Linears. The MPN is any of the port's
 (models.mpn.models.registry: the flagship's family, the baselines and the
-research zoo).
+research zoo), with the JAX package's layer variants: the per-type edge
+MLP's ``layer_1`` and ``layer_2`` kernels (T, din, dout) become weights
+(T, dout, din), and the hierarchical update, the late-fused edge
+embedding, MPLayer's update MLP, the T-headed attention and the flagship's
+``mpn_node`` stack carry under their JAX scopes' names
+(models.mpn.layers, models.mpn.models.LateFusionEdgeMLP).
 """
 
 from __future__ import annotations
@@ -31,12 +36,18 @@ from pemp_tpu_torch.models.hrnet import HRNetSpec
 from pemp_tpu_torch.models.mpn import zoo
 from pemp_tpu_torch.models.mpn.layers import (
     MLP,
+    HierarchUpdateMlp,
     Linear,
     MaskedBatchNorm,
     MPLayer,
+    TypeAwareEdgeUpdate,
     TypeAwareMPNLayer,
 )
-from pemp_tpu_torch.models.mpn.models import get_mpn_model, mpn_cfg_from_config
+from pemp_tpu_torch.models.mpn.models import (
+    LateFusionEdgeMLP,
+    get_mpn_model,
+    mpn_cfg_from_config,
+)
 
 
 def _get(tree, path):
@@ -176,27 +187,56 @@ def _mlp(cr, key, path, mlp):
             cr.bn(f"{key}.{seq}", (*path, f"bn{i}" if i < n - 1 else "bn_end"))
 
 
-def _mp_layer(cr, key, path):
+def _edge_mlp(cr, key, path, module):
+    """The layers' ``mlp_edge``: the agnostic MLP's ``mlp_edge_0`` /
+    ``mlp_edge_1`` onto the reference's Sequential(Linear, ReLU, Linear,
+    ReLU), or the per-type edge MLP's scope ``mlp_edge``."""
+    if isinstance(module, TypeAwareEdgeUpdate):
+        for part in ("layer_1", "layer_2"):
+            kernel = _get(cr.params, (*path, "mlp_edge", part, "kernel"))
+            cr.put(f"{key}.mlp_edge.{part}.weight", np.transpose(kernel, (0, 2, 1)))
+            cr.put(f"{key}.mlp_edge.{part}.bias", _get(cr.params, (*path, "mlp_edge", part,
+                                                                    "bias")))
+        for part in ("edge_layer", "out"):
+            cr.linear(f"{key}.mlp_edge.{part}", (*path, "mlp_edge", part))
+        return
+    cr.linear(f"{key}.mlp_edge.0", (*path, "mlp_edge_0"))
+    cr.linear(f"{key}.mlp_edge.2", (*path, "mlp_edge_1"))
+
+
+def _update_mlp(cr, key, path, module):
+    """``update_mlp``: one Linear (the reference's Sequential(Linear, ReLU))
+    or the hierarchical update's ``first_i``, ``second_i`` and ``final``."""
+    if isinstance(module, HierarchUpdateMlp):
+        for name, _ in module.named_children():
+            cr.linear(f"{key}.update_mlp.{name}", (*path, "update_mlp", name))
+        return
+    cr.linear(f"{key}.update_mlp.0", (*path, "update_mlp"))
+
+
+def _mp_layer(cr, key, path, layer):
     """MPLayer (reference layers.py:32-86; pemp_tpu/train/convert.py:
-    354-381): ``mlp_edge_0`` / ``mlp_edge_1`` onto the reference's
-    Sequential(Linear, ReLU, Linear, ReLU), and ``mlp_node.0``."""
-    cr.linear(f"{key}.mlp_edge.0", (*path, "mlp_edge_0"))
-    cr.linear(f"{key}.mlp_edge.2", (*path, "mlp_edge_1"))
+    354-381): the edge MLP, ``mlp_node.0`` and the optional
+    ``update_mlp.0``."""
+    _edge_mlp(cr, key, path, layer.mlp_edge)
     cr.linear(f"{key}.mlp_node.0", (*path, "mlp_node"))
+    if hasattr(layer, "update_mlp"):
+        _update_mlp(cr, key, path, layer.update_mlp)
 
 
-def _type_aware_layer(cr, key, path):
+def _type_aware_layer(cr, key, path, layer):
     """TypeAwareMPNLayer: the edge MLP, the stacked ``mlp_node`` as T
-    Linears, the attention head and the update."""
-    cr.linear(f"{key}.mlp_edge.0", (*path, "mlp_edge_0"))
-    cr.linear(f"{key}.mlp_edge.2", (*path, "mlp_edge_1"))
+    Linears, the attention head (one output, or one a type) and the
+    update."""
+    _edge_mlp(cr, key, path, layer.mlp_edge)
     kernel = _get(cr.params, (*path, "mlp_node", "kernel"))
     bias = _get(cr.params, (*path, "mlp_node", "bias"))
     for t in range(kernel.shape[0]):
         cr.put(f"{key}.mlp_node.mlp.{t}.0.weight", kernel[t].T)
         cr.put(f"{key}.mlp_node.mlp.{t}.0.bias", bias[t])
-    cr.linear(f"{key}.attn_net.0", (*path, "attn_net"))
-    cr.linear(f"{key}.update_mlp.0", (*path, "update_mlp"))
+    if hasattr(layer, "attn_net"):
+        cr.linear(f"{key}.attn_net.0", (*path, "attn_net"))
+    _update_mlp(cr, key, path, layer.update_mlp)
 
 
 def _vanilla_layer2(cr, key, path):
@@ -227,9 +267,13 @@ def _carry(cr, key, path, module):
     if isinstance(module, MLP):
         _mlp(cr, key, path, module)
     elif isinstance(module, MPLayer):
-        _mp_layer(cr, key, path)
+        _mp_layer(cr, key, path, module)
     elif isinstance(module, TypeAwareMPNLayer):
-        _type_aware_layer(cr, key, path)
+        _type_aware_layer(cr, key, path, module)
+    elif isinstance(module, LateFusionEdgeMLP):
+        _mlp(cr, f"{key}.pos_mlp", (*path, "pos_mlp"), module.pos_mlp)
+        _mlp(cr, f"{key}.edge_mlp", (*path, "edge_mlp"), module.edge_mlp)
+        cr.linear(f"{key}.out", (*path, "out"))
     elif isinstance(module, Linear):
         cr.linear(key, path)
     elif isinstance(module, zoo._VanillaMPLayer2):

@@ -3,8 +3,10 @@ graphs that the files of configs/ run, port against JAX package: the
 builders and features exactly on tie-heavy detections (integer pixels,
 repeated scores), the segment ops within 1e-6 with their gradients,
 connected components on an edge list, and graph construction with labels
-on an edge list exactly. The graphs and feature sets no configuration
-runs are refused."""
+on an edge list exactly. The graphs and feature sets no file of configs/
+runs, held against the JAX package in test_torch_variants_graph.py, load
+and build here; a graph type or feature set that neither package builds
+is refused by name."""
 
 import jax
 import jax.numpy as jnp
@@ -98,8 +100,8 @@ def test_edge_features_exact(feats, layout):
               **graph)
     want = jax_edge_features(JaxGCConfig(**kw), jnp.asarray(det), jnp.asarray(scores),
                              jnp.asarray(tags), ei, (20, 24))
-    got = _edge_features(GCConfig(**kw), torch.from_numpy(det),
-                         torch.from_numpy(np.asarray(ei)), (20, 24))
+    got = _edge_features(GCConfig(**kw), torch.from_numpy(det), torch.from_numpy(scores),
+                         torch.from_numpy(tags), torch.from_numpy(np.asarray(ei)), (20, 24))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -108,12 +110,20 @@ def test_edge_features_exact(feats, layout):
                                    ("position", "connection_type", "ae_normed")],
                          ids="+".join)
 def test_edge_feature_sets_no_config_uses_are_refused(feats):
-    """The angle and tag-distance sets, which no file of configs/ uses,
-    raise by name; nothing falls back to another set."""
-    det, _, _, ei, graph = _feature_inputs("score_based")
+    """The angle and tag-distance sets, which no file of configs/ uses, now
+    build (one column each but the hot vector's J; held against the JAX
+    package in test_torch_variants_graph.py); the same names in a set the
+    JAX package does not build (here with ``nothing`` added) raise by name,
+    and nothing falls back to another set."""
+    det, scores, tags, ei, graph = _feature_inputs("score_based")
+    args = (torch.from_numpy(det), torch.from_numpy(scores), torch.from_numpy(tags),
+            torch.from_numpy(np.asarray(ei)), (20, 24))
     cfg = GCConfig(num_joints=J, nodes_per_type=K, edge_features=feats, **graph)
+    width = len(feats) + (J - 1 if "connection_type" in feats else 0) + ("position" in feats)
+    assert tuple(_edge_features(cfg, *args).shape) == (ei.shape[1], width)
+    cfg = GCConfig(num_joints=J, nodes_per_type=K, edge_features=feats + ("nothing",), **graph)
     with pytest.raises(NotImplementedError, match="EDGE_FEATURES_TO_USE"):
-        _edge_features(cfg, torch.from_numpy(det), torch.from_numpy(np.asarray(ei)), (20, 24))
+        _edge_features(cfg, *args)
 
 
 def _segment_case(seed=0, e=200, s=13, d=5):
@@ -225,8 +235,14 @@ def test_construct_graph_batch_on_edge_lists(graph):
                                   ["TPU.TARGET_MAJOR", "False"]], ids=lambda o: o[1])
 def test_graphs_no_config_runs_are_refused(opts):
     """The per-type top-k graph, kNN in feature space and the kNN edge list,
-    which no file of configs/ runs, are refused when the config is set."""
+    which no file of configs/ runs, now load (held against the JAX package
+    in test_torch_variants_graph.py) and take the segment route; a graph
+    type neither package builds is refused when the config is set."""
     from pemp_tpu_torch.config import update_config_command, w32_512_train
+    from pemp_tpu_torch.config.defaults import plain_route
 
-    with pytest.raises(NotImplementedError, match=opts[0]):
-        update_config_command(w32_512_train(), opts)
+    cfg = update_config_command(w32_512_train(), opts)
+    assert not GCConfig.from_config(cfg).blocked
+    assert plain_route(cfg) == "segment"
+    with pytest.raises(NotImplementedError, match="MODEL.GC.GRAPH_TYPE"):
+        update_config_command(w32_512_train(), ["MODEL.GC.GRAPH_TYPE", f"{opts[1]}_2"])

@@ -232,16 +232,19 @@ def test_group_based_refuses_type_blocked_routes(route):
 
 
 @pytest.mark.parametrize("model,extra,key", [
-    ("tag", {"NAME": "NodeClassificationMPN", "NODE_STEPS": 2}, "NODE_STEPS"),
+    ("tag", {"NAME": "NodeClassificationMPNTypeBased", "NODE_STEPS": 2}, "NODE_STEPS"),
     ("group_based", {"NODE_STEPS": 1}, "NODE_STEPS"),
-    ("group_based", {"LATE_FUSION_POS": True}, "LATE_FUSION_POS"),
+    ("group_based", {"NAME": "NodeClassificationMPNTag", "LATE_FUSION_POS": True},
+     "LATE_FUSION_POS"),
     ("group_based", {"AGGR_TYPE": "agnostic"}, "AGGR_TYPE"),
     ("mpn_tag", {"AGGR_TYPE": "per_type"}, "agnostic only"),
 ])
 def test_variants_refused_at_build(model, extra, key):
-    """NODE_STEPS is open on the tag model only; the late-fused position
-    MLP stays refused (no file sets it); MPNTag takes the agnostic layer
-    only, as the JAX package's."""
+    """NODE_STEPS is open on the tag model and the flagship only (the JAX
+    models that read it); the late-fused position MLP on the flagship and
+    the group-based model only, the two JAX models that read it (both
+    held in test_torch_variants_layers.py and test_torch_mpn_tag.py's
+    routes); MPNTag takes the agnostic layer only, as the JAX package's."""
     with pytest.raises(NotImplementedError, match=key):
         get_mpn_model(_cfg(model, **extra))
 
