@@ -115,8 +115,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    weights get BatchNorm statistics measured on the images, so that
    persons form (full_width_model). First the pipeline over the images:
    the card's persons are held against the CPU's decode of the same
-   outputs (2e-3) on the even images (all 8 before phases 50-51 took the
-   smoke past 1050 s), and there must be some on the card's 8. Then a run with the counts
+   outputs (2e-3), and there must be some. Then a run with the counts
    zeroed just before and read just after (K1 10 times a batch), timed,
    whose results file must hold persons; prints img/s and peak memory.
    Then a run with each stage timed (host warp, backbone, projection,
@@ -126,8 +125,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    host through the g++ library built at first use) on the same images,
    the node threshold lowered from the file's 1.0 (which no sigmoid score
    passes) to 0.5; the same three runs, the host clustering and its decode
-   held against the same clustering decoded on the CPU on the odd images;
-   prints img/s and the host clustering's share.
+   held against the same clustering decoded on the CPU; prints img/s and
+   the host clustering's share.
 21. scoring: the ground truth as detections scores AP 1.0 through the
    port's KeypointEval; noisy detections score the stats the CPU tests pin
    against the JAX package.
@@ -169,8 +168,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain and bound ms as phases 3 and 6.
 26. model_81_1_2 through ``valid.evaluate`` at full width (w32/512, bf16,
    one scale, GAEC on the host at node threshold 0.5 as phase 20, CrowdPose
-   scoring) on 16 rendered images with 14 joints, as phase 20 (the CPU's
-   reference decode on the even images): K1 10 times a batch.
+   scoring) on 16 rendered images with 14 joints, as phase 20: K1 10
+   times a batch.
 27. model_81_1_2 training at full width (w32/512, batch 8, f32, pallas,
    synthetic 14-joint batches): one warm-up step and 3 timed steps, K2,
    K2b and G1 10 times each a step, losses finite; prints the device time
@@ -263,9 +262,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 39. the zoo at full width (model_58_4's w32/512, batch 8): simple through
    ``valid.evaluate`` as phase 36 (bf16, one scale, GAEC at node threshold
    0.5) on phase 19's 8 images, one batch (cut from 16 for the time
-   limit when phases 40-41 came; the CPU's reference decode on the odd
-   images since phases 50-51) with K1 12 times a batch (STEPS +
-   EDGE_STEPS); simple (K2 and G1
+   limit when phases 40-41 came) with K1 12 times a batch (STEPS + EDGE_STEPS); simple (K2 and G1
    12 a step, K2b 11), two_phase and self_attention (no kernel) through
    ``train()``, 4 steps in f32; prints img/s, the device time a step and
    the peak memory.
@@ -379,6 +376,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1267,23 +1265,70 @@ def capture_eval_inputs(pipe, images, name, steps=(0, 9)):
     return kept
 
 
+def check_feature_swaps(label, gc, gg, cpu_model):
+    """The feature kNN graphs of the CPU (``gc``) and the card (``gg``),
+    which may differ where two neighbours' float32 distances tie: the
+    nodes equal; each edge that differs differs in one endpoint (the
+    neighbour: row 1 in the forward block, row 0 in the reverse one), whose
+    distance from the endpoint both share (float64, on the CPU's features)
+    equals the other graph's within 1e-5 of the larger; ``edge_valid``
+    equal but on those edges and on the edges between a swapped pair's
+    nodes, whose mutual mask the swap changes. Returns the last step's
+    outputs of the CPU's MPN on the card's graph."""
+    for key in ("nodes", "node_valid"):
+        if not torch.equal(gc[key], gg[key]):
+            raise SystemExit(f"{label}: graph field {key} differs between CPU and card")
+    ic, ig = gc["edge_index"].long(), gg["edge_index"].long()
+    diff = ic != ig
+    if bool(diff.all(0).any()):
+        raise SystemExit(f"{label}: an edge differs in both endpoints between CPU and card")
+    differ = diff.any(0).nonzero()[:, 0]
+    row = diff[1, differ].long()[None]               # the row of the neighbour
+    fixed = ic[:, differ].gather(0, 1 - row)[0]
+    n_cpu, n_card = ic[:, differ].gather(0, row)[0], ig[:, differ].gather(0, row)[0]
+    x = gc["x"].double()
+    d_cpu = ((x[fixed] - x[n_cpu]) ** 2).sum(-1)
+    d_card = ((x[fixed] - x[n_card]) ** 2).sum(-1)
+    if not bool(((d_cpu - d_card).abs() <= 1e-5 * torch.maximum(d_cpu, d_card)).all()):
+        raise SystemExit(f"{label}: the feature kNN graphs differ past float32 rounding of "
+                         f"their distances")
+    n = x.shape[0]
+    pair = lambda a, b: torch.minimum(a, b) * n + torch.maximum(a, b)  # noqa: E731
+    swapped = torch.cat([pair(fixed, n_cpu), pair(fixed, n_card)])
+    slots = (gc["edge_valid"] != gg["edge_valid"]).nonzero()[:, 0]
+    free = torch.isin(slots, differ) | torch.isin(pair(ic[0, slots], ic[1, slots]), swapped)
+    if not bool(free.all()):
+        raise SystemExit(f"{label}: edge_valid differs between CPU and card on "
+                         f"{int((~free).sum())} edges no swap explains")
+    gb = SimpleNamespace(x=gg["x"], edge_attr=gg["edge_attr"], edge_index=gg["edge_index"],
+                         edge_valid=gg["edge_valid"], edge_src_local=gg["edge_src_local"],
+                         node_valid=gg["node_valid"], joint_det=gg["nodes"], joint_tags=None,
+                         node_labels=None, batch_index=gg["batch_index"])
+    with torch.no_grad():
+        preds = cpu_model.mpn_forward(gb)
+    log(f"{label}: {len(differ)} neighbours swapped within float32 rounding of their feature "
+        f"distances, {len(slots)} edge_valid flips on their pairs")
+    return {k: v[-1] for k, v in preds.items() if v is not None and v[-1] is not None}
+
+
 def phase_small_slice(msg_pass="auto", cfg=None, name="small slice", feature_ties=False):
     """The narrow test configuration (or ``cfg``, a small cut) on
     ``msg_pass``, same weights, CPU against card. ``feature_ties``: the
     graph is kNN among the node features, whose distances the card sums in
-    another order than the CPU; where the two graphs differ, each swapped
-    neighbour's distance (float64, on the CPU's features) must equal the
-    other's within 1e-5 of the larger, and the MPN outputs, which then read
-    other edges, are not compared."""
+    another order than the CPU; where the two graphs differ, they are held
+    by :func:`check_feature_swaps`, the CPU's MPN runs on the card's graph
+    and its outputs are held against the card's at the same 2e-3, and the
+    persons, which the decode forms on each side's own graph, are not
+    compared."""
     from pemp_tpu_torch.config import small
     from pemp_tpu_torch.pipeline import build_pipeline
 
     cfg = small() if cfg is None else cfg
     cfg.TPU.MSG_PASS = msg_pass
     imgs = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-    runs = {}
+    runs, pipes = {}, {}
     for dev in ("cpu", "cuda"):
-        pipe = build_pipeline(2, dtype=torch.float32, device=dev, cfg=cfg, seed=3)
+        pipe = pipes[dev] = build_pipeline(2, dtype=torch.float32, device=dev, cfg=cfg, seed=3)
         calm_mplayer(pipe.model)
         persons, valid, _, out = pipe.forward(imgs.to(dev))
         runs[dev] = (persons.cpu(), valid.cpu(),
@@ -1291,19 +1336,11 @@ def phase_small_slice(msg_pass="auto", cfg=None, name="small slice", feature_tie
                      {k: v[-1].cpu() for k, v in out["preds"].items()
                       if v is not None and v[-1] is not None})
     (pc, vc, gc, mc), (pg, vg, gg, mg) = runs["cpu"], runs["cuda"]
-    if feature_ties and not (torch.equal(gc["edge_index"], gg["edge_index"])
-                             and torch.equal(gc["edge_valid"], gg["edge_valid"])):
-        differ = (gc["edge_index"][1] != gg["edge_index"][1]).nonzero()[:, 0]
-        x = gc["x"].double()
-        src = gc["edge_index"][0, differ].long()
-        d_cpu = ((x[src] - x[gc["edge_index"][1, differ].long()]) ** 2).sum(-1)
-        d_card = ((x[src] - x[gg["edge_index"][1, differ].long()]) ** 2).sum(-1)
-        if not bool(((d_cpu - d_card).abs() <= 1e-5 * torch.maximum(d_cpu, d_card)).all()):
-            raise SystemExit(f"{name} {msg_pass}: the feature kNN graphs differ past float32 "
-                             f"rounding of their distances")
-        log(f"{name} {msg_pass}: {len(differ)} neighbours swapped within float32 rounding "
-            f"of their feature distances; MPN outputs not compared")
-        return
+    swapped = feature_ties and not (torch.equal(gc["edge_index"], gg["edge_index"])
+                                    and torch.equal(gc["edge_valid"], gg["edge_valid"]))
+    if swapped:
+        mc = check_feature_swaps(f"{name} {msg_pass}", gc, gg, pipes["cpu"].model)
+        gc = gg
     for key in ("nodes", "edge_index", "edge_valid", "node_valid"):
         if not torch.equal(gc[key], gg[key]):
             raise SystemExit(f"{name} {msg_pass}: graph field {key} differs between CPU "
@@ -1316,6 +1353,10 @@ def phase_small_slice(msg_pass="auto", cfg=None, name="small slice", feature_tie
     bad = {k: v for k, v in errs.items() if not v <= 2e-3}
     if bad:
         raise SystemExit(f"{name} {msg_pass}: MPN outputs differ: {bad}")
+    if swapped:
+        log(f"{name} {msg_pass}: the CPU's MPN on the card's graph vs the card's, max abs err "
+            f"{errs}; valid edges {int(ev.sum())}")
+        return
     if not (torch.equal(vc, vg) and torch.equal(pc[..., :2], pg[..., :2])
             and (pc[..., 2] - pg[..., 2]).abs().max().item() <= 1e-5):
         raise SystemExit(f"{name} {msg_pass}: persons differ between CPU and card")
@@ -2256,10 +2297,8 @@ def phase_model_81_1_2(card, sizes):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         eval_set = RenderedSet(tmp, rendered14, dataset14)
-        # the CPU's reference decode on half of the images (the even
-        # ones), as phases 30 and 36: the smoke passed 1050 s with phases 50-51
         out["K1"], times, dt = drive_valid("valid model_81_1_2 GAEC", cfg81, eval_set, 2, card,
-                                           tmp, model=model81, half=0)
+                                           tmp, model=model81)
     del model81
     torch.cuda.empty_cache()
     log(f"valid model_81_1_2 GAEC: host clustering and its decode {times['cluster']:.3f} s "
@@ -2820,8 +2859,7 @@ def phase_zoo_research(card, rendered, dataset):
         cfg = zoo("simple")
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid passes it
         steps = cfg.MODEL.MPN.STEPS + cfg.MODEL.MPN.EDGE_STEPS
-        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 1, card, tmp, k1=steps,
-                                    half=1)
+        k1, times, dt = drive_valid("valid simple", cfg, eval_set, 1, card, tmp, k1=steps)
         log(f"valid simple: host clustering and its decode {times['cluster']:.3f} s of the "
             f"staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")
     counts, _ = zoo_train_entry(card, ZOO_RESEARCH_TRAIN)
@@ -4166,18 +4204,14 @@ def main() -> int:
         eval_set = RenderedSet(tmp, *landscape(rendered, dataset))
         cfg = w48_640()
         cfg.merge_from_other({"TEST": {"FLIP_TEST": True, "SCALE_FACTOR": [2.0, 1.0, 0.5]}})
-        # the CPU's reference decode on half of the images, the even ones
-        # here and the odd ones in phase 20 (as phases 30 and 36): the
-        # smoke passed 1050 s with phases 50-51
         valid_launches, _, _ = drive_valid("valid w48/640 multi-scale + flip", cfg, eval_set,
-                                           1, card, tmp, half=0)
+                                           1, card, tmp)
 
         # 20. model_58_4 as its file says: w32/512, one scale, no flip, GAEC
         # on the host through the g++ library built at first use
         cfg = w32_512_train()
         cfg.MODEL.MPN.NODE_THRESHOLD = 0.5   # the file's 1.0: no sigmoid score passes it
-        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 1, card, tmp,
-                                       half=1)
+        count, times, dt = drive_valid("valid model_58_4 GAEC", cfg, eval_set, 1, card, tmp)
         valid_launches += count
         log(f"valid model_58_4 GAEC: host clustering and its decode {times['cluster']:.3f} s "
             f"of the staged run's {dt:.3f} ({100 * times['cluster'] / dt:.1f} %)")

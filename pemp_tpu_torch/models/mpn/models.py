@@ -35,8 +35,8 @@ TPU (pemp_tpu/models/pose_estimation.py:234-256) for the module's mode:
 (``pallas``: K2, differentiable through K2b) in training mode; ``pallas``
 (K2's bf16 form at eval), ``hybrid`` (K3, through K3b), ``einsum`` and
 ``dots`` (K4, through K4b) and ``fused_step`` (K1, through K2b, K1b and
-G1) run in both. The layer variants of the flagship and VanillaMPN
-(models.mpn.layers) take the form config.defaults.layer_route gives them
+G1) run in both. The layer variants, on every model whose layer reads
+them (models.mpn.layers), take the form config.defaults.layer_route gives them
 on that route, as the JAX layer does on a TPU: the per-type edge MLP takes
 K2 where the route names the fused step, an aggregation other than one
 attention head the split linear (``einsum``'s on the symmetric layout,
@@ -97,57 +97,57 @@ from pemp_tpu_torch.models.mpn.layers import (
 from pemp_tpu_torch.ops.gather_mm import gather_plan
 from pemp_tpu_torch.ops.knn import reverse_edge_perm
 
-# the MPN keys' values every model implements, absent keys taking them
-_PORTED = {"EDGE_MLP": "agnostic", "USE_NODE_UPDATE_MLP": False, "DROP_FEATURE": "",
-           "LATE_FUSION_POS": False, "NODE_STEPS": 0}
-# and of the per-type layer on every route (attention aggregation, mlp update)
-_PER_TYPE_LAYER = {"AGGR_SUB": "node_edge_attn", "UPDATE_TYPE": "mlp"}
-# the flagship (and its background-class name) and VanillaMPN take the JAX
-# package's variants of these keys where the JAX model reads them
-# (:func:`_variant_values`); the other models, which no test holds with
-# them, keep the values above
-_FLAGSHIP = ("NodeClassificationMPN", "NodeClassificationMPNWithBackground")
 # the models whose layer is MPLayer (or, VanillaMPN2, a kernel-free one of
 # its own) whatever AGGR_TYPE says, and those that take NODE_STEPS
 _AGNOSTIC = (*AGNOSTIC_MPNS, "MPNTag")
-_NODE_STEPS = ("NodeClassificationMPNTag", "NodeClassificationMPNAttention",
-               "NodeClassificationMPNWithRef", *_FLAGSHIP)
+_NODE_STEPS = ("NodeClassificationMPN", "NodeClassificationMPNWithBackground",
+               "NodeClassificationMPNTag", "NodeClassificationMPNAttention",
+               "NodeClassificationMPNWithRef")
+# the model-level keys: the default, the values the port runs beside it,
+# and the models that read the key (the other JAX models ignore it; the
+# port refuses it there)
+_MODEL_KEYS = {
+    "LATE_FUSION_POS": (False, (True,), ("NodeClassificationMPN",
+                                         "NodeClassificationMPNWithBackground",
+                                         "NodeClassificationMPNGroupBased")),
+    "DROP_FEATURE": ("", ("edge_dist",), ("VanillaMPN",)),
+}
+# the models whose MPLayer the JAX package builds without the node update
+# MLP (pemp_tpu/models/mpn/zoo.py:167-170), and VanillaMPN2, whose own
+# layer reads neither EDGE_MLP nor (not ported) USE_NODE_UPDATE_MLP
+_NO_UPDATE_MLP = ("NodeClassificationMPNSelfAttention", "VanillaMPN2")
 # the baselines, which pass no message (pemp_tpu/models/mpn/models.py:461-508)
 _BASELINES = ("TagThreshold", "PlainTag", "LogisticEdgeClassifier")
 
 
-def _variant_values(name: str, agnostic: bool) -> dict:
-    """The values of :data:`_PORTED`'s keys model ``name`` runs beside the
-    defaults, where the JAX model reads the key: the per-type edge MLP on
-    the flagship's layers and VanillaMPN's MPLayer (``per_type_2`` the same
-    on the per-type layer; MPLayer raises on it), MPLayer's node update
-    MLP, the late-fused position MLP on the flagship and the group-based
-    model, VanillaMPN's dropped edge distances."""
-    values = {}
-    if name in _FLAGSHIP or name == "VanillaMPN":
-        values["EDGE_MLP"] = ("per_type",) if agnostic else ("per_type", "per_type_2")
-        if agnostic:
-            values["USE_NODE_UPDATE_MLP"] = (True,)
-    if name in _FLAGSHIP or name == "NodeClassificationMPNGroupBased":
-        values["LATE_FUSION_POS"] = (True,)
-    if name == "VanillaMPN":
-        values["DROP_FEATURE"] = ("edge_dist",)
-    return values
+def _refuse(c: dict, key: str, default, values, name: str) -> None:
+    value = c.get(key, default)
+    if value != default and value not in values:
+        raise NotImplementedError(f"MPN {key}={value!r}: not ported on {name} ({key}="
+                                  f"{(default, *values)!r} are)")
 
 
-def _check_per_type_layer(c: dict, name: str) -> None:
-    """The per-type layer's ``AGGR_SUB``, ``AGGR`` and ``UPDATE_TYPE``: on
-    the flagship any ``AGGR_SUB`` (the two attentions, else the per-type
-    aggregation by ``AGGR``: add, max, mean) and the ``mlp`` or
-    ``hierarch_mlp`` update (the latter at 17 or 14 types, the two counts
-    its hierarchy is written for); on the other models the values of
-    :data:`_PER_TYPE_LAYER`."""
-    if name not in _FLAGSHIP:
-        for key, value in _PER_TYPE_LAYER.items():
-            if c.get(key, value) != value:
-                raise NotImplementedError(f"MPN {key}={c.get(key)!r}: not ported on {name} "
-                                          f"({key}={value!r} is)")
+def _check_layer_keys(c: dict, name: str, agnostic: bool) -> None:
+    """The keys the model's layer reads, as the JAX layers read them on
+    every model: MPLayer's per-type edge MLP (``per_type``; the JAX
+    MPLayer raises on ``per_type_2``) and node update MLP; the per-type
+    layer's edge MLP (``per_type_2`` the same as ``per_type``), any
+    ``AGGR_SUB`` (the two attentions, else the per-type aggregation by
+    ``AGGR``: add, max, mean) and the ``mlp`` or ``hierarch_mlp`` update
+    (the latter at 17 or 14 types, the two counts its hierarchy is written
+    for)."""
+    if agnostic:
+        _refuse(c, "EDGE_MLP", "agnostic", () if name == "VanillaMPN2" else ("per_type",), name)
+        _refuse(c, "USE_NODE_UPDATE_MLP", False, () if name in _NO_UPDATE_MLP else (True,),
+                name)
+        if c.get("EDGE_MLP", "agnostic") != "agnostic" and c.get(
+                "NODE_TYPE_SUMMARY", "not") != "not":
+            raise NotImplementedError(
+                f"{name}: MPLayer's per-type edge MLP with a NODE_TYPE_SUMMARY (the JAX models "
+                f"type its ends by the raw types, or VanillaMPN its sources by the summary)")
         return
+    _refuse(c, "EDGE_MLP", "agnostic", ("per_type", "per_type_2"), name)
+    _refuse(c, "USE_NODE_UPDATE_MLP", False, (), name)
     sub = c.get("AGGR_SUB", "node_edge_attn")
     if sub not in ("node_edge_attn", "node_edge_attn_per_type") and c.get("AGGR") not in (
             "add", "max", "mean"):
@@ -171,10 +171,10 @@ def mpn_cfg_from_config(mpn_config) -> dict:
 
 def _check_flagship(c: dict) -> None:
     """Raises ``NotImplementedError`` unless the port has the MPN ``c``
-    asks for: a model of :func:`registry`, the values of :data:`_PORTED`
-    and :func:`_variant_values` (``NODE_STEPS`` free on the models of
-    :data:`_NODE_STEPS`), a known aggregation type, the per-type layer's
-    values (:func:`_check_per_type_layer`), and on the kernel
+    asks for: a model of :func:`registry`, the model-level keys where the
+    model reads them (:data:`_MODEL_KEYS`; ``NODE_STEPS`` on the models of
+    :data:`_NODE_STEPS`), a known aggregation type, the keys its layer
+    reads (:func:`_check_layer_keys`), and on the kernel
     routes (``_PLAIN_ROUTE`` unset) skip connections and the blocked,
     type-blocked layout."""
     name = c.get("NAME")
@@ -209,21 +209,11 @@ def _check_flagship(c: dict) -> None:
             f"NodeClassificationMPNWithRef with NODE_STEPS={c['NODE_STEPS']}: its node stack's "
             f"edge width changes after one pass (the JAX model fails at the second)")
     agnostic = name in _AGNOSTIC or c["AGGR_TYPE"] == "agnostic"
-    values = _variant_values(name, agnostic)
-    for key, default in _PORTED.items():
-        value = c.get(key, default)
-        if key == "NODE_STEPS" and name in _NODE_STEPS:
-            continue
-        if value != default and value not in values.get(key, ()):
-            raise NotImplementedError(f"MPN {key}={value!r}: not ported on {name} ({key}="
-                                      f"{(default, *values.get(key, ()))!r} are)")
-    if name == "VanillaMPN" and c.get("EDGE_MLP", "agnostic") != "agnostic" and c.get(
-            "NODE_TYPE_SUMMARY", "not") != "not":
-        raise NotImplementedError("VanillaMPN's per-type edge MLP with a NODE_TYPE_SUMMARY: the "
-                                  "JAX model types the sources by the summary and the targets "
-                                  "by the raw types")
-    if not agnostic:
-        _check_per_type_layer(c, name)
+    for key, (default, values, models) in _MODEL_KEYS.items():
+        _refuse(c, key, default, values if name in models else (), name)
+    if name not in _NODE_STEPS:
+        _refuse(c, "NODE_STEPS", 0, (), name)
+    _check_layer_keys(c, name, agnostic)
     if agnostic or c.get("_PLAIN_ROUTE"):
         return
     if not c.get("SKIP"):
@@ -587,7 +577,7 @@ class NodeClassificationMPNTag(_Steps):
         super().__init__()
         self._setup(mpn_cfg)
         c = self.cfg
-        nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+        nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
         self.node_embedding, self.edge_embedding = _embeddings(c)
         self.mpn_node_cls = _shared_layer(c, self.num_types)
         if c.get("NODE_STEPS", 0):
@@ -643,7 +633,7 @@ class NodeClassificationMPNGroupBased(_Steps):
         c = self.cfg
         self.node_embedding, self.edge_embedding = _embeddings(c)
         self.mpn_node_cls = _type_aware_layer(c, self.num_types)
-        nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+        nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
         self.edge_classification = MLP(ed, c["EDGE_CLASS"]["OUTPUT_SIZES"], c["BN"])
         self.node_classification = MLP(nd, c["NODE_CLASS"]["OUTPUT_SIZES"], c["BN"])
         self.classification = MLP(nd, c["CLASS"]["OUTPUT_SIZES"], c["BN"])

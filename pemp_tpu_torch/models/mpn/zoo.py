@@ -47,7 +47,13 @@ from pemp_tpu_torch.models.mpn.layers import (
     _split_edge_mlp,
     _targets_part,
 )
-from pemp_tpu_torch.models.mpn.models import _embeddings, _mp_layer, _shared_layer, _Steps
+from pemp_tpu_torch.models.mpn.models import (
+    _embeddings,
+    _mp_layer,
+    _shared_layer,
+    _Steps,
+    edge_width,
+)
 from pemp_tpu_torch.ops.segment import segment_max, segment_sum
 
 # the width of SelfAttention's keys, queries and values (reference
@@ -63,7 +69,7 @@ def _head(c: dict, key: str, in_dim: int | None = None):
     """The MLP head ``key`` (``EDGE_CLASS``, ``NODE_CLASS``, ``CLASS``) on
     the node or edge features, with ``MPN.BN``."""
     if in_dim is None:
-        in_dim = c["EDGE_FEATURE_DIM"] if key == "EDGE_CLASS" else c["NODE_FEATURE_DIM"]
+        in_dim = edge_width(c) if key == "EDGE_CLASS" else c["NODE_FEATURE_DIM"]
     return MLP(in_dim, c[key]["OUTPUT_SIZES"], c["BN"])
 
 
@@ -162,14 +168,17 @@ class NodeClassificationMPNSelfAttention(_Zoo):
         super().__init__()
         self._setup(mpn_cfg)
         c = self.cfg
-        nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+        nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
         self.node_embedding, self.edge_embedding = _embeddings(c, None, _node_end(c))
         node_in, edge_in = nd + _ATTN, ed
         if c["SKIP"]:
             node_in += c["NODE_EMB"]["OUTPUT_SIZES"][-1]
             edge_in += c["EDGE_EMB"]["OUTPUT_SIZES"][-1]
-        self.mpn_node_cls = MPLayer(node_in, edge_in, nd, ed, c["EDGE_FEATURE_HIDDEN"],
-                                    c["AGGR"])
+        # the JAX model builds it without the node update MLP (zoo.py:167-170)
+        self.mpn_node_cls = MPLayer(node_in, edge_in, nd, c["EDGE_FEATURE_DIM"],
+                                    c["EDGE_FEATURE_HIDDEN"], c["AGGR"],
+                                    edge_mlp=c.get("EDGE_MLP", "agnostic"),
+                                    num_types=c["NUM_JOINTS"])
         self.key_transform = Linear(nd, _ATTN)
         self.query_transform = Linear(c["NODE_INPUT_DIM"], _ATTN)
         self.value_transform = Linear(c["NODE_INPUT_DIM"], _ATTN)
@@ -375,7 +384,7 @@ class NodeClassificationMPNSimpleWithRef(_Zoo):
     ``edge_classification``; then ``NODE_STEPS`` passes of a second layer
     ``mpn_node_cls`` whose initial features are the first stack's final
     nodes and ``cat[trunk, final edges]`` (its ``init_edge_dim`` the trunk
-    width plus ``EDGE_FEATURE_DIM``), and the node and class heads.
+    width plus the edge carry's), and the node and class heads.
 
     The node stack's carry starts as its initial edges, so its width
     changes after one pass: the JAX model fails at a second, and the port
@@ -387,7 +396,7 @@ class NodeClassificationMPNSimpleWithRef(_Zoo):
         super().__init__()
         self._setup(mpn_cfg)
         c = self.cfg
-        nd, ed = c["NODE_FEATURE_DIM"], c["EDGE_FEATURE_DIM"]
+        nd, ed = c["NODE_FEATURE_DIM"], edge_width(c)
         self.node_embedding, self.edge_embedding = _embeddings(c)
         self.mpn_edge_cls = _shared_layer(c, self.num_types)
         sizes = c["EDGE_CLASS"]["OUTPUT_SIZES"]
@@ -396,13 +405,18 @@ class NodeClassificationMPNSimpleWithRef(_Zoo):
         if c.get("NODE_STEPS", 0):
             init = sizes[-2] + ed
             node_in, edge_in = (2 * nd, 2 * init) if c["SKIP"] else (nd, init)
+            edge_mlp = c.get("EDGE_MLP", "agnostic")
             if c["AGGR_TYPE"] == "agnostic":
-                self.mpn_node_cls = MPLayer(node_in, edge_in, nd, ed, c["EDGE_FEATURE_HIDDEN"],
-                                            c["AGGR"])
+                self.mpn_node_cls = MPLayer(
+                    node_in, edge_in, nd, c["EDGE_FEATURE_DIM"], c["EDGE_FEATURE_HIDDEN"],
+                    c["AGGR"], edge_mlp=edge_mlp, num_types=self.num_types,
+                    use_node_update_mlp=c.get("USE_NODE_UPDATE_MLP", False))
             else:
                 self.mpn_node_cls = TypeAwareMPNLayer(
                     node_in=node_in, edge_in=edge_in, init_edge_dim=init, node_dim=nd,
-                    edge_dim=ed, edge_hidden=c["EDGE_FEATURE_HIDDEN"], num_types=self.num_types)
+                    edge_dim=c["EDGE_FEATURE_DIM"], edge_hidden=c["EDGE_FEATURE_HIDDEN"],
+                    num_types=self.num_types, edge_mlp=edge_mlp, aggr=c["AGGR"],
+                    aggr_sub=c["AGGR_SUB"], update_type=c.get("UPDATE_TYPE", "mlp"))
         self.node_classification = _head(c, "NODE_CLASS")
         self.classification = _head(c, "CLASS")
 

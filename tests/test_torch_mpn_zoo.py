@@ -294,13 +294,16 @@ def test_routes_of_the_zoo():
     ("NodeClassificationMPNWithRef", {"NODE_STEPS": 2}, "NODE_STEPS=2"),
     ("ClassificationMPN", {"NODE_STEPS": 1}, "NODE_STEPS"),
     ("VanillaMPN2", {"USE_NODE_UPDATE_MLP": True}, "USE_NODE_UPDATE_MLP"),
-    ("NodeClassificationMPNTypeConstrained", {"EDGE_MLP": "per_type"}, "EDGE_MLP"),
+    ("NodeClassificationMPNTypeConstrained", {"EDGE_MLP": "per_type_3"}, "EDGE_MLP"),
     ("NodeClassificationMPNSelfAttention", {"USE_NODE_UPDATE_MLP": True},
      "USE_NODE_UPDATE_MLP"),
 ])
 def test_zoo_variants_refused(name, extra, match):
     """What neither package runs (Simple's summary, WithRef's second node
-    pass), and the variants no file sets, raise by name at build."""
+    pass, an unknown edge MLP), and the keys a model's layer does not read
+    (VanillaMPN2's own layer is built without MPLayer's update MLP here,
+    SelfAttention's MPLayer without it in both packages), raise by name at
+    build."""
     with pytest.raises(NotImplementedError, match=match):
         get_mpn_model({**_cfg("simple"), "NAME": name, **extra})
 

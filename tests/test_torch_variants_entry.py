@@ -8,14 +8,9 @@ set written by tools/make_fake_coco.py (one scale with flip, threshold
 grouping) for a kernel-route variant, the per-type edge MLP (K2's plain
 version here, where the route names the fused step), and an edge-list one,
 the kNN edge list (the segment route): keypoints within 2e-3, scores within
-1e-4. ``train()`` is not held here against tools/train.py's
-``make_train_step`` for a variant: the JAX step takes about a minute to
-compile on the CPU for each, and the suite runs close to its 1470 s limit
-(1360 s on the parent's tree). A variant's training step is held through
-the trainer (``TrainStep.loss``, which ``train()`` steps) in
-test_torch_variants_model.py, every MPN variant's gradients in
-test_torch_variants_layers.py, and ``train()``'s loop is the one
-test_torch_ablation_train.py holds for the deltas of configs/."""
+1e-4. ``train()`` for the same two is held against tools/train.py in
+test_torch_train_variants.py, a file of its own, so that the test
+runner's workers share the two files' minutes."""
 
 import pytest
 import test_torch_ablation_valid as ablation_valid

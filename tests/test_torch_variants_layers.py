@@ -24,7 +24,10 @@ layout routes (K2b's plain version on `pallas` and where the route names
 the fused step, K4b's on `dots`), the per-type attention and the per-type
 maximum on `pallas` and `dots`, the node-only stack with the late-fused
 embedding (one run) on `pallas` and the fused step, and MPLayer's
-per-type edge MLP with its update MLP on an edge list. The hierarchical
+per-type edge MLP with its update MLP on an edge list; two zoo models
+read the layer keys as the flagship does (TypeBased's per-type edge MLP
+and hierarchy on `pallas`, the Attention model's MPLayer options on
+`agnostic`). The hierarchical
 update's gradients are held on the module alone (its JAX step through the
 MPN takes half a minute to compile on the CPU): what reaches the kernels'
 backwards is the cotangent of the (N, T, D) messages, whatever update
@@ -88,6 +91,12 @@ VARIANTS = {
     "vanilla_per_type": ({"NAME": "VanillaMPN", "AGGR_TYPE": "agnostic", "EDGE_MLP": "per_type",
                           "USE_NODE_UPDATE_MLP": True, "DROP_FEATURE": "edge_dist"},
                          ("agnostic_list",), ()),
+    # the zoo's models read the layer keys as the flagship does: TypeBased
+    # on the per-type layer, the Attention model on MPLayer
+    "zoo_type_based": ({"NAME": "NodeClassificationMPNTypeBased", "EDGE_MLP": "per_type",
+                        "UPDATE_TYPE": "hierarch_mlp"}, ("pallas",), ("pallas",)),
+    "zoo_attention": ({"NAME": "NodeClassificationMPNAttention", "AGGR_TYPE": "agnostic",
+                       "EDGE_MLP": "per_type", "USE_NODE_UPDATE_MLP": True}, ("agnostic",), ()),
 }
 RUNS = [(v, r, mode) for v, (_, ev, tr) in VARIANTS.items()
         for mode, routes in (("eval", ev), ("train", tr)) for r in routes]
@@ -337,15 +346,15 @@ def test_variant_route_forms(variant, route, train, form):
      "DROP_FEATURE"),
     ({"NAME": "VanillaMPN", "AGGR_TYPE": "agnostic", "LATE_FUSION_POS": True},
      "LATE_FUSION_POS"),
-    ({"NAME": "NodeClassificationMPNTypeBased", "EDGE_MLP": "per_type"}, "EDGE_MLP"),
-    ({"NAME": "NodeClassificationMPNTag", "UPDATE_TYPE": "hierarch_mlp"}, "UPDATE_TYPE"),
+    ({"NAME": "VanillaMPN2", "AGGR_TYPE": "agnostic", "EDGE_MLP": "per_type"}, "EDGE_MLP"),
+    ({"NAME": "NodeClassificationMPNTag", "UPDATE_TYPE": "hierarch_cnn"}, "UPDATE_TYPE"),
 ])
 def test_values_neither_package_runs_are_refused(extra, key):
-    """What neither package implements (an unknown edge MLP or update, the
-    per_type_2 edge MLP on MPLayer, which the JAX MPLayer raises on, the
-    hierarchy at 9 summary types, an unknown aggregation), a key on a model
-    that does not read it, and the variants on the models no test holds
-    with them, raise by name at build."""
+    """What neither package implements (an unknown edge MLP or update, on
+    the flagship or a zoo model, the per_type_2 edge MLP on MPLayer, which
+    the JAX MPLayer raises on, the hierarchy at 9 summary types, an unknown
+    aggregation), and a key on a model that does not read it (VanillaMPN2's
+    own layer has no per-type edge MLP), raise by name at build."""
     with pytest.raises(NotImplementedError, match=key):
         get_mpn_model({**_cfg("edge_mlp_per_type", "asym", False), "EDGE_MLP": "agnostic",
                        **extra})

@@ -27,22 +27,20 @@ Training: one step through the trainer (``build_trainer``,
 ``TrainStep.loss``) on the top-k graph, the largest edge list, with its
 labels (the layer tests, test_torch_variants_layers.py, hold every MPN
 variant's gradients, the graph tests, test_torch_variants_graph.py, every
-new graph's labels, and test_torch_variants_entry.py the per-type edge
-MLP through ``train()``):
-labels and masks exactly, the loss within 1e-4, and every MPN parameter's
-gradient within 5e-3 of its largest, against the JAX loss factory's value
-and gradients on the JAX graph and MPN in training mode (the edge, node
-and class losses: the backbone's heatmap loss reaches no MPN weight, and
-leaving it out keeps the JAX side to the graph and MPN). Where a JAX
-float32 gradient is itself further than that from the same step in float64
-(the port's step on float64 weights and inputs, whose plain versions
-compute float64 in float64), the port's float32 gradient is held to the
-float64 one within 5e-3 instead, and the JAX one to it within 5e-2: on the
-top-k graph the JAX float32 gradient of one row of the node embedding's
-first weight (one BatchNorm unit) is 1.7-3.7 % from float64 (eager and
-jitted; the port's float32 4.4e-4), and with it that layer's bias and one
-type's message weight. At most a tenth of the MPN's tensors may take the
-float64 reference.
+new graph's labels, and test_torch_variants_entry.py ``train()`` on a
+kernel-route variant and an edge-list one): labels and masks exactly, the
+loss within 1e-4, and every MPN parameter's gradient within 5e-3 of its
+largest, against the JAX loss factory's value and gradients on the JAX
+graph and MPN in training mode (the edge, node and class losses: the
+backbone's heatmap loss reaches no MPN weight, and leaving it out keeps
+the JAX side to the graph and MPN). The JAX graph is built from the maps
+of the port's backbone, the ones the trainer's step reads: on the JAX
+backbone's maps, which differ from them by float32 rounding (node
+features within 1.3e-5), one type's message-MLP gradient on this graph
+differs from the port's by 7e-3 of its largest, in float64 as in float32:
+the step is that sensitive to its inputs here. On the same maps every
+gradient agrees within 5e-4.
+The backbone is held against the JAX one by the eval tests above.
 """
 
 import functools
@@ -187,7 +185,16 @@ def test_variant_training_step_matches_jax(name):
     cfg, jm, variables, batch, _ = _variant_jax(name, "small", True)
     jcfg = jax_config(cfg)
     factory = jax_dispatch_loss_func(jcfg)
-    sm, feat, tags = _backbone("small")[2]
+    trainer = build_trainer(cfg, device="cpu")
+    _load(trainer.model, cfg, variables)
+    trainer.model.train()
+    tb = batch_to_torch(batch, "cpu")
+    with torch.no_grad():           # the maps the trainer's step reads
+        sm, feat, tags = (jnp.asarray(m.numpy())
+                          for m in trainer.model.backbone_forward(tb["imgs"])[1:])
+    p_loss, _, out = trainer.loss(tb)
+    p_loss.backward()
+    got = dict(trainer.model.mpn.named_parameters())
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
 
     def loss_fn(mpn_params):
@@ -217,23 +224,6 @@ def test_variant_training_step_matches_jax(name):
 
     (loss, (labels, masks)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         variables["params"]["mpn"])
-    runs = {}
-    for dtype in (torch.float32, torch.float64):
-        trainer = build_trainer(cfg, device="cpu")
-        _load(trainer.model, cfg, variables)
-        trainer.model.train()
-        tb = batch_to_torch(batch, "cpu")
-        if dtype == torch.float64:
-            trainer.model.double()
-            trainer.model.dtype = dtype
-            tb = {k: [x.double() for x in v] if isinstance(v, list) else
-                  (v.double() if v.is_floating_point() else v) for k, v in tb.items()}
-        p_loss, _, out = trainer.loss(tb)
-        p_loss.backward()
-        runs[dtype] = (p_loss, out, {k: p.grad for k, p in trainer.model.mpn.named_parameters()},
-                       dict(trainer.model.mpn.named_parameters()))
-    p_loss, out, _, got = runs[torch.float32]
-    f64 = runs[torch.float64][2]
     for key in ("node", "class", "person"):
         np.testing.assert_array_equal(out["labels"][key].numpy(), np.asarray(labels[key]),
                                       err_msg=key)
@@ -245,7 +235,6 @@ def test_variant_training_step_matches_jax(name):
                                   mpn_cfg_from_config(cfg.MODEL.MPN))
     assert set(got) <= set(want)
     top = max(float(want[k].abs().max()) for k in got)
-    to_f64 = []
     for key, p in got.items():
         w = want[key].numpy()
         g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
@@ -253,12 +242,4 @@ def test_variant_training_step_matches_jax(name):
         if scale <= 1e-6 * top:          # the attention bias: zero to rounding
             assert float(np.abs(g).max()) <= 1e-6 * top, key
             continue
-        if np.abs(g - w).max() <= 5e-3 * scale:
-            continue
-        ref = f64[key].numpy()
-        ref_scale = float(np.abs(ref).max())
-        np.testing.assert_allclose(g, ref, rtol=0, atol=5e-3 * ref_scale, err_msg=key)
-        np.testing.assert_allclose(w, ref, rtol=0, atol=5e-2 * ref_scale, err_msg=key)
-        to_f64.append(key)
-    # the fallback is for the odd ill-conditioned tensor, not the step
-    assert len(to_f64) <= len(got) // 10, to_f64
+        np.testing.assert_allclose(g, w, rtol=0, atol=5e-3 * scale, err_msg=key)
